@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+The sources in ``avsiam_tpu_torch/csrc/*.cu`` have a plain C interface. At
+first use, ``library()`` compiles each source with ``nvcc`` for ``sm_90a``
+(all sources at once, one process each), links the objects into one shared
+library under ``build/avsiam_tpu_torch/`` at the root of the checkout (named
+by a hash of the sources and flags, so an edit rebuilds it) and loads it with
+ctypes. Nothing is built when a module is imported: the CPU tests import
+every module of the port and have no ``nvcc``.
+
+``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that the
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "avsiam_tpu_torch"
+SOURCES = ("attention.cu", "ln_mlp.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "ln_mlp_fwd": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p, or ctypes would
+# pass them as 32-bit ints and cut them
+_SIGNATURES = {
+    # qkv, key_valid, out, stats, B, N, H, D, dtype, scale, stream
+    "avsiam_attn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, key_valid, out, dout, stats, delta, dqkv, B, N, H, D, dtype,
+    # scale, stream
+    "avsiam_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _P),
+    # x, ln_g, ln_b, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits,
+    # dtype, eps, stream
+    "avsiam_ln_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _F, _P),
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _build(nvcc: str, lib_path: Path) -> None:
+    """Compile every source in parallel, then link them into ``lib_path``;
+    the compilers' output (registers, spills) goes to ``build.log``. Objects
+    and the library are written in a private directory and the library is
+    renamed into place, so concurrent builds cannot mix their files."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = Path(tmp) / f"{Path(src).stem}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        log, failed = [], []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            log.append(f"== {src} (rc {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if not failed:
+            tmp_lib = Path(tmp) / lib_path.name
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+            if link.returncode == 0:
+                os.replace(tmp_lib, lib_path)
+            else:
+                failed.append("link")
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"kernel build failed ({', '.join(failed)}):\n"
+                           + "\n".join(log)[-6000:])
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sorted(CSRC.iterdir()):
+            digest.update(src.name.encode() + src.read_bytes())
+        lib_path = BUILD_DIR / f"libavsiam_tpu_torch_{digest.hexdigest()[:12]}.so"
+        if not lib_path.exists():
+            _build(_nvcc(), lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError()``)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

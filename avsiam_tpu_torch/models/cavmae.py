@@ -1,0 +1,299 @@
+"""CAV-MAE pretraining model of the port: siamese audio-visual MAE plus the
+multi-ratio contrastive encoder.
+
+Counterpart of ``avsiam_tpu/models/cavmae.py:CAVMAEPretrain``. The forward
+returns the same 8-tuple (loss, loss_mae, loss_mae_a, loss_mae_v, loss_c,
+mask_a, mask_v, c_acc). Two encoder copies, ``vit`` and ``ast``: the MAE
+branch runs audio through ``ast`` blocks with the shared norms and video
+through ``vit`` blocks with the 'v' norms; the contrastive branch runs both
+modalities through ``vit`` with 'a'/'v' routing.
+
+Random draws are tensors (``MaskDraws``): the forward takes them explicitly,
+or draws them from a caller's ``torch.Generator``. This slice ports the
+'exact' multi-ratio encoder only (each chunk gathered to its own length);
+the other forms come later.
+
+The MAE decoder runs at its true length (La + Lv = 708 at ViT-B): the JAX
+package pads it to 720 for the TPU's tiling, while the port's attention
+kernel masks the ragged edge itself.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from avsiam_tpu_torch.configs import CAVMAEConfig
+from avsiam_tpu_torch.device import resolve_device
+from avsiam_tpu_torch.models.layers import (Dense, LayerNormFP32,
+                                            ModalityBlock, SiameseViT)
+from avsiam_tpu_torch.ops import masking as mk
+from avsiam_tpu_torch.ops.contrastive import info_nce_gathered
+from avsiam_tpu_torch.ops.gather import take_batch, take_tokens
+from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
+
+
+def chunk_sizes(batch: int, num_chunks: int) -> list[int]:
+    """torch.chunk semantics: ceil(B/n)-sized chunks, the last one smaller;
+    empty chunks dropped."""
+    size = -(-batch // num_chunks)
+    sizes = []
+    rem = batch
+    while rem > 0:
+        sizes.append(min(size, rem))
+        rem -= size
+    return sizes
+
+
+@dataclass
+class MaskDraws:
+    """The random numbers of one forward.
+
+    MAE branch: ``noise_a`` [B, La] and ``noise_v`` [B, Lv], the uniform
+    noise whose argsort picks the kept tokens. Contrastive branch:
+    ``perm_a``/``perm_v`` [B], the batch permutations cut into chunks;
+    ``chunk_a[i]`` = (base [b_i, f, t], r_t [b_i, t], r_f [b_i, f]), the
+    uniforms of chunk i's structured 'tf' audio noise; ``chunk_v[i]``
+    [b_i, Lv], chunk i's video noise."""
+
+    noise_a: Optional[torch.Tensor] = None
+    noise_v: Optional[torch.Tensor] = None
+    perm_a: Optional[torch.Tensor] = None
+    perm_v: Optional[torch.Tensor] = None
+    chunk_a: Optional[List[Tuple[torch.Tensor, torch.Tensor,
+                                 torch.Tensor]]] = None
+    chunk_v: Optional[List[torch.Tensor]] = None
+
+
+def draw_masks(cfg: CAVMAEConfig, batch: int, generator: torch.Generator,
+               device, mae: bool = True, contrast: bool = True) -> MaskDraws:
+    """Draw a forward's random numbers from ``generator`` (on ``device``)."""
+    v = cfg.vit
+    La, Lv = v.num_audio_tokens, v.num_video_tokens
+    f, t = v.audio_grid
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    d = MaskDraws()
+    if mae:
+        d.noise_a, d.noise_v = uniform(batch, La), uniform(batch, Lv)
+    if contrast:
+        d.perm_a = torch.randperm(batch, generator=generator, device=device)
+        d.perm_v = torch.randperm(batch, generator=generator, device=device)
+        sizes = chunk_sizes(batch, cfg.mmixed_num_chunks)
+        d.chunk_a = [(uniform(b, f, t), uniform(b, t), uniform(b, f))
+                     for b in sizes]
+        d.chunk_v = [uniform(b, Lv) for b in sizes]
+    return d
+
+
+class MAEDecoder(nn.Module):
+    """MAE decoder: embed 768 -> 512, mask-token restore, zero-initialised
+    trainable pos/modality embeddings, blocks with the shared norms, and
+    per-modality prediction heads."""
+
+    def __init__(self, cfg: CAVMAEConfig, device):
+        super().__init__()
+        c = cfg
+        d = c.decoder
+        p = c.vit.patch_size
+        dt = c.dtype
+        self.cfg = c
+        self.embed = Dense(c.vit.dim, d.dim, dt, device)
+        self.pos_embed_a = nn.Parameter(
+            torch.zeros(1, c.vit.num_audio_tokens, d.dim, device=device))
+        self.pos_embed_v = nn.Parameter(
+            torch.zeros(1, c.vit.num_video_tokens, d.dim, device=device))
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, d.dim, device=device))
+        self.modality_a = nn.Parameter(torch.zeros(1, 1, d.dim, device=device))
+        self.modality_v = nn.Parameter(torch.zeros(1, 1, d.dim, device=device))
+        dec_mlp = c.dec_mlp_impl or c.mlp_impl
+        self.blocks = nn.ModuleList(
+            ModalityBlock(d.dim, d.num_heads, d.mlp_ratio, True, d.ln_eps, dt,
+                          c.attn_impl, c.vit.gelu, dec_mlp, device)
+            for _ in range(d.depth))
+        self.norm = LayerNormFP32(d.dim, d.ln_eps, dt, device)
+        self.pred_a = Dense(d.dim, p * p * 1, dt, device)
+        self.pred_v = Dense(d.dim, p * p * 3, dt, device)
+
+    def forward(self, x, ids_restore_a, ids_restore_v, len_keep_a: int,
+                len_keep_v: int):
+        c = self.cfg
+        La, Lv = c.vit.num_audio_tokens, c.vit.num_video_tokens
+        x = self.embed(x)
+        B, _, D = x.shape
+
+        def restore(kept, ids_restore, total):
+            mask_tokens = self.mask_token.to(kept.dtype).expand(
+                B, total - kept.shape[1], D)
+            return take_tokens(torch.cat([kept, mask_tokens], dim=1),
+                               ids_restore)
+
+        a_ = restore(x[:, :len_keep_a], ids_restore_a, La)
+        v_ = restore(x[:, len_keep_a:], ids_restore_v, Lv)
+        a_ = a_ + (self.pos_embed_a + self.modality_a).to(a_.dtype)
+        v_ = v_ + (self.pos_embed_v + self.modality_v).to(v_.dtype)
+        x = torch.cat([a_, v_], dim=1)
+        for blk in self.blocks:
+            x = blk(x, None)
+        x = self.norm(x)
+        return self.pred_a(x[:, :La]), self.pred_v(x[:, La:])
+
+
+class CAVMAEPretrain(nn.Module):
+    """The pretraining model. Parameters live on ``device`` ('cuda' by
+    default; a missing card raises) and are initialised from ``generator``
+    (a generator on that device seeded with 0 when None): lecun-normal dense
+    kernels, zero biases, truncated-normal(0.02) encoder pos embeds, zero
+    decoder pos embeds and tokens."""
+
+    def __init__(self, cfg: CAVMAEConfig, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        c = cfg
+        if c.mmixed_impl != "exact":
+            raise NotImplementedError(
+                f"mmixed_impl {c.mmixed_impl!r}: the port has 'exact' only")
+        if c.remat_blocks:
+            raise NotImplementedError("remat_blocks is not ported")
+        self.cfg = c
+        mk_trunk = lambda: SiameseViT(c.vit, c.dtype, c.attn_impl,  # noqa: E731
+                                      c.embed_double, c.mlp_impl, dev)
+        self.vit = mk_trunk()
+        self.ast = mk_trunk()
+        mk_block = lambda: ModalityBlock(  # noqa: E731
+            c.vit.dim, c.vit.num_heads, c.vit.mlp_ratio, c.vit.qkv_bias,
+            c.vit.block_ln_eps, c.dtype, c.attn_impl, c.vit.gelu, c.mlp_impl,
+            dev)
+        self.mm_layer_1 = mk_block()
+        self.mm_layer_2 = mk_block()
+        self.decoder = MAEDecoder(c, dev)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, (Dense, SiameseViT)):
+                m.reset_parameters(generator)
+
+    # -------------------------------------------------------- MAE encoder
+    def forward_encoder(self, audio, imgs, mask_ratio_a: float,
+                        mask_ratio_v: float, noise_a, noise_v):
+        c = self.cfg
+        a = self.vit.embed_audio(audio)
+        v = self.vit.embed_video(imgs)
+        len_keep_a = mk.len_keep_for(c.vit.num_audio_tokens, mask_ratio_a)
+        len_keep_v = mk.len_keep_for(c.vit.num_video_tokens, mask_ratio_v)
+        a, mask_a, ids_restore_a = mk.random_masking(a, len_keep_a, noise_a)
+        v, mask_v, ids_restore_v = mk.random_masking(v, len_keep_v, noise_v)
+        for i in range(c.vit.depth):
+            v = self.vit.blocks[i](v, "v")
+            a = self.ast.blocks[i](a, None)
+        x = torch.cat([self.ast.norm_a(a), self.vit.norm(v)], dim=1)
+        return x, mask_a, ids_restore_a, mask_v, ids_restore_v
+
+    # ------------------------------------- multi-ratio contrastive encoder
+    def forward_encoder_mmixed(self, audio, imgs, draws: MaskDraws):
+        """Chunk i of the permuted batch is masked at ratio 0.2*i (structured
+        'tf' for audio) and encoded at its own length; the pooled outputs are
+        permuted back to input order."""
+        c = self.cfg
+        a = self.vit.embed_audio(audio)
+        v = self.vit.embed_video(imgs)
+        f, t = c.vit.audio_grid
+        Lv = v.shape[1]
+        sizes = chunk_sizes(a.shape[0], c.mmixed_num_chunks)
+        a_parts, v_parts = [], []
+        off = 0
+        for i, size in enumerate(sizes):
+            ratio = c.mmixed_ratio_step * i
+            a_i = take_batch(a, draws.perm_a[off:off + size])
+            v_i = take_batch(v, draws.perm_v[off:off + size])
+            a_i, _, _ = mk.random_masking_structured(a_i, ratio, t, f,
+                                                     *draws.chunk_a[i])
+            v_i, _, _ = mk.random_masking(v_i, mk.len_keep_for(Lv, ratio),
+                                          draws.chunk_v[i])
+            a_parts.append(self._encode_contrastive(a_i, "a"))
+            v_parts.append(self._encode_contrastive(v_i, "v"))
+            off += size
+        ca = take_batch(torch.cat(a_parts), torch.argsort(draws.perm_a))
+        cv = take_batch(torch.cat(v_parts), torch.argsort(draws.perm_v))
+        return ca, cv
+
+    def _encode_contrastive(self, x, modality: str):
+        x = self.vit.run_blocks(x, modality)
+        x = self.vit.final_norm(x, modality)
+        return x.mean(dim=1, keepdim=True)
+
+    # ------------------------------------------------------------ MAE loss
+    def forward_mae_loss(self, inputs, pred, mask, modality: str):
+        p = self.cfg.vit.patch_size
+        img = audio_to_image(inputs) if modality == "a" else inputs
+        target = patchify(img, p).to(torch.float32)
+        loss = ((pred.to(torch.float32) - target) ** 2).mean(dim=-1)  # [N, L]
+        return (loss * mask).sum() / mask.sum()
+
+    # ------------------------------------------------------- full forward
+    def forward(self, audio, imgs, mask_ratio_a: float = 0.75,
+                mask_ratio_v: float = 0.75, mae_loss_weight: float = 1.0,
+                contrast_loss_weight: float = 0.01,
+                mask_mode: str = "unstructured",
+                draws: Optional[MaskDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        """The 8-tuple. The MAE branch masks at ``cfg.mae_mask_ratio``
+        whatever the ratio arguments say, and the contrastive branch at its
+        chunk ratios, as the reference does; the mask ratios and
+        ``mask_mode`` are accepted for signature parity. Draws come from
+        ``draws`` or, when it is None, from ``generator``."""
+        c = self.cfg
+        B = audio.shape[0]
+        La, Lv = c.vit.num_audio_tokens, c.vit.num_video_tokens
+        if draws is None:
+            if generator is None:
+                raise ValueError("pass the forward's draws or a generator")
+            draws = draw_masks(c, B, generator, audio.device,
+                               mae=mae_loss_weight != 0,
+                               contrast=contrast_loss_weight != 0)
+        zero = torch.zeros((), dtype=torch.float32, device=audio.device)
+
+        if mae_loss_weight != 0:
+            x, mask_a, ids_ra, mask_v, ids_rv = self.forward_encoder(
+                audio, imgs, c.mae_mask_ratio, c.mae_mask_ratio,
+                draws.noise_a, draws.noise_v)
+            x = self.mm_layer_1(x, "a")
+            x = self.mm_layer_2(x, "a")
+            pred_a, pred_v = self.decoder(
+                x, ids_ra, ids_rv, mk.len_keep_for(La, c.mae_mask_ratio),
+                mk.len_keep_for(Lv, c.mae_mask_ratio))
+            loss_mae_a = self.forward_mae_loss(audio, pred_a, mask_a, "a")
+            loss_mae_v = self.forward_mae_loss(imgs, pred_v, mask_v, "v")
+            loss_mae = loss_mae_a + loss_mae_v  # unweighted, as the reference
+        else:
+            loss_mae_a = loss_mae_v = loss_mae = zero
+            mask_a = torch.zeros((B, La), dtype=torch.float32,
+                                 device=audio.device)
+            mask_v = torch.zeros((B, Lv), dtype=torch.float32,
+                                 device=audio.device)
+
+        if contrast_loss_weight != 0:
+            ca, cv = self.forward_encoder_mmixed(audio, imgs, draws)
+            loss_c, c_acc = info_nce_gathered(
+                ca.mean(dim=1), cv.mean(dim=1), temperature=c.contrast_temp,
+                bidirect=True)
+            loss_c = contrast_loss_weight * loss_c
+            # the reference overwrites the masks with the contrastive
+            # encoder's returns, which are None
+            mask_a = mask_v = None
+        else:
+            loss_c = c_acc = zero
+
+        loss = loss_c + loss_mae
+        return (loss, loss_mae, loss_mae_a, loss_mae_v, loss_c, mask_a,
+                mask_v, c_acc)

@@ -1,0 +1,241 @@
+"""Transformer layers of the port: dense layer, LayerNorm, MLP, attention,
+modality-routed block, patch embedding and the shared siamese ViT trunk.
+
+Counterpart of ``avsiam_tpu/models/layers.py``, with the same module names so
+that parameter paths map one to one (``utils/weights.py``). Dtype policy, as
+flax ``Dense(dtype=compute, param_dtype=float32)`` has it: parameters are
+float32 masters, cast to the compute dtype where they are used; LayerNorm
+statistics, GELU and losses run in float32.
+
+Attention runs through ``ops.attention.attention_qkv`` (kernels K1/K2 on the
+GPU); with ``mlp_impl`` 'auto' or 'lnfres' the MLP sub-block runs through
+``ops.mlp.fused_ln_mlp`` (kernel K3 on the GPU).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from avsiam_tpu_torch.configs import ViTConfig
+from avsiam_tpu_torch.ops.attention import attention_qkv
+from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
+from avsiam_tpu_torch.ops.layernorm import layer_norm
+from avsiam_tpu_torch.ops.mlp import fused_ln_mlp
+from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
+
+ATTN_IMPLS = ("auto", "pallas")  # both mean: the attention kernel
+MLP_IMPLS = ("auto", "lnfres", "dense")
+
+# flax's lecun_normal: a normal truncated at two standard deviations, scaled
+# so that the truncated distribution has variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def trunc_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:
+    """flax ``truncated_normal(stddev)``: std times a standard normal cut at
+    +-2."""
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+class Dense(nn.Module):
+    """Linear layer with float32 parameters computed in ``dtype``;
+    ``weight`` is [out, in] (nn.Linear's layout), lecun-normal, zero bias."""
+
+    def __init__(self, in_features: int, out_features: int, dtype, device,
+                 bias: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def reset_parameters(self, generator) -> None:
+        lecun_normal_(self.weight.data, self.weight.shape[1], generator)
+        if self.bias is not None:
+            self.bias.data.zero_()
+
+    def forward(self, x):
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return nn.functional.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNormFP32(nn.Module):
+    """LayerNorm with float32 statistics (flax's formula, ops/layernorm.py);
+    output cast to ``dtype``. Parameters ``weight`` (ones), ``bias``."""
+
+    def __init__(self, features: int, eps: float, dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        return layer_norm(x.to(torch.float32), self.weight, self.bias,
+                          self.eps).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU (float32) -> fc2, the plain 'dense' form."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype, gelu: str, device):
+        super().__init__()
+        self.gelu = gelu
+        self.fc1 = Dense(dim, hidden_dim, dtype, device)
+        self.fc2 = Dense(hidden_dim, dim, dtype, device)
+
+    def forward(self, x):
+        return self.fc2(gelu_op(self.fc1(x), self.gelu))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused qkv projection."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, dtype,
+                 device):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, dtype, device, bias=qkv_bias)
+        self.proj = Dense(dim, dim, dtype, device)
+
+    def forward(self, x, key_valid: Optional[torch.Tensor] = None):
+        out = attention_qkv(self.qkv(x), self.num_heads, key_valid)
+        return self.proj(out)
+
+
+class ModalityBlock(nn.Module):
+    """Pre-LN ViT block with modality-routed norm sets and shared attention
+    and MLP weights. ``modality``: None -> norm1/norm2, 'a' -> norm*_a,
+    'v' -> norm*_v, 'av' -> a tuple (a, v) with per-modality norms and joint
+    attention, returning (out[:, :num_a], the pre-MLP video tail)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 qkv_bias: bool, ln_eps: float, dtype, attn_impl: str,
+                 gelu: str, mlp_impl: str, device):
+        super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r}: the port runs "
+                             f"attention through its kernel ({ATTN_IMPLS})")
+        if mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"mlp_impl {mlp_impl!r} is not ported "
+                             f"({MLP_IMPLS})")
+        self.dtype = dtype
+        self.ln_eps = ln_eps
+        self.gelu = gelu
+        self.mlp_impl = mlp_impl
+        for name in ("norm1", "norm1_a", "norm1_v", "norm2", "norm2_a",
+                     "norm2_v"):
+            setattr(self, name, LayerNormFP32(dim, ln_eps, dtype, device))
+        self.attn = Attention(dim, num_heads, qkv_bias, dtype, device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu, device)
+
+    def forward(self, x, modality: Optional[str] = None,
+                key_valid: Optional[torch.Tensor] = None):
+        if modality is None:
+            n1, n2 = self.norm1, self.norm2
+        elif modality == "a":
+            n1, n2 = self.norm1_a, self.norm2_a
+        elif modality == "v":
+            n1, n2 = self.norm1_v, self.norm2_v
+        elif modality == "av":
+            a, v = x
+            num_a = a.shape[1]
+            x = torch.cat([self.norm1_a(a), self.norm1_v(v)], dim=1)
+            x = x + self.attn(x, key_valid)
+            a2 = self.norm2_a(x[:, :num_a])
+            v2 = self.norm2_v(x[:, num_a:])
+            out = x + self.mlp(torch.cat([a2, v2], dim=1))
+            return out[:, :num_a], x[:, num_a:]
+        else:
+            raise ValueError(f"unknown modality: {modality}")
+        x = x + self.attn(n1(x), key_valid)
+        return self._mlp_res(x, n2)
+
+    def _mlp_res(self, x, n2):
+        """``x + mlp(n2(x))``; 'auto'/'lnfres' run it as one fused forward."""
+        if self.mlp_impl == "dense":
+            return x + self.mlp(n2(x))
+        return fused_ln_mlp(x.to(self.dtype), n2.weight, n2.bias,
+                            self.mlp.fc1.weight, self.mlp.fc1.bias,
+                            self.mlp.fc2.weight, self.mlp.fc2.bias,
+                            eps=self.ln_eps, gelu=self.gelu)
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + linear projection (a stride-p convolution's equivalent)."""
+
+    def __init__(self, dim: int, patch_size: int, in_chans: int, dtype,
+                 device):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Dense(patch_size * patch_size * in_chans, dim, dtype,
+                          device)
+
+    def forward(self, x):  # x: [B, C, H, W]
+        return self.proj(patchify(x, self.patch_size))
+
+
+class SiameseViT(nn.Module):
+    """The shared-weight audio/video ViT trunk: video and audio patch
+    embeds, pos_embed [1, 1 + Lv, D] (the CLS row is kept for checkpoint
+    parity but unused), pos_embed_a [1, La, D], modality-routed blocks and
+    per-modality final norms. Embeddings are doubled before the blocks
+    (``x = x + norm_pre(x)`` with an identity norm_pre)."""
+
+    def __init__(self, cfg: ViTConfig, dtype, attn_impl: str,
+                 embed_double: bool, mlp_impl: str, device):
+        super().__init__()
+        c = cfg
+        self.dtype = dtype
+        self.embed_double = embed_double
+        self.patch_embed = PatchEmbed(c.dim, c.patch_size, 3, dtype, device)
+        self.patch_embed_a = PatchEmbed(c.dim, c.patch_size, 1, dtype, device)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, 1 + c.num_video_tokens, c.dim, device=device))
+        self.pos_embed_a = nn.Parameter(
+            torch.zeros(1, c.num_audio_tokens, c.dim, device=device))
+        self.blocks = nn.ModuleList(
+            ModalityBlock(c.dim, c.num_heads, c.mlp_ratio, c.qkv_bias,
+                          c.block_ln_eps, dtype, attn_impl, c.gelu, mlp_impl,
+                          device)
+            for _ in range(c.depth))
+        self.norm = LayerNormFP32(c.dim, c.final_ln_eps, dtype, device)
+        self.norm_a = LayerNormFP32(c.dim, c.final_ln_eps, dtype, device)
+
+    def reset_parameters(self, generator) -> None:
+        trunc_normal_(self.pos_embed.data, 0.02, generator)
+        trunc_normal_(self.pos_embed_a.data, 0.02, generator)
+
+    def embed_audio(self, fbank):
+        """[B, T, F] fbank -> [B, La, D] tokens."""
+        a = self.patch_embed_a(audio_to_image(fbank.to(self.dtype)))
+        a = a + self.pos_embed_a.to(self.dtype)
+        return a + a if self.embed_double else a
+
+    def embed_video(self, imgs):
+        """[B, 3, H, W] -> [B, Lv, D] tokens (pos embed without its CLS row)."""
+        v = self.patch_embed(imgs.to(self.dtype))
+        v = v + self.pos_embed[:, 1:].to(self.dtype)
+        return v + v if self.embed_double else v
+
+    def run_blocks(self, x, modality: Optional[str] = None,
+                   key_valid: Optional[torch.Tensor] = None):
+        for blk in self.blocks:
+            x = blk(x, modality, key_valid)
+        return x
+
+    def final_norm(self, x, modality: str):
+        return self.norm_a(x) if modality == "a" else self.norm(x)

@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``avsiam_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. device: the card's name and power limit, as nvidia-smi reports them.
+2. kernels: builds the CUDA kernels from ``avsiam_tpu_torch/csrc`` with nvcc,
+   then holds each kernel against its plain PyTorch version at every shape
+   the main path gives it (bf16 inputs; the plain version runs in float32 on
+   the same values) and times kernel, plain version and, for attention,
+   ``F.scaled_dot_product_attention`` as a yardstick the port never calls.
+3. step: five full-width ViT-B/16 two-pass pretrain steps (depth 12,
+   decoder depth 8, bf16 compute, batch 8) from the port's own seeded init;
+   every loss must be finite and each kernel's launch count, reset just
+   before, must equal what the step's shapes imply (130 per step at B=8).
+   Then one more step under torch.profiler: device time by kernel group
+   and the device's busy share of a step.
+4. reference: one contrastive and one MAE forward/backward at full width,
+   depth 1, batch 2, through the kernels in bf16 on the card and through the
+   plain versions in float32 on the CPU, from the same weights and draws:
+   losses and gradients must agree within the stated tolerances.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. ``--report PATH`` also writes
+the per-shape measurements as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+ATTN_TOL = 2e-2           # max |kernel - plain| / max |plain|, bf16 storage
+MLP_TOL = 2e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor):
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = max(ref.float().abs().max().item(), 1e-6)
+    if not math.isfinite(err):
+        raise AssertionError("non-finite kernel output")
+    return err, err / scale
+
+
+# ------------------------------------------------------------------ shapes
+def main_path_shapes(cfg, batch: int):
+    """Distinct (kernel-call) shapes of one pretrain step and their calls per
+    step: {(b, N, H, D): calls} for attention, {(rows, D, H): calls} for the
+    LN-MLP kernel."""
+    from avsiam_tpu_torch.models.cavmae import chunk_sizes
+    from avsiam_tpu_torch.ops.masking import len_keep_for
+    m = cfg.model
+    v, d = m.vit, m.decoder
+    La, Lv = v.num_audio_tokens, v.num_video_tokens
+    enc_h, dec_h = v.dim * int(v.mlp_ratio), d.dim * int(d.mlp_ratio)
+    attn, mlp = {}, {}
+
+    def add(b, n, heads, dim, hidden, calls):
+        key = (b, n, heads, dim // heads)
+        attn[key] = attn.get(key, 0) + calls
+        mk = (b * n, dim, hidden)
+        mlp[mk] = mlp.get(mk, 0) + calls
+
+    sizes = chunk_sizes(batch, m.mmixed_num_chunks)
+    for i, size in enumerate(sizes):  # pass 1: contrastive chunks
+        ratio = m.mmixed_ratio_step * i
+        add(size, len_keep_for(La, ratio), v.num_heads, v.dim, enc_h, v.depth)
+        add(size, len_keep_for(Lv, ratio), v.num_heads, v.dim, enc_h, v.depth)
+    ka = len_keep_for(La, m.mae_mask_ratio)  # pass 2: MAE
+    kv = len_keep_for(Lv, m.mae_mask_ratio)
+    add(batch, ka, v.num_heads, v.dim, enc_h, v.depth)
+    add(batch, kv, v.num_heads, v.dim, enc_h, v.depth)
+    add(batch, ka + kv, v.num_heads, v.dim, enc_h, 2)
+    add(batch, La + Lv, d.num_heads, d.dim, dec_h, d.depth)
+    return attn, mlp
+
+
+# ------------------------------------------------------------ kernel phase
+def check_attention(shapes, extra, gen):
+    import torch.nn.functional as F
+    from avsiam_tpu_torch.ops.attention import (attention_bwd_kernel,
+                                                attention_fwd_kernel,
+                                                attention_reference)
+    rows = []
+    for (b, n, heads, hd), calls, masked in (
+            [(k, c, False) for k, c in shapes.items()]
+            + [(k, 0, m) for k, m in extra]):
+        C = heads * hd
+        xqkv = torch.randn((b, n, 3 * C), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+        dout = torch.randn((b, n, C), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+        kv = None
+        if masked:
+            kv = torch.rand((b, n), generator=gen, device="cuda") > 0.3
+            kv[:, 0] = True
+        out, stats = attention_fwd_kernel(xqkv, heads, kv)
+        dqkv = attention_bwd_kernel(xqkv, out, stats, dout, heads, kv)
+        torch.cuda.synchronize()
+        x32 = xqkv.float().requires_grad_(True)
+        ref = attention_reference(x32, heads, kv)
+        (gref,) = torch.autograd.grad(ref, x32, dout.float())
+        ferr, frel = rel_err(out, ref)
+        berr, brel = rel_err(dqkv, gref)
+        if frel > ATTN_TOL or brel > ATTN_TOL:
+            raise AssertionError(
+                f"attention b={b} N={n} H={heads} D={hd} masked={masked}: "
+                f"fwd rel err {frel:.3e}, bwd rel err {brel:.3e} > {ATTN_TOL}")
+        q, k, v = (t.transpose(1, 2).contiguous() for t in
+                   xqkv.reshape(b, n, 3, heads, hd).unbind(2))
+        mask = None if kv is None else kv[:, None, None, :]
+        fwd_ms = time_ms(lambda: attention_fwd_kernel(xqkv, heads, kv))
+        bwd_ms = time_ms(lambda: attention_bwd_kernel(xqkv, out, stats, dout,
+                                                      heads, kv))
+        plain_fwd = time_ms(lambda: attention_reference(xqkv.float(), heads, kv))
+        ref_g = attention_reference(x32, heads, kv)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            ref_g, x32, dout.float(), retain_graph=True))
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+        do_t = dout.reshape(b, n, heads, hd).transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do_t, retain_graph=True))
+        # operations: q k^T and p v forward; backward adds the recomputed
+        # q k^T, do v^T, dv, dq and dk. Bytes (bf16, stats f32): forward
+        # reads qkv, writes out and stats; backward reads qkv, out, dout and
+        # stats and writes dqkv.
+        sq = b * heads * n * n * hd
+        tok = b * n * C * 2  # one [B, N, C] bf16 tensor
+        st = b * heads * n * 8
+        fb = bound_ms(4 * sq, 3 * tok + tok + st)
+        bb = bound_ms(10 * sq, 3 * tok + 2 * tok + st + 3 * tok)
+        rows.append(dict(b=b, N=n, H=heads, D=hd, masked=masked, calls=calls,
+                         fwd_err=ferr, fwd_rel=frel, bwd_err=berr, bwd_rel=brel,
+                         fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd,
+                         plain_bwd_ms=plain_bwd, lib_fwd_ms=lib_fwd,
+                         lib_bwd_ms=lib_bwd, fwd_bound=fb, bwd_bound=bb))
+        log(f"  attention b={b:3d} N={n:4d} H={heads:2d} D={hd} "
+            f"mask={int(masked)} x{calls:3d}/step  fwd err {ferr:.2e} "
+            f"(rel {frel:.1e} <= {ATTN_TOL}) {fwd_ms:.4f} ms plain "
+            f"{plain_fwd:.4f} sdpa {lib_fwd:.4f} bound {fb[0]:.4f} | bwd err "
+            f"{berr:.2e} (rel {brel:.1e}) {bwd_ms:.4f} ms plain "
+            f"{plain_bwd:.4f} sdpa {lib_bwd:.4f} bound {bb[0]:.4f}")
+    return rows
+
+
+def check_ln_mlp(shapes, gen, eps: float = 1e-5):
+    from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
+    rows = []
+    for (t, d, h), calls in shapes.items():
+        bf = torch.bfloat16
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        x = rnd(t, d).to(bf)
+        g = 1.0 + rnd(d, scale=0.1)
+        bl = rnd(d, scale=0.1)
+        w1 = rnd(h, d, scale=d ** -0.5).to(bf)
+        w2 = rnd(d, h, scale=h ** -0.5).to(bf)
+        b1 = rnd(h, scale=0.02).to(bf).float()
+        b2 = rnd(d, scale=0.02).to(bf).float()
+        out, hpre = ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2, eps)
+        torch.cuda.synchronize()
+        ref, href = ln_mlp_reference(x.float(), g, bl, w1.float(), b1,
+                                     w2.float(), b2, eps)
+        oerr, orel = rel_err(out, ref)
+        herr, hrel = rel_err(hpre, href)
+        if orel > MLP_TOL or hrel > MLP_TOL:
+            raise AssertionError(f"ln_mlp T={t} D={d}: out rel err {orel:.3e},"
+                                 f" hidden rel err {hrel:.3e} > {MLP_TOL}")
+        ms = time_ms(lambda: ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2, eps))
+        # the same kernel with the hidden dimension left whole (one block per
+        # row tile): what splitting it across blocks gains
+        ms_whole = time_ms(lambda: ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2,
+                                                     eps, splits=1))
+        plain = time_ms(lambda: ln_mlp_reference(x.float(), g, bl, w1.float(),
+                                                 b1, w2.float(), b2, eps))
+        bd = bound_ms(4 * t * d * h, 2 * (2 * t * d + 2 * d * h + t * h))
+        rows.append(dict(T=t, D=d, H=h, calls=calls, out_err=oerr,
+                         out_rel=orel, hpre_err=herr, hpre_rel=hrel, ms=ms,
+                         ms_whole=ms_whole, plain_ms=plain, bound=bd))
+        log(f"  ln_mlp T={t:5d} D={d} H={h} x{calls:3d}/step  err out "
+            f"{oerr:.2e} (rel {orel:.1e} <= {MLP_TOL}) hidden {herr:.2e} "
+            f"(rel {hrel:.1e})  {ms:.4f} ms (hidden unsplit {ms_whole:.4f})"
+            f" plain {plain:.4f} bound {bd[0]:.4f}")
+    return rows
+
+
+def check_float32(gen, eps: float = 1e-5):
+    """The kernels' float32-storage variants (off the bf16 main path) at one
+    encoder and one decoder shape each, against the plain version."""
+    from avsiam_tpu_torch.ops.attention import (attention_bwd_kernel,
+                                                attention_fwd_kernel,
+                                                attention_reference)
+    from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
+    errs = {}
+    for b, n, heads, hd in ((2, 177, 12, 64), (2, 708, 16, 32)):
+        x = torch.randn((b, n, 3 * heads * hd), generator=gen, device="cuda")
+        do = torch.randn((b, n, heads * hd), generator=gen, device="cuda")
+        out, stats = attention_fwd_kernel(x, heads)
+        dx = attention_bwd_kernel(x, out, stats, do, heads)
+        xr = x.clone().requires_grad_(True)
+        ref = attention_reference(xr, heads)
+        (gref,) = torch.autograd.grad(ref, xr, do)
+        errs[f"attention N={n} D={hd}"] = (rel_err(out, ref)[1],
+                                           rel_err(dx, gref)[1])
+    for t, d in ((392, 768), (708, 512)):
+        h = 4 * d
+        x = torch.randn((t, d), generator=gen, device="cuda")
+        w1 = (torch.randn((h, d), generator=gen, device="cuda") * d ** -0.5
+              ).bfloat16()
+        w2 = (torch.randn((d, h), generator=gen, device="cuda") * h ** -0.5
+              ).bfloat16()
+        g = torch.ones(d, device="cuda")
+        z, zh = torch.zeros(d, device="cuda"), torch.zeros(h, device="cuda")
+        out, hpre = ln_mlp_fwd_kernel(x, g, z, w1, zh, w2, z, eps)
+        ref, href = ln_mlp_reference(x, g, z, w1.float(), zh, w2.float(), z,
+                                     eps)
+        errs[f"ln_mlp T={t} D={d}"] = (rel_err(out, ref)[1],
+                                       rel_err(hpre, href)[1])
+    for name, (e1, e2) in errs.items():
+        log(f"  float32 {name}: rel err {e1:.1e} / {e2:.1e} (<= {ATTN_TOL})")
+        if max(e1, e2) > ATTN_TOL:
+            raise AssertionError(f"float32 {name}: rel err {e1}, {e2}")
+    return errs
+
+
+def bound_by(rows, key_bound):
+    ops = sum(r[key_bound][1] * r["calls"] for r in rows)
+    nbytes = sum(r[key_bound][2] * r["calls"] for r in rows)
+    return "operations" if ops >= nbytes else "bytes"
+
+
+def kernel_entries(attn_rows, mlp_rows, launches):
+    """The ``kernels`` line. ``passed`` is true for every entry: each check
+    above raises on a failure, so a failed kernel never reaches the line."""
+    def total(rows, key):
+        return sum(r[key] * r["calls"] for r in rows)
+
+    fwd_bound = total([dict(r, b_=r["fwd_bound"][0]) for r in attn_rows], "b_")
+    bwd_bound = total([dict(r, b_=r["bwd_bound"][0]) for r in attn_rows], "b_")
+    mlp_bound = total([dict(r, b_=r["bound"][0]) for r in mlp_rows], "b_")
+    return [
+        dict(name="attention_fwd", route="cuda",
+             source="avsiam_tpu_torch/csrc/attention.cu",
+             replaces="avsiam_tpu/ops/attention.py:535",
+             launches=launches["attention_fwd"],
+             max_abs_err=max(r["fwd_err"] for r in attn_rows),
+             ms=total(attn_rows, "fwd_ms"), plain_ms=total(attn_rows, "plain_fwd_ms"),
+             bound_ms=fwd_bound, bound_by=bound_by(attn_rows, "fwd_bound"),
+             library_ms=total(attn_rows, "lib_fwd_ms"), passed=True),
+        dict(name="attention_bwd", route="cuda",
+             source="avsiam_tpu_torch/csrc/attention.cu",
+             replaces="avsiam_tpu/ops/attention.py:573",
+             launches=launches["attention_bwd"],
+             max_abs_err=max(r["bwd_err"] for r in attn_rows),
+             ms=total(attn_rows, "bwd_ms"), plain_ms=total(attn_rows, "plain_bwd_ms"),
+             bound_ms=bwd_bound, bound_by=bound_by(attn_rows, "bwd_bound"),
+             library_ms=total(attn_rows, "lib_bwd_ms"), passed=True),
+        dict(name="ln_mlp_fwd", route="cuda",
+             source="avsiam_tpu_torch/csrc/ln_mlp.cu",
+             replaces="avsiam_tpu/ops/mlp.py:429",
+             launches=launches["ln_mlp_fwd"],
+             max_abs_err=max(r["out_err"] for r in mlp_rows),
+             ms=total(mlp_rows, "ms"), plain_ms=total(mlp_rows, "plain_ms"),
+             bound_ms=mlp_bound, bound_by=bound_by(mlp_rows, "bound"),
+             library_ms=None, passed=True),
+    ]
+
+
+# -------------------------------------------------------------------- main
+def bench_config(depth: int = 12, dec_depth: int = 8):
+    from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
+                                          PretrainConfig, ViTConfig)
+    model = CAVMAEConfig(vit=ViTConfig(depth=depth),
+                         decoder=DecoderConfig(depth=dec_depth),
+                         dtype=torch.bfloat16, mmixed_impl="exact",
+                         attn_impl="auto", mlp_impl="lnfres")
+    return PretrainConfig(model=model, batch_size=8)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--report", default=None,
+                    help="write per-shape measurements here as JSON")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from avsiam_tpu_torch import kernels
+
+    # matmuls of the float32 plain versions run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.time()
+    kernels.library()
+    log(f"kernels built and loaded in {time.time() - t0:.1f} s")
+    build_log = (kernels.BUILD_DIR / "build.log")
+    if build_log.exists():
+        for line in build_log.read_text().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                log("  " + line.strip())
+
+    cfg = bench_config()
+    attn_shapes, mlp_shapes = main_path_shapes(cfg, cfg.batch_size)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    report = {"device": card}
+    log("phase kernels: each kernel against its plain version")
+    # beyond the B=8 step's shapes: the B=64 step's shortest chunks, and
+    # key_valid masks (used by the mmixed forms still to be ported)
+    extra = [((2, 102, 12, 64), False), ((2, 39, 12, 64), False),
+             ((2, 177, 12, 64), True), ((2, 708, 16, 32), True)]
+    attn_rows = check_attention(attn_shapes, extra, gen)
+    mlp_rows = check_ln_mlp(mlp_shapes, gen)
+    report.update(attention=attn_rows, ln_mlp=mlp_rows,
+                  float32=check_float32(gen))
+    launches = run_steps(cfg, attn_shapes, mlp_shapes, args.seed, report)
+    run_reference(args.seed, report)
+
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    log(card)
+    print(json.dumps({"kernels": kernel_entries(attn_rows, mlp_rows,
+                                                 launches)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_steps(cfg, attn_shapes, mlp_shapes, seed, report, n_steps: int = 5):
+    """Full-width two-pass steps; returns the kernels' launch counts."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
+    m = cfg.model
+    log(f"phase step: {n_steps} two-pass steps, ViT-B/16 depth "
+        f"{m.vit.depth}, decoder depth {m.decoder.depth}, {m.dtype}, "
+        f"batch {cfg.batch_size}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.time()
+    state = init_state(cfg, gen, "cuda")
+    B, v = cfg.batch_size, m.vit
+    audio = torch.randn((B, v.audio_length, v.mel_bins), generator=gen,
+                        device="cuda")
+    imgs = torch.randn((B, 3, v.img_size, v.img_size), generator=gen,
+                       device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"  init: {n_params} parameters in {time.time() - t0:.2f} s")
+    step = make_pretrain_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    steps = []
+    for i in range(n_steps):
+        t = time.time()
+        state, metrics = step(state, (audio, imgs), gen, cfg.opt.lr)
+        metrics = {k: float(x) for k, x in metrics.items()}
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3
+        if not all(math.isfinite(x) for x in metrics.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {metrics}")
+        steps.append(dict(metrics, ms=ms))
+        log(f"  step {i}: " + " ".join(f"{k} {x:.5f}" for k, x in
+                                        metrics.items()) + f"  {ms:.1f} ms")
+    launches = dict(kernels.LAUNCHES)
+    per_step = sum(attn_shapes.values())
+    expected = {"attention_fwd": per_step * n_steps,
+                "attention_bwd": per_step * n_steps,
+                "ln_mlp_fwd": sum(mlp_shapes.values()) * n_steps}
+    log(f"  launches {launches} (expected {expected}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    report["steps"] = steps
+    report["launches"] = launches
+    steady = sorted(s["ms"] for s in steps[1:])[(len(steps) - 1) // 2]
+    log(f"  steady step: {steady:.1f} ms (median of steps 1..{n_steps - 1})")
+    report["profile"] = profile_step(step, state, (audio, imgs), gen,
+                                     cfg.opt.lr, steady)
+    return launches
+
+
+# kernel-name fragments -> the category a profiled step's device time is
+# summed under (first match wins)
+KERNEL_GROUPS = (
+    ("K1 attention fwd", ("attn_fwd_kernel",)),
+    ("K2 attention bwd", ("attn_bwd_",)),
+    ("K3 ln_mlp fwd", ("ln_mlp_",)),
+    ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+    ("Adam", ("multi_tensor_apply", "adam")),
+)
+
+
+def profile_step(step, state, batch, gen, lr, steady_ms):
+    """One more step under torch.profiler: device time by kernel group, the
+    device's busy share of the steady (unprofiled) step time, and the number
+    of kernels launched. Runs after the launch counts were read."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen, lr)
+        torch.cuda.synchronize()
+    groups, kernels_run = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other (elementwise, "
+                     "reductions, copies)")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+        kernels_run += e.count
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("  profile: the profiler recorded no device time (not measured)")
+        return None
+    log(f"  profile of one step: device busy {busy:.1f} ms of the steady "
+        f"{steady_ms:.1f} ms step ({100 * busy / steady_ms:.1f}%), "
+        f"{kernels_run} kernels")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:38s} {ms:8.2f} ms  {100 * ms / busy:5.1f}% of busy")
+    return dict(busy_ms=busy, steady_ms=steady_ms, kernels=kernels_run,
+                groups=groups)
+
+
+def run_reference(seed, report, batch: int = 2):
+    """Kernels in bf16 on the card against the plain versions in float32 on
+    the CPU: full width, depth 1, same weights and draws."""
+    from avsiam_tpu_torch.configs import replace
+    from avsiam_tpu_torch.models.cavmae import (CAVMAEPretrain, MaskDraws,
+                                                draw_masks)
+    loss_tol, cos_tol = 2e-2, 0.99
+    cfg = bench_config(depth=1, dec_depth=1).model
+    log(f"phase reference: depth 1, batch {batch}: bf16 kernels on the card "
+        f"vs float32 plain versions on the CPU (loss rel err <= {loss_tol}, "
+        f"gradient cosine >= {cos_tol})")
+    gpu = CAVMAEPretrain(cfg, "cuda",
+                         torch.Generator(device="cuda").manual_seed(seed + 1))
+    cpu = CAVMAEPretrain(replace(cfg, dtype=torch.float32), "cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
+    cgen = torch.Generator().manual_seed(seed + 2)
+    v = cfg.vit
+    audio = torch.randn((batch, v.audio_length, v.mel_bins), generator=cgen)
+    imgs = torch.randn((batch, 3, v.img_size, v.img_size), generator=cgen)
+    draws = draw_masks(cfg, batch, cgen, "cpu")
+    draws_gpu = MaskDraws(
+        noise_a=draws.noise_a.cuda(), noise_v=draws.noise_v.cuda(),
+        perm_a=draws.perm_a.cuda(), perm_v=draws.perm_v.cuda(),
+        chunk_a=[tuple(t.cuda() for t in c) for c in draws.chunk_a],
+        chunk_v=[t.cuda() for t in draws.chunk_v])
+    names = ("loss", "loss_mae", "loss_mae_a", "loss_mae_v", "loss_c")
+    results = {}
+    for label, mae_w, con_w in (("contrastive", 0.0, 1.0), ("mae", 1.0, 0.0)):
+        got = {}
+        for model, dev, d in ((gpu, "cuda", draws_gpu), (cpu, "cpu", draws)):
+            model.zero_grad(set_to_none=True)
+            out = model(audio.to(dev), imgs.to(dev), mae_loss_weight=mae_w,
+                        contrast_loss_weight=con_w, draws=d)
+            out[0].backward()
+            grads = torch.cat([p.grad.double().cpu().flatten()
+                               for _, p in model.named_parameters()
+                               if p.grad is not None])
+            got[dev] = ({n: float(out[i].detach()) for i, n in
+                         zip((0, 1, 2, 3, 4), names)}, grads)
+        (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+        rel = {n: abs(lg[n] - lc[n]) / max(abs(lc[n]), 1e-6) for n in names
+               if lc[n] != 0.0}
+        cos = float(torch.nn.functional.cosine_similarity(gg, gc, dim=0))
+        log(f"  {label}: kernel {lg} plain {lc} rel err "
+            f"{max(rel.values()):.2e}; gradient cosine {cos:.6f} over "
+            f"{gg.numel()} values")
+        if max(rel.values()) > loss_tol or not cos >= cos_tol:
+            raise AssertionError(f"reference {label}: loss rel err {rel}, "
+                                 f"gradient cosine {cos}")
+        results[label] = dict(kernel=lg, plain=lc, rel=rel, grad_cos=cos)
+    report["reference"] = results
+
+
+if __name__ == "__main__":
+    sys.exit(main())
