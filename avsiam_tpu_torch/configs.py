@@ -5,10 +5,13 @@ DecoderConfig, CAVMAEConfig, AudioConfig, OptimizerConfig, MeshConfig,
 PretrainConfig), with torch dtypes in place of jnp ones. The port keeps its
 own copy so that it imports nothing of the JAX package.
 
-What this slice of the port runs (anything else raises where it is read):
+What the port runs so far (anything else raises where it is read):
 ``CAVMAEConfig.mmixed_impl='exact'``, ``attn_impl`` 'auto'/'pallas' (the
-attention kernel), ``mlp_impl`` 'auto'/'lnfres' (the fused LN->MLP kernel)
-or 'dense', ``remat_blocks=False`` and ``ViTConfig.gelu`` 'erf'/'ans'.
+attention kernel), ``remat_blocks=False`` and ``ViTConfig.gelu``
+'erf'/'ans'. ``mlp_impl`` (encoder and ``mm_layer_1/2``) and ``dec_mlp_impl``
+(decoder; None means ``mlp_impl``) take the JAX package's whole set:
+'auto'/'lnfres' (the fused LN->MLP kernel K3), 'fused', 'fbwd', 'fres' (the
+MLP kernels K4, K7, K8, K9), 'dense', 'remat_g' and 'remat_all'.
 """
 
 from __future__ import annotations

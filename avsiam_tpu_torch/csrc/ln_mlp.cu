@@ -20,9 +20,11 @@
 // on the tensor cores through nvcuda::wmma; weight fragments are read from
 // device memory (L2-resident across blocks).
 //
-// One block per SM fits (its registers), and a block's time grows with the
-// chunks it walks, so the pass-1 calls (T of 156 to 1024 rows, 5 to 32 row
-// tiles) would leave most SMs idle. The hidden dimension is therefore split
+// The chunk loop, the partial store and the epilogue are shared with K4
+// (mlp_tile.cuh). One block per SM fits (its registers), and a block's time
+// grows with the chunks it walks, so the pass-1 calls (T of 156 to 1024
+// rows, 5 to 32 row tiles) would leave most SMs idle. The hidden dimension
+// is therefore split
 // into `splits` contiguous ranges, one block per (row tile, range); each
 // block writes its f32 partial fc2 sum to a workspace [splits, rows, D], and
 // a second kernel adds the partials in a fixed order (deterministic, no
@@ -33,47 +35,9 @@
 // Weights use nn.Linear's layout: w1 [H, D] (fc1.weight), w2 [D, H]
 // (fc2.weight); biases and LN parameters are f32.
 
-#include <math.h>
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "mlp_tile.cuh"
 
 namespace {
-
-constexpr int BM = 32;        // rows per block
-constexpr int HC = 64;        // hidden columns per chunk
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = HC + 4;   // f32 hidden tile row stride
-constexpr int LDG = HC + 8;   // bf16 activation tile row stride
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-
-template <int D>
-struct MlpSmem {
-  static constexpr int LDN = D + 8;
-  static constexpr int NS = 0;
-  static constexpr int HS = align128(NS + BM * LDN * 2);
-  static constexpr int GS = align128(HS + BM * LDH * 4);
-  static constexpr int BYTES = GS + BM * LDG * 2;
-};
-
-// 0.5 x (1 + erf(x / sqrt 2)) with Abramowitz & Stegun 7.1.26 erf
-__device__ __forceinline__ float gelu_ans(float x) {
-  const float z = x * 0.70710678118654752f;
-  const float a = fabsf(z);
-  const float t = 1.f / (1.f + 0.3275911f * a);
-  const float poly =
-      ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
-       0.254829592f) * t;
-  const float e = 1.f - poly * expf(-a * a);
-  const float erf = z > 0.f ? e : (z < 0.f ? -e : 0.f);
-  return 0.5f * x * (1.f + erf);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -84,7 +48,6 @@ ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                   int H, int splits, float eps) {
   using SM = MlpSmem<D>;
   constexpr int LDN = SM::LDN;
-  constexpr int YC = D / 128;  // output column fragments per warp (x 2 row tiles)
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ns = reinterpret_cast<bf16*>(smem + SM::NS);
   float* Hs = reinterpret_cast<float*>(smem + SM::HS);
@@ -120,81 +83,13 @@ ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
       nrow[c] = __float2bfloat16((to_f32(xr[c]) - mu) * (rstd * ln_g[c]) + ln_b[c]);
   }
 
-  FragC y[2][YC];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int j = 0; j < YC; ++j) wmma::fill_fragment(y[rt][j], 0.f);
+  FragC y[2][D / 128];
+  zero_rows_acc<D>(y);
   __syncthreads();
-
-  const int frt = warp >> 2, fct = warp & 3;  // this warp's fc1 fragment
-  for (int h0 = c_begin * HC; h0 < c_end * HC; h0 += HC) {
-    // 2. h = LN(x) . w1[h0:h0+HC]^T, one 16x16 fragment per warp
-    {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      const bf16* wcol = w1 + (size_t)(h0 + fct * 16) * D;
-#pragma unroll 4
-      for (int kk = 0; kk < D; kk += 16) {
-        FragA fa;
-        FragBc fb;
-        wmma::load_matrix_sync(fa, Ns + frt * 16 * LDN + kk, LDN);
-        wmma::load_matrix_sync(fb, wcol + kk, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Hs + frt * 16 * LDH + fct * 16, acc, LDH, wmma::mem_row_major);
-    }
-    __syncthreads();
-    // 3. + b1; the pre-GELU hidden goes out; f32 GELU -> bf16 tile Gs
-    for (int i = tid; i < BM * HC; i += THREADS) {
-      const int r = i / HC, c = i % HC, n = r0 + r;
-      const float hv = Hs[r * LDH + c] + b1[h0 + c];
-      if (n < rows) hpre[(size_t)n * H + h0 + c] = from_f32<T>(hv);
-      Gs[r * LDG + c] = __float2bfloat16(gelu_ans(hv));
-    }
-    __syncthreads();
-    // 4. y += g . w2[:, h0:h0+HC]^T on this warp's output columns
-#pragma unroll
-    for (int kk = 0; kk < HC; kk += 16) {
-      FragA fa0, fa1;
-      wmma::load_matrix_sync(fa0, Gs + kk, LDG);
-      wmma::load_matrix_sync(fa1, Gs + 16 * LDG + kk, LDG);
-#pragma unroll
-      for (int j = 0; j < YC; ++j) {
-        FragBc fb;
-        wmma::load_matrix_sync(fb, w2 + (size_t)((warp * YC + j) * 16) * H + h0 + kk, H);
-        wmma::mma_sync(y[0][j], fa0, fb, y[0][j]);
-        wmma::mma_sync(y[1][j], fa1, fb, y[1][j]);
-      }
-    }
-  }
-
-  // 5. this block's partial sum goes to partial[blockIdx.y] (rows padded to
-  // the row tiles, so whole fragments are stored)
-  const int rows_pad = gridDim.x * BM;
-  float* part = partial + ((size_t)blockIdx.y * rows_pad + r0) * D;
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int j = 0; j < YC; ++j)
-      wmma::store_matrix_sync(part + (size_t)rt * 16 * D + (warp * YC + j) * 16, y[rt][j], D,
-                              wmma::mem_row_major);
-}
-
-// out = x + T(sum_s partial[s] + b2): the partials in order s = 0, 1, ...,
-// then the residual add in T
-template <typename T>
-__global__ void ln_mlp_epilogue_kernel(const T* __restrict__ x, const float* __restrict__ partial,
-                                       const float* __restrict__ b2, T* __restrict__ out,
-                                       int rows, int rows_pad, int D, int splits) {
-  const size_t n = (size_t)rows * D, stride = (size_t)rows_pad * D;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += partial[s * stride + i];
-    const float m = to_f32(from_f32<T>(acc + b2[i % D]));
-    out[i] = from_f32<T>(to_f32(x[i]) + m);
-  }
+  // 2.-4. fc1 -> + b1, hidden out -> GELU -> fc2 over this block's chunks
+  fwd_chunks<T, D>(Ns, Hs, Gs, w1, b1, w2, hpre, r0, rows, H, c_begin, c_end, y);
+  // 5. the partial sum over those chunks
+  store_partial<D>(partial, y, r0);
 }
 
 template <typename T, int D>
@@ -213,12 +108,8 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1,
       static_cast<float*>(partial), rows, H, splits, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)rows * D;
-  const int blocks = (int)((n + 1023) / 1024 < 4096 ? (n + 1023) / 1024 : 4096);
-  ln_mlp_epilogue_kernel<T><<<blocks, 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(partial),
-      static_cast<const float*>(b2), static_cast<T*>(out), rows, tiles * BM, D, splits);
-  return (int)cudaGetLastError();
+  return (int)launch_epilogue<T, true, true>(x, partial, b2, out, rows, tiles * BM, D, splits,
+                                             stream);
 }
 
 }  // namespace

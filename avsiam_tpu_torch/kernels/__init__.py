@@ -30,11 +30,12 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "avsiam_tpu_torch"
-SOURCES = ("attention.cu", "ln_mlp.cu")
+SOURCES = ("attention.cu", "ln_mlp.cu", "mlp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "ln_mlp_fwd": 0}
+LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "ln_mlp_fwd": 0,
+            "mlp_fwd": 0, "mlp_bwd": 0, "mlp_bwd_dx": 0, "mlp_dw": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +53,19 @@ _SIGNATURES = {
     # dtype, eps, stream
     "avsiam_ln_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _F, _P),
+    # x, w1, b1, w2, b2, out, hpre (or None), partial, rows, D, H, splits,
+    # dtype, stream
+    "avsiam_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, dout, dx, dw1, db1, dw2, db2, partial, rows, D, H,
+    # splits, dtype, stream
+    "avsiam_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _P),
+    # x, w1, b1, w2, dout, dx, gh, act, partial, rows, D, H, splits, dtype,
+    # stream
+    "avsiam_mlp_bwd_dx": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P),
+    # a, g, dw, db, rows, m, n, dtype, stream
+    "avsiam_mlp_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

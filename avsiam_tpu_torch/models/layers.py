@@ -9,7 +9,8 @@ statistics, GELU and losses run in float32.
 
 Attention runs through ``ops.attention.attention_qkv`` (kernels K1/K2 on the
 GPU); with ``mlp_impl`` 'auto' or 'lnfres' the MLP sub-block runs through
-``ops.mlp.fused_ln_mlp`` (kernel K3 on the GPU).
+``ops.mlp.fused_ln_mlp`` (kernel K3 on the GPU), and with 'fused', 'fbwd' or
+'fres' the MLP through ``ops.mlp.fused_mlp`` (kernels K4, K7, K8, K9).
 """
 
 from __future__ import annotations
@@ -19,16 +20,18 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from avsiam_tpu_torch.configs import ViTConfig
 from avsiam_tpu_torch.ops.attention import attention_qkv
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
 from avsiam_tpu_torch.ops.layernorm import layer_norm
-from avsiam_tpu_torch.ops.mlp import fused_ln_mlp
+from avsiam_tpu_torch.ops.mlp import FUSED_IMPLS, fused_ln_mlp, fused_mlp
 from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
 
 ATTN_IMPLS = ("auto", "pallas")  # both mean: the attention kernel
-MLP_IMPLS = ("auto", "lnfres", "dense")
+MLP_IMPLS = ("dense", "remat_g", "remat_all", "fused", "fbwd", "fres", "auto",
+             "lnfres")
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
 # so that the truncated distribution has variance 1 / fan_in
@@ -89,16 +92,51 @@ class LayerNormFP32(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU (float32) -> fc2, the plain 'dense' form."""
+    """fc1 -> GELU (float32) -> fc2. ``impl`` (``avsiam_tpu/models/layers.py``
+    ``Mlp``):
 
-    def __init__(self, dim: int, hidden_dim: int, dtype, gelu: str, device):
+    * 'dense': plain ops; autograd saves the pre-GELU hidden and the
+      activation;
+    * 'remat_g': the same forward, saving only the activation: the backward
+      recomputes fc1 (``torch.utils.checkpoint``);
+    * 'remat_all': the same forward, saving neither: the backward
+      recomputes fc1 and the GELU;
+    * 'fused', 'fbwd', 'fres': ``ops.mlp.fused_mlp``;
+    * 'auto': 'fres' on the card, as on the TPU; 'dense' on the CPU;
+    * 'lnfres': 'fres' here (the LN fold happens one level up, in
+      ``ModalityBlock._mlp_res``; this is the 'av' tail's MLP).
+    """
+
+    def __init__(self, dim: int, hidden_dim: int, dtype, gelu: str, device,
+                 impl: str = "dense"):
         super().__init__()
+        if impl not in MLP_IMPLS:
+            raise ValueError(f"mlp impl {impl!r} not in {MLP_IMPLS}")
+        self.dtype = dtype
         self.gelu = gelu
+        self.impl = impl
         self.fc1 = Dense(dim, hidden_dim, dtype, device)
         self.fc2 = Dense(hidden_dim, dim, dtype, device)
 
+    def _act(self, x):
+        return gelu_op(self.fc1(x), self.gelu)
+
     def forward(self, x):
-        return self.fc2(gelu_op(self.fc1(x), self.gelu))
+        impl = self.impl
+        if impl == "auto":
+            impl = "fres" if x.device.type == "cuda" else "dense"
+        if impl == "lnfres":
+            impl = "fres"
+        if impl in FUSED_IMPLS:
+            return fused_mlp(x.to(self.dtype), self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias, gelu=self.gelu,
+                             impl=impl)
+        if impl == "remat_all":
+            return checkpoint(lambda x: self.fc2(self._act(x)), x,
+                              use_reentrant=False)
+        if impl == "remat_g":
+            return self.fc2(checkpoint(self._act, x, use_reentrant=False))
+        return self.fc2(self._act(x))
 
 
 class Attention(nn.Module):
@@ -129,9 +167,6 @@ class ModalityBlock(nn.Module):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r}: the port runs "
                              f"attention through its kernel ({ATTN_IMPLS})")
-        if mlp_impl not in MLP_IMPLS:
-            raise ValueError(f"mlp_impl {mlp_impl!r} is not ported "
-                             f"({MLP_IMPLS})")
         self.dtype = dtype
         self.ln_eps = ln_eps
         self.gelu = gelu
@@ -140,7 +175,8 @@ class ModalityBlock(nn.Module):
                      "norm2_v"):
             setattr(self, name, LayerNormFP32(dim, ln_eps, dtype, device))
         self.attn = Attention(dim, num_heads, qkv_bias, dtype, device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu, device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu, device,
+                       mlp_impl)
 
     def forward(self, x, modality: Optional[str] = None,
                 key_valid: Optional[torch.Tensor] = None):
@@ -166,7 +202,7 @@ class ModalityBlock(nn.Module):
 
     def _mlp_res(self, x, n2):
         """``x + mlp(n2(x))``; 'auto'/'lnfres' run it as one fused forward."""
-        if self.mlp_impl == "dense":
+        if self.mlp_impl not in ("auto", "lnfres"):
             return x + self.mlp(n2(x))
         return fused_ln_mlp(x.to(self.dtype), n2.weight, n2.bias,
                             self.mlp.fc1.weight, self.mlp.fc1.bias,

@@ -4,7 +4,9 @@ Counterpart of ``avsiam_tpu/ops/gelu.py`` for the two forms the pretrain
 path uses. 'erf' is exact; 'ans' evaluates erf with A&S 7.1.26 (one exp,
 one reciprocal, max |erf error| 1.5e-7). The JAX Pallas MLP evaluates an
 'erf' request as 'ans' (``avsiam_tpu/ops/mlp.py:_kernel_impl``), and so do the
-port's fused MLP and its kernel (``kernel_impl``).
+port's fused MLP forms and their kernels K3, K4, K7 and K8 (``kernel_impl``).
+The backward kernels take GELU and GELU' together in the shared-exp form of
+``gelu_act_grad_f32``, as the Pallas ``_bwd_fused_kernel`` does.
 """
 
 from __future__ import annotations

@@ -1,41 +1,64 @@
-"""The transformer block's MLP sub-block, ``x + fc2(gelu(fc1(LN(x))))``.
+"""The transformer MLP ``fc2(gelu(fc1(x)))``, alone or as the block's whole
+MLP sub-block ``x + fc2(gelu(fc1(LN(x))))``, and their backwards.
 
-Counterpart of ``avsiam_tpu/ops/mlp.py:fused_ln_mlp`` (the 'lnfres' path):
-the forward is the fused kernel ``_lnfwd_call`` (K3), here the CUDA kernel
-of ``csrc/ln_mlp.cu``; the backward mirrors ``_lnfres_mlp_bwd`` in PyTorch
-ops (it is plain XLA in the JAX package, so it has no kernel): recompute the
-LN, take GELU' from the saved pre-GELU hidden, four products, the analytic
-LN VJP, plus the residual's cotangent.
+Counterpart of ``avsiam_tpu/ops/mlp.py``: ``fused_ln_mlp`` (the 'lnfres'
+path) and ``fused_mlp`` with its three custom VJPs. The Pallas kernels are
+the CUDA kernels of ``csrc/ln_mlp.cu`` and ``csrc/mlp.cu``:
 
-Numerics of both forwards: f32 LN statistics, GEMM operands in the
-activation dtype with f32 accumulation, f32 GELU ('erf' evaluated as 'ans',
-as the Pallas kernel does), the residual add in the activation dtype; the
-pre-GELU hidden is saved in the activation dtype.
+- K3 ``ln_mlp_fwd_kernel`` (``_lnfwd_call``): LN -> fc1 -> GELU -> fc2 ->
+  residual, emitting the pre-GELU hidden;
+- K4 ``mlp_fwd_kernel`` (``_fwd_call``): fc1 -> GELU -> fc2, optionally
+  emitting the pre-GELU hidden;
+- K7 ``mlp_bwd_kernel`` (``_bwd_call``): the backward recomputing the hidden,
+  dx plus float32 dw1, db1, dw2, db2;
+- K8 ``mlp_bwd_dx_kernel`` (``_bwd_call_split``): dx, stashing gh and act;
+- K9 ``weight_grads_kernel`` (``weight_grads``): a weight gradient g^T a and
+  its bias gradient, the column sums of g.
+
+The impls of ``fused_mlp``: 'fused' is K4 forward and K7 backward; 'fbwd' the
+plain dense forward (bit for bit the 'dense' ``Mlp``, true 'erf') and K7
+backward; 'fres' K4 forward saving the pre-GELU hidden, and a backward of
+PyTorch ops from it (plain XLA in the JAX package, so it has no kernel), as
+the 'lnfres' backward is. ``AVSIAM_MLP_BWD=split``, read at each backward,
+routes K7 to K8 plus K9 twice.
+
+Numerics: GEMM operands in the activation dtype with float32 accumulation,
+float32 GELU ('erf' evaluated as 'ans', as the Pallas kernels do), the
+pre-GELU hidden saved in the activation dtype. K7's db1 sums the float32
+gh; 'fres' and K9 sum gh after its cast to the activation dtype.
 
 Weights use nn.Linear's layout: w1 [H, D] (fc1.weight), w2 [D, H]
-(fc2.weight). On a CPU tensor the forward is the plain version; on a CUDA
-tensor it launches the kernel or raises.
+(fc2.weight), and so do their gradients. On a CPU tensor each kernel's
+wrapper takes its plain version; on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from avsiam_tpu_torch import kernels
+from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
 from avsiam_tpu_torch.ops.gelu import gelu_act_grad_f32, gelu_f32, kernel_impl
 from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_vjp
 
+FUSED_IMPLS = ("fused", "fbwd", "fres")
 KERNEL_DIMS = (512, 768)
 HIDDEN_CHUNK = 64  # hidden columns per step of the kernel's loop
 ROW_TILE = 32      # rows per block
 MAX_SPLITS = 16    # bounds the f32 partial sums at 16 x [T, D]
+WEIGHT_GRAD_TILE = 64  # K9's dw tile edge: m and n must be multiples
 
 
 def hidden_splits(rows: int, hidden: int, num_sms: int) -> int:
-    """Into how many ranges K3 splits the hidden dimension. One block (row
-    tile, range) fits on an SM at a time and takes time in proportion to its
-    chunks, so the call takes about waves * chunks per block; the smallest
-    split count (the least f32 partial traffic) that minimises that."""
+    """Into how many ranges K3, K4 and the dx pass of K7/K8 split the hidden
+    dimension. One block (row tile, range) fits on an SM at a time and takes
+    time in proportion to its chunks, so the call takes about waves * chunks
+    per block; the smallest split count (the least f32 partial traffic)
+    that minimises that."""
     tiles = -(-rows // ROW_TILE)
     chunks = hidden // HIDDEN_CHUNK
 
@@ -58,44 +81,90 @@ def ln_mlp_reference(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
     return x2 + y.to(dt), hpre.to(dt)
 
 
+def _rows_geometry(name: str, x2: torch.Tensor, w1: torch.Tensor):
+    """(T, D, H) of a kernel call on [T, D] rows, or ValueError."""
+    if x2.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs a CUDA tensor, got {x2.device}")
+    if x2.dtype not in kernels.DTYPE_CODES or x2.dim() != 2:
+        raise ValueError(f"{name}: rows must be [T, D] float32 or bfloat16, "
+                         f"got {tuple(x2.shape)} {x2.dtype}")
+    T, D = x2.shape
+    H = w1.shape[0]
+    if D not in KERNEL_DIMS or H % HIDDEN_CHUNK != 0 or T == 0:
+        raise ValueError(f"{name} kernel takes D in {KERNEL_DIMS}, H a "
+                         f"multiple of {HIDDEN_CHUNK} and T > 0; got T={T}, "
+                         f"D={D}, H={H}")
+    if not x2.is_contiguous():
+        raise ValueError(f"{name}: rows must be contiguous")
+    return T, D, H
+
+
+def _check_aligned(name: str, *tensors) -> None:
+    """The MLP kernels of ``csrc/mlp.cu`` read rows with 16-byte loads."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: row tensors must start 16-byte aligned")
+
+
+def _check_operands(name: str, device, *specs) -> None:
+    """Each (label, tensor, shape, dtype) must match and be a contiguous
+    32-byte-aligned tensor on ``device`` (wmma reads weights in place)."""
+    for label, t, shape, dtype in specs:
+        if (t.shape != shape or t.dtype != dtype or t.device != device
+                or not t.is_contiguous() or t.data_ptr() % 32 != 0):
+            raise ValueError(f"{name}: {label} must be a contiguous "
+                             f"32-byte-aligned {shape} {dtype} tensor on "
+                             f"{device}")
+
+
+def _weight_specs(w1, b1, w2, D, H, b2=None):
+    bf16, f32 = torch.bfloat16, torch.float32
+    specs = [("w1", w1, (H, D), bf16), ("b1", b1, (H,), f32),
+             ("w2", w2, (D, H), bf16)]
+    if b2 is not None:
+        specs.append(("b2", b2, (D,), f32))
+    return specs
+
+
+def _splits(splits, T: int, H: int, device) -> int:
+    if splits is None:
+        splits = hidden_splits(T, H, kernels.num_sms(device))
+    if not 1 <= splits <= H // HIDDEN_CHUNK:
+        raise ValueError(f"splits must be in [1, {H // HIDDEN_CHUNK}], got "
+                         f"{splits}")
+    return splits
+
+
+def _partial(splits: int, T: int, D: int, device) -> torch.Tensor:
+    """f32 scratch for the per-range partial sums of a [T, D] output."""
+    return torch.empty((splits, -(-T // ROW_TILE) * ROW_TILE, D),
+                       dtype=torch.float32, device=device)
+
+
+def _kernel_weights(w1, b1, w2, b2=None):
+    """Weights in bf16 and biases in f32, as the kernels take them."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return (w1.to(bf16).contiguous(), b1.to(f32).contiguous(),
+            w2.to(bf16).contiguous(),
+            None if b2 is None else b2.to(f32).contiguous())
+
+
+# --------------------------------------------------------- K3 (lnfres)
 def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
                       splits=None):
     """K3 on [T, D] rows of float32 or bfloat16: returns (out, pre-GELU
     hidden) in x2's dtype. Weights bf16, LN parameters and biases f32.
     ``splits`` (default ``hidden_splits``) sets into how many ranges the
     hidden dimension is cut across blocks."""
-    if x2.device.type != "cuda":
-        raise ValueError(f"LN-MLP kernel needs a CUDA tensor, got {x2.device}")
-    if x2.dtype not in kernels.DTYPE_CODES or x2.dim() != 2:
-        raise ValueError(f"x2 must be [T, D] float32 or bfloat16, got "
-                         f"{tuple(x2.shape)} {x2.dtype}")
-    T, D = x2.shape
-    H = w1.shape[0]
-    if D not in KERNEL_DIMS or H % HIDDEN_CHUNK != 0 or T == 0:
-        raise ValueError(f"LN-MLP kernel takes D in {KERNEL_DIMS}, H a "
-                         f"multiple of {HIDDEN_CHUNK} and T > 0; got T={T}, "
-                         f"D={D}, H={H}")
-    if not x2.is_contiguous():
-        raise ValueError("x2 must be contiguous")
-    for name, t, shape, dtype in (
-            ("w1", w1, (H, D), torch.bfloat16), ("w2", w2, (D, H), torch.bfloat16),
-            ("ln_scale", ln_scale, (D,), torch.float32),
-            ("ln_bias", ln_bias, (D,), torch.float32),
-            ("b1", b1, (H,), torch.float32), ("b2", b2, (D,), torch.float32)):
-        if (t.shape != shape or t.dtype != dtype or t.device != x2.device
-                or not t.is_contiguous() or t.data_ptr() % 32 != 0):
-            raise ValueError(f"{name} must be a contiguous 32-byte-aligned "
-                             f"{shape} {dtype} tensor on {x2.device}")
+    T, D, H = _rows_geometry("LN-MLP", x2, w1)
+    f32 = torch.float32
+    _check_operands("LN-MLP", x2.device, *_weight_specs(w1, b1, w2, D, H, b2),
+                    ("ln_scale", ln_scale, (D,), f32),
+                    ("ln_bias", ln_bias, (D,), f32))
     lib = kernels.library()
-    if splits is None:
-        splits = hidden_splits(T, H, kernels.num_sms(x2.device))
-    if not 1 <= splits <= H // HIDDEN_CHUNK:
-        raise ValueError(f"splits must be in [1, {H // HIDDEN_CHUNK}], got "
-                         f"{splits}")
+    splits = _splits(splits, T, H, x2.device)
     out = torch.empty_like(x2)
     hpre = torch.empty((T, H), dtype=x2.dtype, device=x2.device)
-    partial = torch.empty((splits, -(-T // ROW_TILE) * ROW_TILE, D),
-                          dtype=torch.float32, device=x2.device)
+    partial = _partial(splits, T, D, x2.device)
     err = lib.avsiam_ln_mlp_fwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -104,6 +173,17 @@ def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
     kernels.check(err, "LN-MLP forward")
     kernels.LAUNCHES["ln_mlp_fwd"] += 1
     return out, hpre
+
+
+def _saved_hidden_bwd(inp, w1, w2, hpre, do, gelu: str):
+    """Backward of ``fc2(gelu(fc1(inp)))`` from its saved pre-GELU hidden
+    (``_fres_mlp_bwd``): (d inp in inp's dtype, dw1, db1, dw2, db2)."""
+    dt = inp.dtype
+    f32 = torch.float32
+    act, grad = gelu_act_grad_f32(hpre.to(f32), kernel_impl(gelu))
+    gh = ((do @ w2).to(f32) * grad).to(dt)
+    return ((gh @ w1).to(dt), gh.T @ inp, gh.to(f32).sum(dim=0),
+            do.T @ act.to(dt), do.to(f32).sum(dim=0))
 
 
 class _LnMlp(torch.autograd.Function):
@@ -117,11 +197,11 @@ class _LnMlp(torch.autograd.Function):
                                          b2, eps, gelu)
         else:
             kernel_impl(gelu)  # the kernel evaluates GELU as 'ans'
-            f32, bf16 = torch.float32, torch.bfloat16
+            f32 = torch.float32
+            w1k, b1k, w2k, b2k = _kernel_weights(w1, b1, w2, b2)
             out, hpre = ln_mlp_fwd_kernel(
                 x2, ln_scale.to(f32).contiguous(), ln_bias.to(f32).contiguous(),
-                w1.to(bf16).contiguous(), b1.to(f32).contiguous(),
-                w2.to(bf16).contiguous(), b2.to(f32).contiguous(), eps)
+                w1k, b1k, w2k, b2k, eps)
         ctx.save_for_backward(x2, ln_scale, ln_bias, w1, w2, hpre)
         ctx.eps, ctx.gelu, ctx.b1_dtype = eps, gelu, b1.dtype
         return out
@@ -129,16 +209,9 @@ class _LnMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         x2, g, bln, w1, w2, hpre = ctx.saved_tensors
-        dt = x2.dtype
-        f32 = torch.float32
         n = layer_norm(x2, g, bln, ctx.eps)  # recompute the LN output
-        act, grad = gelu_act_grad_f32(hpre.to(f32), kernel_impl(ctx.gelu))
-        gh = ((do @ w2).to(f32) * grad).to(dt)
-        dn = (gh @ w1).to(dt)
-        dw1 = gh.T @ n
-        dw2 = do.T @ act.to(dt)
-        db1 = gh.to(f32).sum(dim=0)
-        db2 = do.to(f32).sum(dim=0)
+        dn, dw1, db1, dw2, db2 = _saved_hidden_bwd(n, w1, w2, hpre, do,
+                                                   ctx.gelu)
         dx_ln, dgamma, dbeta = layer_norm_vjp(x2, g, dn, ctx.eps)
         dx = do + dx_ln  # the residual branch's cotangent joins here
         return (dx, dgamma.to(g.dtype), dbeta.to(bln.dtype), dw1.to(w1.dtype),
@@ -158,4 +231,274 @@ def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
     out = _LnMlp.apply(x.reshape(-1, shape[-1]), ln_scale.to(f32),
                        ln_bias.to(f32), w1.to(dt), b1.to(dt), w2.to(dt),
                        b2.to(dt), float(eps), gelu)
+    return out.reshape(shape)
+
+
+# ------------------------------------------------------------- K4
+def mlp_fwd_reference(x2, w1, b1, w2, b2, gelu: str = "erf",
+                      save_hpre: bool = False):
+    """Plain version of K4 on [T, D] rows: out, or (out, pre-GELU hidden)
+    with ``save_hpre``, in x2's dtype; products in float32 from the given
+    values."""
+    dt = x2.dtype
+    f32 = torch.float32
+    hpre = x2.to(f32) @ w1.to(f32).T + b1.to(f32)
+    act = gelu_f32(hpre, kernel_impl(gelu)).to(dt)
+    out = (act.to(f32) @ w2.to(f32).T + b2.to(f32)).to(dt)
+    return (out, hpre.to(dt)) if save_hpre else out
+
+
+def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False):
+    """K4 on [T, D] rows of float32 or bfloat16: out, or (out, pre-GELU
+    hidden) with ``save_hpre``, in x2's dtype. Weights bf16, biases f32."""
+    T, D, H = _rows_geometry("MLP forward", x2, w1)
+    _check_aligned("MLP forward", x2)
+    _check_operands("MLP forward", x2.device,
+                    *_weight_specs(w1, b1, w2, D, H, b2))
+    lib = kernels.library()
+    splits = hidden_splits(T, H, kernels.num_sms(x2.device))
+    out = torch.empty_like(x2)
+    hpre = (torch.empty((T, H), dtype=x2.dtype, device=x2.device)
+            if save_hpre else None)
+    partial = _partial(splits, T, D, x2.device)
+    err = lib.avsiam_mlp_fwd(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(),
+        None if hpre is None else hpre.data_ptr(), partial.data_ptr(), T, D,
+        H, splits, kernels.DTYPE_CODES[x2.dtype], kernels.stream_handle(x2))
+    kernels.check(err, "MLP forward")
+    kernels.LAUNCHES["mlp_fwd"] += 1
+    return (out, hpre) if save_hpre else out
+
+
+def mlp_fwd(x2, w1, b1, w2, b2, gelu: str = "erf", save_hpre: bool = False):
+    """K4 on a CUDA tensor (weights cast to bf16, biases to f32), its plain
+    version on a CPU tensor."""
+    if x2.device.type == "cpu":
+        return mlp_fwd_reference(x2, w1, b1, w2, b2, gelu, save_hpre)
+    kernel_impl(gelu)  # the kernel evaluates GELU as 'ans'
+    return mlp_fwd_kernel(x2, *_kernel_weights(w1, b1, w2, b2), save_hpre)
+
+
+# ---------------------------------------------------------- K7, K8, K9
+def _recompute_gh(x2, w1, b1, w2, do, gelu: str):
+    """(act, gh) of the backward that recomputes the hidden, in float32
+    from the given values."""
+    f32 = torch.float32
+    hpre = x2.to(f32) @ w1.to(f32).T + b1.to(f32)
+    act, grad = gelu_act_grad_f32(hpre, kernel_impl(gelu))
+    return act, (do.to(f32) @ w2.to(f32)) * grad
+
+
+def mlp_bwd_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
+    """Plain version of K7 (``_bwd_fused_kernel``): dx in x2's dtype; dw1
+    [H, D], db1 [H], dw2 [D, H], db2 [D] in float32. dx and dw1 take gh in
+    x2's dtype; db1 sums the float32 gh."""
+    dt = x2.dtype
+    f32 = torch.float32
+    act, gh = _recompute_gh(x2, w1, b1, w2, do, gelu)
+    ghb = gh.to(dt).to(f32)
+    dof = do.to(f32)
+    return ((ghb @ w1.to(f32)).to(dt), ghb.T @ x2.to(f32), gh.sum(dim=0),
+            dof.T @ act.to(dt).to(f32), dof.sum(dim=0))
+
+
+def mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
+    """Plain version of K8 (``_bwd_dx_kernel``): (dx, gh, act), all in x2's
+    dtype."""
+    dt = x2.dtype
+    act, gh = _recompute_gh(x2, w1, b1, w2, do, gelu)
+    ghb = gh.to(dt)
+    dx = (ghb.to(torch.float32) @ w1.to(torch.float32)).to(dt)
+    return dx, ghb, act.to(dt)
+
+
+def weight_grads_reference(a, g):
+    """Plain version of K9 (``_dw_kernel``) on a [T, m], g [T, n]: (g^T a
+    [n, m], the column sums of g [n]), in float32."""
+    gf = g.to(torch.float32)
+    return gf.T @ a.to(torch.float32), gf.sum(dim=0)
+
+
+def _bwd_operands(name, x2, w1, b1, w2, do):
+    T, D, H = _rows_geometry(name, x2, w1)
+    _check_operands(name, x2.device, *_weight_specs(w1, b1, w2, D, H))
+    if (do.shape != x2.shape or do.dtype != x2.dtype or do.device != x2.device
+            or not do.is_contiguous()):
+        raise ValueError(f"{name}: do must be a contiguous {tuple(x2.shape)} "
+                         f"{x2.dtype} tensor on {x2.device}")
+    _check_aligned(name, x2, do)
+    return T, D, H
+
+
+def mlp_bwd_kernel(x2, w1, b1, w2, do):
+    """K7 on [T, D] rows x2 and their cotangent do (float32 or bfloat16,
+    alike): (dx in x2's dtype; dw1 [H, D], db1 [H], dw2 [D, H], db2 [D] in
+    float32). Weights bf16, b1 f32."""
+    T, D, H = _bwd_operands("MLP backward", x2, w1, b1, w2, do)
+    lib = kernels.library()
+    splits = hidden_splits(T, H, kernels.num_sms(x2.device))
+    dev, f32 = x2.device, torch.float32
+    dx = torch.empty_like(x2)
+    dw1 = torch.empty((H, D), dtype=f32, device=dev)
+    db1 = torch.empty((H,), dtype=f32, device=dev)
+    dw2 = torch.empty((D, H), dtype=f32, device=dev)
+    db2 = torch.empty((D,), dtype=f32, device=dev)
+    partial = _partial(splits, T, D, dev)
+    err = lib.avsiam_mlp_bwd(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), partial.data_ptr(), T, D, H, splits,
+        kernels.DTYPE_CODES[x2.dtype], kernels.stream_handle(x2))
+    kernels.check(err, "MLP backward")
+    kernels.LAUNCHES["mlp_bwd"] += 1
+    return dx, dw1, db1, dw2, db2
+
+
+def mlp_bwd_dx_kernel(x2, w1, b1, w2, do):
+    """K8 on [T, D] rows x2 and their cotangent do: (dx [T, D], gh [T, H],
+    act [T, H]), all in x2's dtype. Weights bf16, b1 f32."""
+    T, D, H = _bwd_operands("MLP backward dx", x2, w1, b1, w2, do)
+    lib = kernels.library()
+    splits = hidden_splits(T, H, kernels.num_sms(x2.device))
+    dx = torch.empty_like(x2)
+    gh = torch.empty((T, H), dtype=x2.dtype, device=x2.device)
+    act = torch.empty_like(gh)
+    partial = _partial(splits, T, D, x2.device)
+    err = lib.avsiam_mlp_bwd_dx(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        do.data_ptr(), dx.data_ptr(), gh.data_ptr(), act.data_ptr(),
+        partial.data_ptr(), T, D, H, splits, kernels.DTYPE_CODES[x2.dtype],
+        kernels.stream_handle(x2))
+    kernels.check(err, "MLP backward dx")
+    kernels.LAUNCHES["mlp_bwd_dx"] += 1
+    return dx, gh, act
+
+
+def weight_grads_kernel(a, g):
+    """K9 on a [T, m] and g [T, n] (float32 or bfloat16, alike; m and n
+    multiples of 64): (g^T a [n, m], the column sums of g [n]) in float32."""
+    if a.device.type != "cuda":
+        raise ValueError(f"weight-gradient kernel needs a CUDA tensor, got "
+                         f"{a.device}")
+    if (a.dim() != 2 or g.dim() != 2 or a.shape[0] != g.shape[0]
+            or a.shape[0] == 0 or a.dtype not in kernels.DTYPE_CODES
+            or g.dtype != a.dtype or g.device != a.device
+            or not a.is_contiguous() or not g.is_contiguous()
+            or a.shape[1] % WEIGHT_GRAD_TILE or g.shape[1] % WEIGHT_GRAD_TILE):
+        raise ValueError(
+            f"weight-gradient kernel takes contiguous [T, m], [T, n] float32 "
+            f"or bfloat16 tensors alike, T > 0, m and n multiples of "
+            f"{WEIGHT_GRAD_TILE}; got {tuple(a.shape)} {a.dtype}, "
+            f"{tuple(g.shape)} {g.dtype}")
+    _check_aligned("weight gradients", a, g)
+    T, m = a.shape
+    n = g.shape[1]
+    lib = kernels.library()
+    dw = torch.empty((n, m), dtype=torch.float32, device=a.device)
+    db = torch.empty((n,), dtype=torch.float32, device=a.device)
+    err = lib.avsiam_mlp_dw(a.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                            db.data_ptr(), T, m, n,
+                            kernels.DTYPE_CODES[a.dtype],
+                            kernels.stream_handle(a))
+    kernels.check(err, "weight gradients")
+    kernels.LAUNCHES["mlp_dw"] += 1
+    return dw, db
+
+
+def weight_grads(a, g):
+    """K9 on CUDA tensors, its plain version on CPU tensors."""
+    if a.device.type == "cpu":
+        return weight_grads_reference(a, g)
+    return weight_grads_kernel(a, g)
+
+
+def _recompute_bwd(x2, w1, b1, w2, do, gelu: str):
+    """The backward of 'fused' and 'fbwd' from the saved (x, w1, b1, w2):
+    K7, or under ``AVSIAM_MLP_BWD=split`` (read per call, as ``_bwd_call``
+    does) K8 and then K9 for (dw1, db1) and for (dw2, db2). On a CPU tensor
+    the plain versions. Returns (dx, dw1, db1, dw2, db2)."""
+    split = os.environ.get("AVSIAM_MLP_BWD") == "split"
+    if x2.device.type == "cpu":
+        if not split:
+            return mlp_bwd_reference(x2, w1, b1, w2, do, gelu)
+        dx, gh, act = mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu)
+    else:
+        kernel_impl(gelu)  # the kernels evaluate GELU as 'ans'
+        w1k, b1k, w2k, _ = _kernel_weights(w1, b1, w2)
+        if not split:
+            return mlp_bwd_kernel(x2, w1k, b1k, w2k, do)
+        dx, gh, act = mlp_bwd_dx_kernel(x2, w1k, b1k, w2k, do)
+    dw1, db1 = weight_grads(x2, gh)
+    dw2, db2 = weight_grads(act, do)
+    return dx, dw1, db1, dw2, db2
+
+
+# ------------------------------------------------------------- fused_mlp
+class _FusedMlp(torch.autograd.Function):
+    """'fused': K4 forward, no hidden saved; the backward recomputes it."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, gelu):
+        ctx.save_for_backward(x2, w1, b1, w2)
+        ctx.gelu = gelu
+        return mlp_fwd(x2, w1, b1, w2, b2, gelu)
+
+    @staticmethod
+    def backward(ctx, do):
+        x2, w1, b1, w2 = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = _recompute_bwd(x2, w1, b1, w2,
+                                                do.contiguous(), ctx.gelu)
+        # the weight gradients come back in f32 and are cast to the
+        # weights' dtype, as ``_fused_mlp_bwd`` does
+        return (dx, dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
+                db2.to(w2.dtype), None)
+
+
+class _FbwdMlp(_FusedMlp):
+    """'fbwd': the plain dense forward, bit for bit the 'dense' ``Mlp``
+    (with the requested GELU, true 'erf'); the backward of 'fused'."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, gelu):
+        ctx.save_for_backward(x2, w1, b1, w2)
+        ctx.gelu = gelu
+        return F.linear(gelu_op(F.linear(x2, w1, b1), gelu), w2, b2)
+
+
+class _FresMlp(torch.autograd.Function):
+    """'fres': K4 forward saving the pre-GELU hidden; the backward is
+    PyTorch ops from it (``_fres_mlp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, gelu):
+        out, hpre = mlp_fwd(x2, w1, b1, w2, b2, gelu, save_hpre=True)
+        ctx.save_for_backward(x2, w1, w2, hpre)
+        ctx.gelu = gelu
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x2, w1, w2, hpre = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = _saved_hidden_bwd(x2, w1, w2, hpre, do,
+                                                   ctx.gelu)
+        return (dx, dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
+                db2.to(w2.dtype), None)
+
+
+_FUSED_FNS = {"fused": _FusedMlp, "fbwd": _FbwdMlp, "fres": _FresMlp}
+
+
+def fused_mlp(x: torch.Tensor, w1, b1, w2, b2, gelu: str = "erf",
+              impl: str = "fused") -> torch.Tensor:
+    """``fc2(gelu(fc1(x)))`` over x [..., D] with impl 'fused', 'fbwd' or
+    'fres' (module docstring). Parameters may be f32 masters: weights and
+    biases are cast to x's dtype here, outside the autograd Function, so
+    their gradients reach the masters in f32."""
+    if impl not in FUSED_IMPLS:
+        raise ValueError(f"fused_mlp impl {impl!r} not in {FUSED_IMPLS}")
+    shape = x.shape
+    dt = x.dtype
+    out = _FUSED_FNS[impl].apply(x.reshape(-1, shape[-1]), w1.to(dt),
+                                 b1.to(dt), w2.to(dt), b2.to(dt), gelu)
     return out.reshape(shape)

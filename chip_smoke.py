@@ -10,19 +10,28 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit, as nvidia-smi reports them.
 2. kernels: builds the CUDA kernels from ``avsiam_tpu_torch/csrc`` with nvcc,
    then holds each kernel against its plain PyTorch version at every shape
-   the main path gives it (bf16 inputs; the plain version runs in float32 on
-   the same values) and times kernel, plain version and, for attention,
-   ``F.scaled_dot_product_attention`` as a yardstick the port never calls.
-3. step: five full-width ViT-B/16 two-pass pretrain steps (depth 12,
-   decoder depth 8, bf16 compute, batch 8) from the port's own seeded init;
-   every loss must be finite and each kernel's launch count, reset just
-   before, must equal what the step's shapes imply (130 per step at B=8).
-   Then one more step under torch.profiler: device time by kernel group
-   and the device's busy share of a step.
-4. reference: one contrastive and one MAE forward/backward at full width,
-   depth 1, batch 2, through the kernels in bf16 on the card and through the
-   plain versions in float32 on the CPU, from the same weights and draws:
-   losses and gradients must agree within the stated tolerances.
+   the step phases give it (bf16 inputs; the plain version runs in float32
+   on the same values) and times kernel, plain version and, where one
+   PyTorch call computes the same function (``F.scaled_dot_product_attention``
+   for attention, ``torch.mm`` for the weight gradient), that call as a
+   yardstick the port never calls.
+3. steps: full-width ViT-B/16 two-pass pretrain steps (depth 12, decoder
+   depth 8, bf16 compute, batch 8) from the port's own seeded init, five in
+   each of three MLP configurations:
+   A. ``mlp_impl='lnfres'`` (the bench configuration: K1, K2, K3);
+   B. ``mlp_impl='fused'`` (K1, K2, K4 forward, K7 backward);
+   C. ``mlp_impl='fbwd'``, ``dec_mlp_impl='fres'`` and
+      ``AVSIAM_MLP_BWD=split`` (K1, K2; K8 and K9 in the encoders' backward,
+      K4 with the saved hidden in the decoder).
+   Every loss must be finite, and each kernel's launch count, reset just
+   before the phase and read just after, must equal what the step's shapes
+   imply. Then one more step of each under torch.profiler: device time by
+   kernel group and the device's busy share of a step.
+4. reference: for each of the three configurations, one contrastive and one
+   MAE forward/backward at full width, depth 1, batch 2, through the kernels
+   in bf16 on the card and through the plain versions in float32 on the
+   CPU, from the same weights and draws: losses and gradients must agree
+   within the stated tolerances.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--report PATH`` also writes
@@ -32,8 +41,10 @@ the per-shape measurements as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -89,20 +100,21 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
 # ------------------------------------------------------------------ shapes
 def main_path_shapes(cfg, batch: int):
     """Distinct (kernel-call) shapes of one pretrain step and their calls per
-    step: {(b, N, H, D): calls} for attention, {(rows, D, H): calls} for the
-    LN-MLP kernel."""
+    step: {(b, N, H, D): calls} for attention, {(rows, D, H, mlp_impl):
+    calls} for the MLP sub-blocks."""
     from avsiam_tpu_torch.models.cavmae import chunk_sizes
     from avsiam_tpu_torch.ops.masking import len_keep_for
     m = cfg.model
     v, d = m.vit, m.decoder
     La, Lv = v.num_audio_tokens, v.num_video_tokens
     enc_h, dec_h = v.dim * int(v.mlp_ratio), d.dim * int(d.mlp_ratio)
+    dec_impl = m.dec_mlp_impl or m.mlp_impl
     attn, mlp = {}, {}
 
-    def add(b, n, heads, dim, hidden, calls):
+    def add(b, n, heads, dim, hidden, calls, impl=m.mlp_impl):
         key = (b, n, heads, dim // heads)
         attn[key] = attn.get(key, 0) + calls
-        mk = (b * n, dim, hidden)
+        mk = (b * n, dim, hidden, impl)
         mlp[mk] = mlp.get(mk, 0) + calls
 
     sizes = chunk_sizes(batch, m.mmixed_num_chunks)
@@ -115,8 +127,44 @@ def main_path_shapes(cfg, batch: int):
     add(batch, ka, v.num_heads, v.dim, enc_h, v.depth)
     add(batch, kv, v.num_heads, v.dim, enc_h, v.depth)
     add(batch, ka + kv, v.num_heads, v.dim, enc_h, 2)
-    add(batch, La + Lv, d.num_heads, d.dim, dec_h, d.depth)
+    add(batch, La + Lv, d.num_heads, d.dim, dec_h, d.depth, dec_impl)
     return attn, mlp
+
+
+def mlp_call_launches(impl: str, split: bool) -> dict:
+    """Kernel launches of one MLP sub-block call, forward and backward, in
+    a block's ``mlp_impl`` ('auto'/'lnfres' fold the LN into K3 on the card;
+    'fres' and 'dense' have backwards of PyTorch ops)."""
+    out = {}
+    if impl in ("auto", "lnfres"):
+        out["ln_mlp_fwd"] = 1
+    elif impl in ("fused", "fres"):
+        out["mlp_fwd"] = 1
+    if impl in ("fused", "fbwd"):
+        out.update({"mlp_bwd_dx": 1, "mlp_dw": 2} if split else {"mlp_bwd": 1})
+    return out
+
+
+def mlp_shape_launches(mlp_shapes, split: bool):
+    """{(rows, D, H): {kernel: launches per step}} of one configuration."""
+    out = {}
+    for (t, d, h, impl), calls in mlp_shapes.items():
+        row = out.setdefault((t, d, h), {})
+        for k, n in mlp_call_launches(impl, split).items():
+            row[k] = row.get(k, 0) + n * calls
+    return out
+
+
+def expected_launches(attn_shapes, mlp_shapes, split: bool, n_steps: int):
+    """Each kernel's launches over ``n_steps`` steps, from the shapes."""
+    from avsiam_tpu_torch import kernels
+    out = {k: 0 for k in kernels.LAUNCHES}
+    out["attention_fwd"] = out["attention_bwd"] = (
+        sum(attn_shapes.values()) * n_steps)
+    for row in mlp_shape_launches(mlp_shapes, split).values():
+        for k, n in row.items():
+            out[k] += n * n_steps
+    return out
 
 
 # ------------------------------------------------------------ kernel phase
@@ -193,7 +241,7 @@ def check_attention(shapes, extra, gen):
 def check_ln_mlp(shapes, gen, eps: float = 1e-5):
     from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
     rows = []
-    for (t, d, h), calls in shapes.items():
+    for (t, d, h, _), calls in shapes.items():
         bf = torch.bfloat16
 
         def rnd(*shape, scale=1.0):
@@ -233,8 +281,112 @@ def check_ln_mlp(shapes, gen, eps: float = 1e-5):
     return rows
 
 
+def mlp_operands(gen, t: int, d: int, h: int):
+    """bf16 rows x and cotangent do, bf16 weights in nn.Linear's layout, f32
+    biases rounded to bf16 values (as the kernels take them)."""
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    return dict(x=rnd(t, d).to(bf), w1=rnd(h, d, scale=d ** -0.5).to(bf),
+                b1=rnd(h, scale=0.02).to(bf).float(),
+                w2=rnd(d, h, scale=h ** -0.5).to(bf),
+                b2=rnd(d, scale=0.02).to(bf).float(), do=rnd(t, d).to(bf))
+
+
+def check_mlp_family(calls_b, calls_c, gen):
+    """K4 (with and without the pre-GELU hidden), K7, K8 and K9 at every
+    (rows, D, H) of phases B and C, against their plain versions in float32
+    on the same values; times of kernel, plain version, and for K9
+    ``torch.mm``. ``calls_b`` and ``calls_c`` are ``mlp_shape_launches`` of
+    phases B and C."""
+    from avsiam_tpu_torch.ops import mlp as pm
+    rows = []
+    for t, d, h in sorted(set(calls_b) | set(calls_c), key=lambda k: -k[0]):
+        o = mlp_operands(gen, t, d, h)
+        x, w1, b1, w2, b2, do = (o[k] for k in ("x", "w1", "b1", "w2", "b2",
+                                                "do"))
+        f = {k: v.float() for k, v in o.items()}
+        errs = {}
+
+        def hold(name, got, want):
+            for i, (g, w) in enumerate(zip(got, want)):
+                errs[f"{name}[{i}]"] = rel_err(g, w)
+
+        hold("fwd", [pm.mlp_fwd_kernel(x, w1, b1, w2, b2)],
+             [pm.mlp_fwd_reference(f["x"], f["w1"], b1, f["w2"], b2)])
+        hold("fwd_hpre", pm.mlp_fwd_kernel(x, w1, b1, w2, b2, True),
+             pm.mlp_fwd_reference(f["x"], f["w1"], b1, f["w2"], b2,
+                                  save_hpre=True))
+        hold("bwd", pm.mlp_bwd_kernel(x, w1, b1, w2, do),
+             pm.mlp_bwd_reference(f["x"], f["w1"], b1, f["w2"], f["do"]))
+        dx, gh, act = pm.mlp_bwd_dx_kernel(x, w1, b1, w2, do)
+        hold("bwd_dx", (dx, gh, act),
+             pm.mlp_bwd_dx_reference(f["x"], f["w1"], b1, f["w2"], f["do"]))
+        hold("dw1", pm.weight_grads_kernel(x, gh),
+             pm.weight_grads_reference(f["x"], gh.float()))
+        hold("dw2", pm.weight_grads_kernel(act, do),
+             pm.weight_grads_reference(act.float(), f["do"]))
+        torch.cuda.synchronize()
+        worst = max(errs, key=lambda k: errs[k][1])
+        if errs[worst][1] > MLP_TOL:
+            raise AssertionError(f"mlp T={t} D={d} H={h}: {worst} rel err "
+                                 f"{errs[worst][1]:.3e} > {MLP_TOL}")
+        ms = dict(
+            fwd=time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2)),
+            fwd_hpre=time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2,
+                                                       True)),
+            bwd=time_ms(lambda: pm.mlp_bwd_kernel(x, w1, b1, w2, do)),
+            bwd_dx=time_ms(lambda: pm.mlp_bwd_dx_kernel(x, w1, b1, w2, do)),
+            dw=time_ms(lambda: pm.weight_grads_kernel(x, gh))
+            + time_ms(lambda: pm.weight_grads_kernel(act, do)))
+        plain = dict(
+            fwd=time_ms(lambda: pm.mlp_fwd_reference(f["x"], f["w1"], b1,
+                                                     f["w2"], b2)),
+            fwd_hpre=time_ms(lambda: pm.mlp_fwd_reference(
+                f["x"], f["w1"], b1, f["w2"], b2, save_hpre=True)),
+            bwd=time_ms(lambda: pm.mlp_bwd_reference(f["x"], f["w1"], b1,
+                                                     f["w2"], f["do"])),
+            bwd_dx=time_ms(lambda: pm.mlp_bwd_dx_reference(
+                f["x"], f["w1"], b1, f["w2"], f["do"])),
+            dw=time_ms(lambda: pm.weight_grads_reference(f["x"], gh.float()))
+            + time_ms(lambda: pm.weight_grads_reference(act.float(),
+                                                        f["do"])))
+        library = dict(dw=time_ms(lambda: torch.mm(gh.t(), x))
+                       + time_ms(lambda: torch.mm(do.t(), act)))
+        bb, fb = 2, 4  # bytes of a bf16 and an f32 value
+        bounds = dict(
+            fwd=bound_ms(4 * t * d * h,
+                         bb * (2 * t * d + 2 * d * h) + fb * (h + d)),
+            fwd_hpre=bound_ms(4 * t * d * h,
+                              bb * (2 * t * d + 2 * d * h + t * h)
+                              + fb * (h + d)),
+            bwd=bound_ms(10 * t * d * h,
+                         bb * (3 * t * d + 2 * d * h)
+                         + fb * (h + 2 * d * h + h + d)),
+            bwd_dx=bound_ms(6 * t * d * h,
+                            bb * (3 * t * d + 2 * d * h + 2 * t * h) + fb * h),
+            dw=bound_ms(4 * t * d * h + t * (h + d),
+                        bb * 2 * (t * d + t * h) + fb * (2 * d * h + h + d)))
+        cb, cc = calls_b.get((t, d, h), {}), calls_c.get((t, d, h), {})
+        calls = dict(fwd=cb.get("mlp_fwd", 0), fwd_hpre=cc.get("mlp_fwd", 0),
+                     bwd=cb.get("mlp_bwd", 0), bwd_dx=cc.get("mlp_bwd_dx", 0),
+                     dw=cc.get("mlp_dw", 0) // 2)
+        rows.append(dict(T=t, D=d, H=h, calls=calls, errs=errs, ms=ms,
+                         plain_ms=plain, library_ms=library, bound=bounds))
+        log(f"  mlp T={t:5d} D={d} H={h} calls/step B {calls['fwd']} "
+            f"C {calls['bwd_dx']}+{calls['fwd_hpre']}  worst rel err "
+            f"{errs[worst][1]:.1e} ({worst}) <= {MLP_TOL}")
+        for k in ms:
+            extra = f" mm {library[k]:.4f}" if k in library else ""
+            log(f"    {k:8s} {ms[k]:.4f} ms plain {plain[k]:.4f}{extra} bound "
+                f"{bounds[k][0]:.4f}")
+    return rows
+
+
 def check_float32(gen, eps: float = 1e-5):
-    """The kernels' float32-storage variants (off the bf16 main path) at one
+    """The kernels' float32-storage variants (off the bf16 step paths) at one
     encoder and one decoder shape each, against the plain version."""
     from avsiam_tpu_torch.ops.attention import (attention_bwd_kernel,
                                                 attention_fwd_kernel,
@@ -265,6 +417,28 @@ def check_float32(gen, eps: float = 1e-5):
                                      eps)
         errs[f"ln_mlp T={t} D={d}"] = (rel_err(out, ref)[1],
                                        rel_err(hpre, href)[1])
+    from avsiam_tpu_torch.ops import mlp as pm
+    for t, d in ((392, 768), (708, 512)):
+        o = mlp_operands(gen, t, d, 4 * d)
+        x, do = o["x"].float(), o["do"].float()
+        w1, b1, w2, b2 = o["w1"], o["b1"], o["w2"], o["b2"]
+        w1f, w2f = w1.float(), w2.float()
+        out, hpre = pm.mlp_fwd_kernel(x, w1, b1, w2, b2, True)
+        ref, href = pm.mlp_fwd_reference(x, w1f, b1, w2f, b2, save_hpre=True)
+        errs[f"mlp_fwd T={t} D={d}"] = (rel_err(out, ref)[1],
+                                        rel_err(hpre, href)[1])
+        got = pm.mlp_bwd_kernel(x, w1, b1, w2, do)
+        want = pm.mlp_bwd_reference(x, w1f, b1, w2f, do)
+        errs[f"mlp_bwd T={t} D={d}"] = (rel_err(got[0], want[0])[1], max(
+            rel_err(g, w)[1] for g, w in zip(got[1:], want[1:])))
+        dx, gh, act = pm.mlp_bwd_dx_kernel(x, w1, b1, w2, do)
+        want = pm.mlp_bwd_dx_reference(x, w1f, b1, w2f, do)
+        errs[f"mlp_bwd_dx T={t} D={d}"] = (rel_err(dx, want[0])[1], max(
+            rel_err(gh, want[1])[1], rel_err(act, want[2])[1]))
+        dw, db = pm.weight_grads_kernel(act, do)
+        wdw, wdb = pm.weight_grads_reference(act, do)
+        errs[f"mlp_dw T={t} D={d}"] = (rel_err(dw, wdw)[1],
+                                       rel_err(db, wdb)[1])
     for name, (e1, e2) in errs.items():
         log(f"  float32 {name}: rel err {e1:.1e} / {e2:.1e} (<= {ATTN_TOL})")
         if max(e1, e2) > ATTN_TOL:
@@ -278,9 +452,34 @@ def bound_by(rows, key_bound):
     return "operations" if ops >= nbytes else "bytes"
 
 
-def kernel_entries(attn_rows, mlp_rows, launches):
+def family_entry(name, key, phase, rows, launches, errs, library):
+    """One ``kernels`` entry of the MLP family: per-step sums over the
+    shapes, each weighted by its calls per step in ``phase``."""
+    def total(field):
+        return sum(r[field][key] * r["calls"][key] for r in rows)
+
+    def bound(i):
+        return sum(r["bound"][key][i] * r["calls"][key] for r in rows)
+
+    return dict(
+        name=name, route="cuda", source="avsiam_tpu_torch/csrc/mlp.cu",
+        replaces={"mlp_fwd": "avsiam_tpu/ops/mlp.py:190",
+                  "mlp_bwd": "avsiam_tpu/ops/mlp.py:232",
+                  "mlp_bwd_dx": "avsiam_tpu/ops/mlp.py:280",
+                  "mlp_dw": "avsiam_tpu/ops/mlp.py:314"}[name],
+        phase=phase, launches=launches[phase][name],
+        max_abs_err=max(r["errs"][e][0] for r in rows for e in r["errs"]
+                        if e.split("[")[0] in errs),
+        ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=bound(0),
+        bound_by="operations" if bound(1) >= bound(2) else "bytes",
+        library_ms=total("library_ms") if library else None, passed=True)
+
+
+def kernel_entries(attn_rows, mlp_rows, fam_rows, launches):
     """The ``kernels`` line. ``passed`` is true for every entry: each check
-    above raises on a failure, so a failed kernel never reaches the line."""
+    above raises on a failure, so a failed kernel never reaches the line.
+    ``launches`` maps each step phase to its counts; an entry's times are
+    per step of the phase it names."""
     def total(rows, key):
         return sum(r[key] * r["calls"] for r in rows)
 
@@ -290,40 +489,71 @@ def kernel_entries(attn_rows, mlp_rows, launches):
     return [
         dict(name="attention_fwd", route="cuda",
              source="avsiam_tpu_torch/csrc/attention.cu",
-             replaces="avsiam_tpu/ops/attention.py:535",
-             launches=launches["attention_fwd"],
+             replaces="avsiam_tpu/ops/attention.py:535", phase="A",
+             launches=launches["A"]["attention_fwd"],
              max_abs_err=max(r["fwd_err"] for r in attn_rows),
              ms=total(attn_rows, "fwd_ms"), plain_ms=total(attn_rows, "plain_fwd_ms"),
              bound_ms=fwd_bound, bound_by=bound_by(attn_rows, "fwd_bound"),
              library_ms=total(attn_rows, "lib_fwd_ms"), passed=True),
         dict(name="attention_bwd", route="cuda",
              source="avsiam_tpu_torch/csrc/attention.cu",
-             replaces="avsiam_tpu/ops/attention.py:573",
-             launches=launches["attention_bwd"],
+             replaces="avsiam_tpu/ops/attention.py:573", phase="A",
+             launches=launches["A"]["attention_bwd"],
              max_abs_err=max(r["bwd_err"] for r in attn_rows),
              ms=total(attn_rows, "bwd_ms"), plain_ms=total(attn_rows, "plain_bwd_ms"),
              bound_ms=bwd_bound, bound_by=bound_by(attn_rows, "bwd_bound"),
              library_ms=total(attn_rows, "lib_bwd_ms"), passed=True),
         dict(name="ln_mlp_fwd", route="cuda",
              source="avsiam_tpu_torch/csrc/ln_mlp.cu",
-             replaces="avsiam_tpu/ops/mlp.py:429",
-             launches=launches["ln_mlp_fwd"],
+             replaces="avsiam_tpu/ops/mlp.py:429", phase="A",
+             launches=launches["A"]["ln_mlp_fwd"],
              max_abs_err=max(r["out_err"] for r in mlp_rows),
              ms=total(mlp_rows, "ms"), plain_ms=total(mlp_rows, "plain_ms"),
              bound_ms=mlp_bound, bound_by=bound_by(mlp_rows, "bound"),
              library_ms=None, passed=True),
+        family_entry("mlp_fwd", "fwd", "B", fam_rows, launches,
+                     ("fwd", "fwd_hpre"), library=False),
+        family_entry("mlp_bwd", "bwd", "B", fam_rows, launches, ("bwd",),
+                     library=False),
+        family_entry("mlp_bwd_dx", "bwd_dx", "C", fam_rows, launches,
+                     ("bwd_dx",), library=False),
+        family_entry("mlp_dw", "dw", "C", fam_rows, launches, ("dw1", "dw2"),
+                     library=True),
     ]
 
 
 # -------------------------------------------------------------------- main
-def bench_config(depth: int = 12, dec_depth: int = 8):
+# the step phases: (label, MLP impls, AVSIAM_MLP_BWD=split)
+PHASES = (("A", dict(mlp_impl="lnfres"), False),
+          ("B", dict(mlp_impl="fused"), False),
+          ("C", dict(mlp_impl="fbwd", dec_mlp_impl="fres"), True))
+
+
+def bench_config(depth: int = 12, dec_depth: int = 8, **impls):
+    """The JAX bench's configuration (``mlp_impl='lnfres'``) cut to B=8;
+    ``impls`` overrides the MLP impls."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
                                           PretrainConfig, ViTConfig)
+    impls = dict(dict(mlp_impl="lnfres"), **impls)
     model = CAVMAEConfig(vit=ViTConfig(depth=depth),
                          decoder=DecoderConfig(depth=dec_depth),
                          dtype=torch.bfloat16, mmixed_impl="exact",
-                         attn_impl="auto", mlp_impl="lnfres")
+                         attn_impl="auto", **impls)
     return PretrainConfig(model=model, batch_size=8)
+
+
+@contextlib.contextmanager
+def mlp_bwd_split(split: bool):
+    """``AVSIAM_MLP_BWD=split`` set (or unset) for the block, then restored."""
+    old = os.environ.pop("AVSIAM_MLP_BWD", None)
+    if split:
+        os.environ["AVSIAM_MLP_BWD"] = "split"
+    try:
+        yield
+    finally:
+        os.environ.pop("AVSIAM_MLP_BWD", None)
+        if old is not None:
+            os.environ["AVSIAM_MLP_BWD"] = old
 
 
 def main(argv=None) -> int:
@@ -353,8 +583,12 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.strip())
 
-    cfg = bench_config()
-    attn_shapes, mlp_shapes = main_path_shapes(cfg, cfg.batch_size)
+    phases = []
+    for label, impls, split in PHASES:
+        cfg = bench_config(**impls)
+        attn_shapes, mlp_shapes = main_path_shapes(cfg, cfg.batch_size)
+        phases.append((label, cfg, split, attn_shapes, mlp_shapes))
+    _, _, _, attn_shapes, mlp_shapes = phases[0]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     report = {"device": card}
     log("phase kernels: each kernel against its plain version")
@@ -364,16 +598,26 @@ def main(argv=None) -> int:
              ((2, 177, 12, 64), True), ((2, 708, 16, 32), True)]
     attn_rows = check_attention(attn_shapes, extra, gen)
     mlp_rows = check_ln_mlp(mlp_shapes, gen)
-    report.update(attention=attn_rows, ln_mlp=mlp_rows,
+    fam_rows = check_mlp_family(
+        *(mlp_shape_launches(ms, split) for _, _, split, _, ms in phases[1:]),
+        gen)
+    report.update(attention=attn_rows, ln_mlp=mlp_rows, mlp_family=fam_rows,
                   float32=check_float32(gen))
-    launches = run_steps(cfg, attn_shapes, mlp_shapes, args.seed, report)
-    run_reference(args.seed, report)
+    launches = {}
+    for label, cfg, split, a_shapes, m_shapes in phases:
+        with mlp_bwd_split(split):
+            launches[label] = run_steps(
+                label, cfg, expected_launches(a_shapes, m_shapes, split, 5),
+                args.seed, report)
+    for label, impls, split in PHASES:
+        with mlp_bwd_split(split):
+            run_reference(label, impls, args.seed, report)
 
     if args.report:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)
     log(card)
-    print(json.dumps({"kernels": kernel_entries(attn_rows, mlp_rows,
+    print(json.dumps({"kernels": kernel_entries(attn_rows, mlp_rows, fam_rows,
                                                  launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -381,14 +625,18 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_steps(cfg, attn_shapes, mlp_shapes, seed, report, n_steps: int = 5):
-    """Full-width two-pass steps; returns the kernels' launch counts."""
+def run_steps(label, cfg, expected, seed, report, n_steps: int = 5):
+    """Full-width two-pass steps, then one profiled step; returns the
+    kernels' launch counts (read before the profiled step), which must
+    equal ``expected``."""
     from avsiam_tpu_torch import kernels
     from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
     m = cfg.model
-    log(f"phase step: {n_steps} two-pass steps, ViT-B/16 depth "
-        f"{m.vit.depth}, decoder depth {m.decoder.depth}, {m.dtype}, "
-        f"batch {cfg.batch_size}")
+    split = os.environ.get("AVSIAM_MLP_BWD") == "split"
+    log(f"phase step {label}: {n_steps} two-pass steps, ViT-B/16 depth "
+        f"{m.vit.depth}, decoder depth {m.decoder.depth}, {m.dtype}, batch "
+        f"{cfg.batch_size}, mlp_impl {m.mlp_impl}, dec_mlp_impl "
+        f"{m.dec_mlp_impl}, split backward {split}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.time()
     state = init_state(cfg, gen, "cuda")
@@ -416,20 +664,19 @@ def run_steps(cfg, attn_shapes, mlp_shapes, seed, report, n_steps: int = 5):
         log(f"  step {i}: " + " ".join(f"{k} {x:.5f}" for k, x in
                                         metrics.items()) + f"  {ms:.1f} ms")
     launches = dict(kernels.LAUNCHES)
-    per_step = sum(attn_shapes.values())
-    expected = {"attention_fwd": per_step * n_steps,
-                "attention_bwd": per_step * n_steps,
-                "ln_mlp_fwd": sum(mlp_shapes.values()) * n_steps}
-    log(f"  launches {launches} (expected {expected}); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    report["steps"] = steps
-    report["launches"] = launches
     steady = sorted(s["ms"] for s in steps[1:])[(len(steps) - 1) // 2]
-    log(f"  steady step: {steady:.1f} ms (median of steps 1..{n_steps - 1})")
-    report["profile"] = profile_step(step, state, (audio, imgs), gen,
-                                     cfg.opt.lr, steady)
+    log(f"  phase {label} steady step: {steady:.1f} ms (median of steps 1.."
+        f"{n_steps - 1}), peak memory {peak:.2f} GiB")
+    report.setdefault("steps", {})[label] = dict(
+        steps=steps, launches=launches, steady_ms=steady, peak_gib=peak)
+    report["steps"][label]["profile"] = profile_step(
+        step, state, (audio, imgs), gen, cfg.opt.lr, steady)
+    del state, step
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -438,7 +685,12 @@ def run_steps(cfg, attn_shapes, mlp_shapes, seed, report, n_steps: int = 5):
 KERNEL_GROUPS = (
     ("K1 attention fwd", ("attn_fwd_kernel",)),
     ("K2 attention bwd", ("attn_bwd_",)),
-    ("K3 ln_mlp fwd", ("ln_mlp_",)),
+    ("K3 ln_mlp fwd", ("ln_mlp_fwd",)),
+    ("K4 mlp fwd", ("mlp_fwd_kernel",)),
+    ("K7/K8 mlp bwd dx", ("mlp_bwd_dx_kernel",)),
+    ("K7 mlp bwd dw", ("mlp_bwd_dw_kernel",)),
+    ("K9 mlp dw", ("mlp_dw_kernel",)),
+    ("K3/K4/K7/K8 partial-sum epilogue", ("mlp_epilogue",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("Adam", ("multi_tensor_apply", "adam")),
 )
@@ -476,17 +728,19 @@ def profile_step(step, state, batch, gen, lr, steady_ms):
                 groups=groups)
 
 
-def run_reference(seed, report, batch: int = 2):
+def run_reference(label, impls, seed, report, batch: int = 2):
     """Kernels in bf16 on the card against the plain versions in float32 on
-    the CPU: full width, depth 1, same weights and draws."""
+    the CPU: full width, depth 1, same weights and draws, in the MLP impls
+    of step phase ``label``."""
     from avsiam_tpu_torch.configs import replace
     from avsiam_tpu_torch.models.cavmae import (CAVMAEPretrain, MaskDraws,
                                                 draw_masks)
     loss_tol, cos_tol = 2e-2, 0.99
-    cfg = bench_config(depth=1, dec_depth=1).model
-    log(f"phase reference: depth 1, batch {batch}: bf16 kernels on the card "
-        f"vs float32 plain versions on the CPU (loss rel err <= {loss_tol}, "
-        f"gradient cosine >= {cos_tol})")
+    cfg = bench_config(depth=1, dec_depth=1, **impls).model
+    log(f"phase reference {label}: depth 1, batch {batch}, {impls}, split "
+        f"backward {os.environ.get('AVSIAM_MLP_BWD') == 'split'}: bf16 "
+        f"kernels on the card vs float32 plain versions on the CPU (loss rel "
+        f"err <= {loss_tol}, gradient cosine >= {cos_tol})")
     gpu = CAVMAEPretrain(cfg, "cuda",
                          torch.Generator(device="cuda").manual_seed(seed + 1))
     cpu = CAVMAEPretrain(replace(cfg, dtype=torch.float32), "cpu")
@@ -503,7 +757,7 @@ def run_reference(seed, report, batch: int = 2):
         chunk_v=[t.cuda() for t in draws.chunk_v])
     names = ("loss", "loss_mae", "loss_mae_a", "loss_mae_v", "loss_c")
     results = {}
-    for label, mae_w, con_w in (("contrastive", 0.0, 1.0), ("mae", 1.0, 0.0)):
+    for part, mae_w, con_w in (("contrastive", 0.0, 1.0), ("mae", 1.0, 0.0)):
         got = {}
         for model, dev, d in ((gpu, "cuda", draws_gpu), (cpu, "cpu", draws)):
             model.zero_grad(set_to_none=True)
@@ -519,14 +773,14 @@ def run_reference(seed, report, batch: int = 2):
         rel = {n: abs(lg[n] - lc[n]) / max(abs(lc[n]), 1e-6) for n in names
                if lc[n] != 0.0}
         cos = float(torch.nn.functional.cosine_similarity(gg, gc, dim=0))
-        log(f"  {label}: kernel {lg} plain {lc} rel err "
+        log(f"  {part}: kernel {lg} plain {lc} rel err "
             f"{max(rel.values()):.2e}; gradient cosine {cos:.6f} over "
             f"{gg.numel()} values")
         if max(rel.values()) > loss_tol or not cos >= cos_tol:
-            raise AssertionError(f"reference {label}: loss rel err {rel}, "
-                                 f"gradient cosine {cos}")
-        results[label] = dict(kernel=lg, plain=lc, rel=rel, grad_cos=cos)
-    report["reference"] = results
+            raise AssertionError(f"reference {label} {part}: loss rel err "
+                                 f"{rel}, gradient cosine {cos}")
+        results[part] = dict(kernel=lg, plain=lc, rel=rel, grad_cos=cos)
+    report.setdefault("reference", {})[label] = results
 
 
 if __name__ == "__main__":

@@ -110,21 +110,126 @@ def test_fused_ln_mlp_backward_on_the_card(gen):
         assert float(cos) >= 0.999
 
 
-def test_two_pass_step_on_the_card(gen):
-    """A depth-1 full-width bf16 step: finite metrics, and every kernel
-    launched as often as the step's attention and MLP calls (9 each at
-    batch 2: two contrastive chunks x 2 modalities, then 1 + 1 + 2 + 1)."""
+_NO_LAUNCHES = {k: 0 for k in kernels.LAUNCHES}
+
+
+def _depth1_step(gen, **impls):
+    """One depth-1 full-width bf16 step at batch 2 in the given MLP impls:
+    the launch counts. The step makes 9 attention and 9 MLP calls: two
+    contrastive chunks x 2 modalities, then 1 + 1 + 2 + 1 (one decoder)."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
                                           PretrainConfig, ViTConfig)
     from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
     cfg = PretrainConfig(model=CAVMAEConfig(
         vit=ViTConfig(depth=1), decoder=DecoderConfig(depth=1),
-        dtype=torch.bfloat16, mmixed_impl="exact"), batch_size=2)
+        dtype=torch.bfloat16, mmixed_impl="exact", **impls), batch_size=2)
     state = init_state(cfg, gen)
     a = torch.randn((2, 1024, 128), generator=gen, device="cuda")
     v = torch.randn((2, 3, 224, 224), generator=gen, device="cuda")
     kernels.reset_launches()
     state, metrics = make_pretrain_step(cfg)(state, (a, v), gen, 1e-4)
     assert all(math.isfinite(float(x)) for x in metrics.values()), metrics
-    assert kernels.LAUNCHES == {"attention_fwd": 9, "attention_bwd": 9,
-                                "ln_mlp_fwd": 9}
+    return dict(kernels.LAUNCHES)
+
+
+def test_two_pass_step_on_the_card(gen):
+    """The default impls: every kernel of the 'lnfres' path launched as
+    often as the step's attention and MLP calls."""
+    launches = _depth1_step(gen)
+    assert launches == dict(_NO_LAUNCHES, attention_fwd=9, attention_bwd=9,
+                            ln_mlp_fwd=9)
+
+
+def test_fused_step_on_the_card(gen):
+    """``mlp_impl='fused'`` everywhere: K4 and K7 once per MLP call, K3
+    never."""
+    launches = _depth1_step(gen, mlp_impl="fused")
+    assert launches == dict(_NO_LAUNCHES, attention_fwd=9, attention_bwd=9,
+                            mlp_fwd=9, mlp_bwd=9)
+
+
+def _mlp_operands(gen, T, Dm, dtype):
+    Hm = 4 * Dm
+
+    def r(*shape, k=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * k
+
+    return (r(T, Dm).to(dtype), r(Hm, Dm, k=Dm ** -0.5).bfloat16(),
+            r(Hm, k=0.02).bfloat16().float(),
+            r(Dm, Hm, k=Hm ** -0.5).bfloat16(),
+            r(Dm, k=0.02).bfloat16().float(), r(T, Dm).to(dtype))
+
+
+MLP_SHAPES = [(1024, 768), (37, 768), (5664, 512)]
+
+
+@pytest.mark.parametrize("save_hpre", [False, True], ids=["out", "hpre"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("T,Dm", MLP_SHAPES)
+def test_mlp_fwd_kernel_matches_plain_version(gen, T, Dm, dtype, save_hpre):
+    x, w1, b1, w2, b2, _ = _mlp_operands(gen, T, Dm, dtype)
+    got = pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2, save_hpre)
+    want = pmlp.mlp_fwd_reference(x.float(), w1.float(), b1, w2.float(), b2,
+                                  save_hpre=save_hpre)
+    got, want = (got, want) if save_hpre else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert _rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("T,Dm", MLP_SHAPES)
+def test_mlp_bwd_kernels_match_plain_versions(gen, T, Dm, dtype):
+    """K7's five outputs, K8's dx, gh and act, and K9 on (x, gh) and
+    (act, do), each against its plain version on the same values."""
+    x, w1, b1, w2, _, do = _mlp_operands(gen, T, Dm, dtype)
+    f = lambda t: t.float()  # noqa: E731
+    got7 = pmlp.mlp_bwd_kernel(x, w1, b1, w2, do)
+    want7 = pmlp.mlp_bwd_reference(f(x), f(w1), b1, f(w2), f(do))
+    assert got7[0].dtype == dtype
+    assert all(g.dtype == torch.float32 for g in got7[1:])
+    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got7, want7):
+        assert _rel(g, w) <= TOL, name
+    got8 = pmlp.mlp_bwd_dx_kernel(x, w1, b1, w2, do)
+    want8 = pmlp.mlp_bwd_dx_reference(f(x), f(w1), b1, f(w2), f(do))
+    for name, g, w in zip(("dx", "gh", "act"), got8, want8):
+        assert g.dtype == dtype
+        assert _rel(g, w) <= TOL, name
+    _, gh, act = got8
+    for a, g in ((x, gh), (act, do)):
+        dw, db = pmlp.weight_grads_kernel(a, g)
+        wdw, wdb = pmlp.weight_grads_reference(f(a), f(g))
+        assert _rel(dw, wdw) <= TOL and _rel(db, wdb) <= TOL
+
+
+@pytest.mark.parametrize("T,Dm", MLP_SHAPES)
+def test_kernels_keep_their_db1_forms(gen, T, Dm):
+    """In bfloat16 K7's db1 sums the float32 gh, and the split backward's
+    (K9 on K8's stash) the bfloat16 gh. Each kernel lies within a tenth of
+    the gap between the two forms of its own form."""
+    x, w1, b1, w2, _, do = _mlp_operands(gen, T, Dm, torch.bfloat16)
+    f = lambda t: t.float()  # noqa: E731
+    own7 = pmlp.mlp_bwd_reference(f(x), f(w1), b1, f(w2), f(do))[2]
+    gh8 = pmlp.mlp_bwd_dx_kernel(x, w1, b1, w2, do)[1]
+    own9 = gh8.float().sum(dim=0)
+    gap = (own7 - own9).abs().max()
+    assert gap > 0
+    db1_7 = pmlp.mlp_bwd_kernel(x, w1, b1, w2, do)[2]
+    db1_9 = pmlp.weight_grads_kernel(x, gh8)[1]
+    assert (db1_7 - own7).abs().max() < 0.1 * gap
+    assert (db1_9 - own9).abs().max() < 0.1 * gap
+
+
+def test_av_tail_launches_the_mlp_kernel(gen):
+    """Under 'lnfres' the 'av' tail's MLP is K4 (the 'fres' route), not K3."""
+    from avsiam_tpu_torch.models.layers import ModalityBlock
+    blk = ModalityBlock(768, 12, 4.0, True, 1e-5, torch.bfloat16, "auto",
+                        "erf", "lnfres", "cuda")
+    x = torch.randn((2, 20, 768), generator=gen, device="cuda")
+    kernels.reset_launches()
+    a, v = blk((x[:, :8], x[:, 8:]), "av")
+    a.float().sum().backward()
+    assert kernels.LAUNCHES == dict(_NO_LAUNCHES, attention_fwd=1,
+                                    attention_bwd=1, mlp_fwd=1)

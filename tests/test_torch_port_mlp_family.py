@@ -1,0 +1,298 @@
+"""Port parity of the MLP family: ``fused_mlp`` ('fused', 'fbwd', 'fres' and
+the split backward; kernels K4, K7, K8 and K9 on the GPU) and ``Mlp``'s
+whole ``impl`` set.
+
+On the CPU every kernel wrapper takes its plain version, so this holds the
+plain versions and the autograd wiring around them against the JAX package
+with its Pallas kernels in interpret mode, in float32 at D=128, H=256 (the
+geometry of ``tests/test_mlp.py``), on row counts that are not multiples of
+the Pallas row blocks. ``AVSIAM_MLP_BWD=split`` is set with pytest's
+monkeypatch for both packages. The kernels themselves run only on a card:
+``tests/test_torch_port_cuda.py`` and ``python3 chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avsiam_tpu import configs as jc
+from avsiam_tpu.models import CAVMAEPretrain as JaxModel
+from avsiam_tpu.models.layers import Mlp as JaxMlp
+from avsiam_tpu.ops.mlp import fused_mlp as jax_fused_mlp
+from avsiam_tpu_torch import configs as pc
+from avsiam_tpu_torch import kernels
+from avsiam_tpu_torch.models import layers as players
+from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain
+from avsiam_tpu_torch.ops import mlp as pmlp
+from avsiam_tpu_torch.utils.weights import params_from_jax
+from test_torch_port_common import batch, configs
+
+D, H = 128, 256
+NAMES = ("x", "w1", "b1", "w2", "b2")
+
+
+def _inputs(shape, seed):
+    """JAX-layout float32 arrays: x [*shape, D], w1 [D, H], b1, w2 [H, D],
+    b2, and the output cotangent ct."""
+    rs = np.random.RandomState(seed)
+    f = lambda *s, k=1.0: (rs.randn(*s) * k).astype(np.float32)  # noqa: E731
+    return dict(x=f(*shape, D), w1=f(D, H, k=D ** -0.5), b1=f(H, k=0.1),
+                w2=f(H, D, k=H ** -0.5), b2=f(D, k=0.1), ct=f(*shape, D))
+
+
+def _port_leaf(p, name):
+    """A port leaf from a JAX-layout array: weights in nn.Linear's layout."""
+    a = p[name].T if name in ("w1", "w2") else p[name]
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True)
+
+
+def _port_grad(leaf, name):
+    g = leaf.grad.numpy()
+    return g.T if name in ("w1", "w2") else g
+
+
+@pytest.mark.parametrize("shape", [(2, 37), (300,)], ids=["2x37", "300"])
+@pytest.mark.parametrize("impl,split", [
+    ("fused", False), ("fbwd", False), ("fres", False), ("fused", True),
+    ("fbwd", True)], ids=["fused", "fbwd", "fres", "fused-split",
+                          "fbwd-split"])
+def test_fused_mlp_matches_jax_pallas(monkeypatch, impl, split, shape):
+    """Forward to 1e-5, gradients of x, w1, b1, w2, b2 to 1e-4 (float32;
+    summation order differs). The three db1s (K7's from the f32 gh, 'fres'
+    and K9's from the cast gh) coincide in float32; the card's tests hold
+    each kernel to its own plain version."""
+    if split:
+        monkeypatch.setenv("AVSIAM_MLP_BWD", "split")
+    p = _inputs(shape, seed=sum(shape))
+
+    def jloss(*args):
+        out = jax_fused_mlp(*args, gelu="erf", impl=impl)
+        return jnp.sum(out * p["ct"]), out
+
+    (_, jout), jgrads = jax.value_and_grad(
+        jloss, argnums=tuple(range(5)), has_aux=True)(
+            *(jnp.asarray(p[n]) for n in NAMES))
+    leaves = {n: _port_leaf(p, n) for n in NAMES}
+    out = pmlp.fused_mlp(*(leaves[n] for n in NAMES), gelu="erf", impl=impl)
+    (out * torch.from_numpy(p["ct"])).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    for n, jg in zip(NAMES, jgrads):
+        np.testing.assert_allclose(_port_grad(leaves[n], n), np.asarray(jg),
+                                   rtol=1e-4, atol=1e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("shape", [(2, 37), (300,)], ids=["2x37", "300"])
+def test_bf16_db1_forms_match_jax_pallas(monkeypatch, shape):
+    """In bfloat16 the backward's two db1 forms part: K7 sums the float32
+    gh (``avsiam_tpu/ops/mlp.py:163``), the split backward sums the gh that
+    K8 stashed in bfloat16 (``:126``). The port's db1 equals the JAX
+    package's bit for bit in each form, and the two forms differ."""
+    p = _inputs(shape, seed=sum(shape))
+    xb = p["x"].astype(jnp.bfloat16)
+    ct = np.asarray(p["ct"].astype(jnp.bfloat16), np.float32)
+
+    def jloss(x, w1, b1, w2, b2):
+        out = jax_fused_mlp(x, w1, b1, w2, b2, gelu="erf", impl="fused")
+        return jnp.sum(out.astype(jnp.float32) * ct)
+
+    db1 = {}
+    for split in (False, True):
+        if split:
+            monkeypatch.setenv("AVSIAM_MLP_BWD", "split")
+        else:
+            monkeypatch.delenv("AVSIAM_MLP_BWD", raising=False)
+        jdb1 = jax.grad(jloss, argnums=2)(
+            jnp.asarray(xb), *(jnp.asarray(p[n]) for n in NAMES[1:]))
+        leaves = {n: _port_leaf(p, n) for n in NAMES[1:]}
+        x = torch.from_numpy(np.asarray(xb, np.float32)).bfloat16()
+        out = pmlp.fused_mlp(x, *(leaves[n] for n in NAMES[1:]), gelu="erf",
+                             impl="fused")
+        (out.float() * torch.from_numpy(ct)).sum().backward()
+        db1[split] = _port_grad(leaves["b1"], "b1")
+        np.testing.assert_array_equal(db1[split], np.asarray(jdb1),
+                                      err_msg=f"split={split}")
+    assert (db1[False] != db1[True]).mean() > 0.1
+
+
+def _jax_mlp(impl, x, seed):
+    """A JAX ``Mlp`` with perturbed (nonzero) biases: (params, output, the
+    gradients of x and the params under a fixed cotangent)."""
+    m = JaxMlp(D, H, jnp.float32, "erf", impl)
+    params = m.init(jax.random.PRNGKey(seed), x)["params"]
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.1 * jax.random.normal(jax.random.PRNGKey(a.size),
+                                              a.shape), params)
+    ct = jnp.asarray(np.random.RandomState(seed).randn(*x.shape)
+                     .astype(np.float32))
+
+    def loss(params, x):
+        out = m.apply({"params": params}, x)
+        return jnp.sum(out * ct), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1),
+                                         has_aux=True)(params, x)
+    return jax.device_get(params), out, grads, ct
+
+
+def _port_mlp(impl, params, dtype=torch.float32):
+    mlp = players.Mlp(D, H, dtype, "erf", "cpu", impl)
+    mlp.load_state_dict(params_from_jax(params), strict=True)
+    return mlp
+
+
+@pytest.mark.parametrize("impl", players.MLP_IMPLS)
+def test_mlp_every_impl_matches_jax(impl):
+    """``Mlp(impl)`` against the JAX ``Mlp(impl)`` on the CPU ('auto' is
+    'dense' there in both, 'lnfres' is 'fres'): output to 1e-5, gradients of
+    the input and of all four parameters to 1e-4."""
+    x = np.random.RandomState(4).randn(3, 45, D).astype(np.float32)
+    params, jout, (jgp, jgx), ct = _jax_mlp(impl, jnp.asarray(x), seed=2)
+    mlp = _port_mlp(impl, params)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = mlp(xt)
+    (out * torch.from_numpy(np.array(ct))).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), rtol=1e-4,
+                               atol=1e-4)
+    want = params_from_jax(jax.device_get(jgp))
+    for name, prm in mlp.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("impl", ["remat_g", "remat_all", "fbwd"])
+def test_forward_is_dense_bit_for_bit(impl, dtype):
+    """'remat_g', 'remat_all' and 'fbwd' keep the 'dense' forward exactly;
+    the remat forms also its gradients (the backward recomputes the same
+    ops)."""
+    params, *_ = _jax_mlp("dense", jnp.zeros((2, D), jnp.float32), seed=6)
+    x = torch.from_numpy(np.random.RandomState(7).randn(2, 29, D)
+                         .astype(np.float32)).to(dtype)
+    outs, grads = {}, {}
+    for name in ("dense", impl):
+        mlp = _port_mlp(name, params, dtype)
+        xt = x.clone().requires_grad_(True)
+        outs[name] = mlp(xt)
+        outs[name].float().sum().backward()
+        grads[name] = [xt.grad] + [p.grad for p in mlp.parameters()]
+    assert outs[impl].dtype == dtype
+    assert torch.equal(outs[impl], outs["dense"])
+    if impl != "fbwd":
+        for got, want in zip(grads[impl], grads["dense"]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mlp_impl,routes", [
+    ("lnfres", ["fres"]), ("fused", ["fused"]), ("fres", ["fres"]),
+    ("auto", []), ("dense", [])])
+def test_av_tail_takes_the_mlp_route(monkeypatch, mlp_impl, routes):
+    """The 'av' block tail runs its two-norm MLP through ``fused_mlp`` as
+    the JAX block does (``avsiam_tpu/models/layers.py:166-175``): 'lnfres'
+    as 'fres' (K4 on the card), 'auto' as 'dense' on the CPU. It never
+    reaches the LN-fused ``fused_ln_mlp``."""
+    seen, ln_calls = [], []
+    real, real_ln = players.fused_mlp, players.fused_ln_mlp
+
+    def spy(*args, impl, **kw):
+        seen.append(impl)
+        return real(*args, impl=impl, **kw)
+
+    def ln_spy(*args, **kw):
+        ln_calls.append(1)
+        return real_ln(*args, **kw)
+
+    monkeypatch.setattr(players, "fused_mlp", spy)
+    monkeypatch.setattr(players, "fused_ln_mlp", ln_spy)
+    blk = players.ModalityBlock(D, 2, 4.0, True, 1e-5, torch.float32, "auto",
+                                "erf", mlp_impl, "cpu")
+    x = torch.randn((2, 9, D), generator=torch.Generator().manual_seed(0))
+    before = dict(kernels.LAUNCHES)
+    a, v = blk((x[:, :4], x[:, 4:]), "av")
+    assert a.shape == (2, 4, D) and v.shape == (2, 5, D)
+    assert seen == routes
+    assert ln_calls == []
+    assert kernels.LAUNCHES == before  # CPU tensors: the plain versions
+
+
+def test_fused_model_parameters_load_strictly():
+    """A JAX model built with ``mlp_impl='fused'`` has the parameter tree
+    of every other MLP form: it loads strictly into a port 'fused' model,
+    value for value."""
+    jcfg, pcfg = configs()
+    jm = jc.replace(jcfg.model, mlp_impl="fused", dec_mlp_impl="fres")
+    a, v = batch(2)
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(JaxModel(jm).init,
+                            {"params": key, "mask": key, "perm": key}, a, v)
+    rs = np.random.RandomState(0)
+    tree = jax.tree_util.tree_map(
+        lambda s: rs.randn(*s.shape).astype(np.float32), shapes["params"])
+    sd = params_from_jax(tree)
+    port = CAVMAEPretrain(pc.replace(pcfg.model, mlp_impl="fused",
+                                     dec_mlp_impl="fres"), "cpu")
+    port.load_state_dict(sd, strict=True)
+    for name, t in port.state_dict().items():
+        assert torch.equal(t, sd[name]), name
+    assert port.vit.blocks[0].mlp.impl == "fused"
+    assert port.decoder.blocks[0].mlp.impl == "fres"
+
+
+def test_block_passes_its_impl_to_the_model_parts():
+    """``mlp_impl`` reaches the encoders and ``mm_layer_1/2``;
+    ``dec_mlp_impl`` the decoder, falling back to ``mlp_impl``."""
+    _, pcfg = configs()
+    for enc, dec, want_dec in (("fbwd", "fres", "fres"),
+                               ("remat_g", None, "remat_g")):
+        m = CAVMAEPretrain(pc.replace(pcfg.model, mlp_impl=enc,
+                                      dec_mlp_impl=dec), "cpu")
+        for blk in (*m.vit.blocks, *m.ast.blocks, m.mm_layer_1,
+                    m.mm_layer_2):
+            assert blk.mlp.impl == blk.mlp_impl == enc
+        assert all(b.mlp.impl == want_dec for b in m.decoder.blocks)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """Each new wrapper, given CPU tensors, returns its plain version and
+    launches nothing; given non-CPU tensors it never does."""
+    p = {n: torch.from_numpy(np.ascontiguousarray(
+        a.T if n in ("w1", "w2") else a)) for n, a in _inputs((5,), 1).items()}
+    before = dict(kernels.LAUNCHES)
+    x, w1, b1, w2, b2, do = (p[n] for n in (*NAMES, "ct"))
+    assert torch.equal(pmlp.mlp_fwd(x, w1, b1, w2, b2),
+                       pmlp.mlp_fwd_reference(x, w1, b1, w2, b2))
+    for got, want in zip(pmlp.weight_grads(x, do),
+                         pmlp.weight_grads_reference(x, do)):
+        assert torch.equal(got, want)
+    assert kernels.LAUNCHES == before
+    meta = {n: torch.empty(t.shape, device="meta") for n, t in p.items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        pmlp.mlp_fwd(*(meta[n] for n in NAMES))
+    with pytest.raises(ValueError, match="CUDA"):
+        pmlp.weight_grads(meta["x"], meta["ct"])
+
+
+def test_split_backward_stashes_the_cast_gh():
+    """K8's plain version stashes gh and act in x's dtype, and K9's sums the
+    stash: under bfloat16 its db1 is the sum of the cast gh, while K7's sums
+    the float32 gh (``avsiam_tpu/ops/mlp.py:126`` against ``:163``)."""
+    p = _inputs((64,), 3)
+    t = {n: torch.from_numpy(np.ascontiguousarray(
+        a.T if n in ("w1", "w2") else a)).bfloat16() for n, a in p.items()}
+    x, w1, b1, w2, do = (t[n] for n in ("x", "w1", "b1", "w2", "ct"))
+    dx, gh, act = pmlp.mlp_bwd_dx_reference(x, w1, b1, w2, do)
+    assert dx.dtype == gh.dtype == act.dtype == torch.bfloat16
+    dx7, dw1, db1_f32, dw2, db2 = pmlp.mlp_bwd_reference(x, w1, b1, w2, do)
+    dw1_9, db1_9 = pmlp.weight_grads_reference(x, gh)
+    dw2_9, db2_9 = pmlp.weight_grads_reference(act, do)
+    assert torch.equal(dx, dx7)
+    assert torch.equal(dw1_9, dw1) and torch.equal(dw2_9, dw2)
+    assert torch.equal(db2_9, db2)
+    assert torch.equal(db1_9, gh.float().sum(dim=0))
+    assert not torch.equal(db1_9, db1_f32)
+    torch.testing.assert_close(db1_9, db1_f32, rtol=2e-2, atol=2e-2)

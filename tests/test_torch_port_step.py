@@ -9,7 +9,9 @@ and after each step every parameter and both Adams' moments.
 The JAX side runs its XLA attention and dense MLP here: the step is about
 the two passes, the touched sets and the optimizer, and the kernel paths are
 held against the Pallas kernels in the attention, MLP and model tests. The
-port runs its usual path (the plain versions on the CPU).
+port runs its usual path (the plain versions on the CPU). One more step runs
+with ``mlp_impl='fused'`` and ``dec_mlp_impl='fres'`` in both packages (the
+JAX side's Pallas MLP kernels in interpret mode), under the same checks.
 
 Tolerances (float32): metrics 1e-5 relative; gradients 1e-5 of each
 tensor's largest value (measured 2.4e-6). Adam moments: 1e-5 of each
@@ -36,6 +38,7 @@ from avsiam_tpu import configs as jc
 from avsiam_tpu.models import CAVMAEPretrain as JaxModel
 from avsiam_tpu.train.pretrain import init_state as jax_init_state
 from avsiam_tpu.train.pretrain import make_pretrain_step as jax_step_fn
+from avsiam_tpu_torch import configs as pc
 from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
 from avsiam_tpu_torch.utils.weights import params_from_jax
 from test_torch_port_common import array_leaves, batch, configs, record_draws
@@ -43,12 +46,13 @@ from test_torch_port_common import array_leaves, batch, configs, record_draws
 B, LR = 6, 1e-3
 
 
-@pytest.fixture(scope="module")
-def run():
-    """Two steps of both packages, with every intermediate the tests read."""
+def _run(jax_mlp, port_mlp, n_steps):
+    """``n_steps`` steps of both packages, with every intermediate the
+    tests read; ``jax_mlp`` and ``port_mlp`` set each model's MLP impls."""
     jcfg, pcfg = configs(batch=B, lr=LR)
     jcfg = jc.replace(jcfg, model=jc.replace(jcfg.model, attn_impl="xla",
-                                             mlp_impl="dense"))
+                                             **jax_mlp))
+    pcfg = pc.replace(pcfg, model=pc.replace(pcfg.model, **port_mlp))
     model = JaxModel(jcfg.model)
     a, v = batch(B, seed=1)
     jstate = jax_init_state(jax.random.PRNGKey(0), model, jcfg, (a, v))
@@ -61,7 +65,7 @@ def run():
     at, vt = torch.from_numpy(a), torch.from_numpy(v)
     mp = pytest.MonkeyPatch()
     steps = []
-    for s in range(2):
+    for s in range(n_steps):
         # the step's keys (avsiam_tpu/train/pretrain.py:79-80)
         k_mask1, k_perm1, k_mask2, k_perm2 = jax.random.split(
             jax.random.fold_in(step_rng, s), 4)
@@ -83,6 +87,21 @@ def run():
                           opt=[_port_moments(pstate.model, o) for o in
                                (pstate.opt1, pstate.opt2)]))
     return dict(steps=steps, grads=grads, params0=params_from_jax(params0))
+
+
+@pytest.fixture(scope="module")
+def run():
+    """Two steps: the JAX package's dense MLP against the port's 'lnfres'."""
+    return _run(dict(mlp_impl="dense"), {}, n_steps=2)
+
+
+@pytest.fixture(scope="module")
+def run_fused():
+    """One step with ``mlp_impl='fused'`` (encoders and ``mm_layer_1/2``)
+    and ``dec_mlp_impl='fres'`` in both packages: the Pallas K4 and K7 in
+    interpret mode against the port's plain versions."""
+    impls = dict(mlp_impl="fused", dec_mlp_impl="fres")
+    return _run(impls, impls, n_steps=1)
 
 
 def _first_step_grads(model, port, params0, a, v, keys, draws):
@@ -124,17 +143,13 @@ def _close_to_scale(got, want, frac, name):
     assert err <= frac * scale, f"{name}: max err {err:.3e} vs scale {scale:.3e}"
 
 
-@pytest.mark.parametrize("s", [0, 1], ids=["step1", "step2"])
-def test_metrics_match_jax(run, s):
-    st = run["steps"][s]
+def _check_metrics(st):
     for k, want in st["jax_metrics"].items():
         np.testing.assert_allclose(float(st["metrics"][k]), float(want),
                                    rtol=1e-5, atol=1e-7, err_msg=k)
 
 
-@pytest.mark.parametrize("which", [0, 1], ids=["contrastive", "mae"])
-def test_pass_gradients_match_jax(run, which):
-    jg, pg = run["grads"][which]
+def _check_pass_gradients(jg, pg):
     n_nonzero = 0
     for name, want in jg.items():
         if name not in pg:  # untouched by this pass: JAX's gradient is zero
@@ -145,10 +160,7 @@ def test_pass_gradients_match_jax(run, which):
     assert n_nonzero > 0
 
 
-@pytest.mark.parametrize("s", [0, 1], ids=["step1", "step2"])
-def test_params_match_jax(run, s):
-    st = run["steps"][s]
-    p0 = run["params0"]
+def _check_params(st, p0, s):
     n_loose = n_far = n_total = n_moved = 0
     for name, want in st["jax_params"].items():
         got = st["params"][name]
@@ -163,10 +175,7 @@ def test_params_match_jax(run, s):
     assert n_moved > 0.5 * n_total  # the steps did move the parameters
 
 
-@pytest.mark.parametrize("s", [0, 1], ids=["step1", "step2"])
-@pytest.mark.parametrize("opt", [0, 1], ids=["adam1", "adam2"])
-def test_adam_moments_match_jax(run, s, opt):
-    st = run["steps"][s]
+def _check_adam_moments(st, s, opt):
     jmu, jnu = st["jax_opt"][opt]
     mu, nu = st["opt"][opt]
     assert set(mu) == set(jmu)  # the same touched set
@@ -174,3 +183,40 @@ def test_adam_moments_match_jax(run, s, opt):
     for name in jmu:
         _close_to_scale(mu[name], jmu[name], frac, name)
         _close_to_scale(nu[name], jnu[name], frac, name)
+
+
+@pytest.mark.parametrize("s", [0, 1], ids=["step1", "step2"])
+def test_metrics_match_jax(run, s):
+    _check_metrics(run["steps"][s])
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["contrastive", "mae"])
+def test_pass_gradients_match_jax(run, which):
+    _check_pass_gradients(*run["grads"][which])
+
+
+@pytest.mark.parametrize("s", [0, 1], ids=["step1", "step2"])
+def test_params_match_jax(run, s):
+    _check_params(run["steps"][s], run["params0"], s)
+
+
+@pytest.mark.parametrize("s", [0, 1], ids=["step1", "step2"])
+@pytest.mark.parametrize("opt", [0, 1], ids=["adam1", "adam2"])
+def test_adam_moments_match_jax(run, s, opt):
+    _check_adam_moments(run["steps"][s], s, opt)
+
+
+@pytest.mark.parametrize("check", ["metrics", "contrastive", "mae", "params",
+                                   "adam1", "adam2"])
+def test_fused_fres_step_matches_jax(run_fused, check):
+    """The step's checks above, under 'fused' encoders and a 'fres'
+    decoder, with the same tolerances."""
+    st = run_fused["steps"][0]
+    if check == "metrics":
+        _check_metrics(st)
+    elif check in ("contrastive", "mae"):
+        _check_pass_gradients(*run_fused["grads"][check == "mae"])
+    elif check == "params":
+        _check_params(st, run_fused["params0"], 0)
+    else:
+        _check_adam_moments(st, 0, int(check[-1]) - 1)
