@@ -29,7 +29,7 @@
 // TPU kernel's c), then a dk/dv kernel walks the query tiles of one key tile.
 //
 // Tiles are 64 x 64 and each of the 4 warps owns 16 rows of a tile. The
-// loops are attention_tile.cuh's, shared with K5/K6; the kernels here say
+// loops are attention_tile.cuh's, the forward's shared with K5; the kernels here say
 // where q, k and v live and what the forward saves. These kernels are the
 // simple, correct first form; wgmma, TMA and warp specialisation are later
 // work.
@@ -98,9 +98,9 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ key_
   const int b = blockIdx.z, C = H * D, ld = 3 * C;
   const T* base = qkv + (size_t)b * N * ld;
   T* g = dqkv + (size_t)b * N * ld;
-  attn_bwd_dkdv_tile<T, D>(base, base + C, base + 2 * C, ld, key_valid, dout, stats, 2,
-                           delta, 1, g + C, g + 2 * C, ld, b, blockIdx.y,
-                           blockIdx.x * BK, N, H, scale);
+  attn_bwd_dkdv_tile<T, D>(base, base + C, base + 2 * C, ld, key_valid, dout, stats,
+                           delta, g + C, g + 2 * C, ld, b, blockIdx.y, blockIdx.x * BK,
+                           N, H, scale);
 }
 
 template <typename T, int D>

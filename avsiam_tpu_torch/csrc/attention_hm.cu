@@ -3,9 +3,7 @@
 // Replaces the TPU kernels of avsiam_tpu/ops/attention.py:
 //   K5 _pallas_fwd (_fwd_kernel, _attn_fwd_math): o = (e . v) / sum(e) per
 //      head, e = exp(s * D^-1/2 + key bias - max), s = q k^T;
-//   K6 _pallas_bwd (_bwd_kernel, _attn_bwd_math): dq, dk, dv from q, k, v and
-//      do alone. The forward saves nothing (the JAX VJP keeps only q, k, v and
-//      the bias), so the backward recomputes the softmax itself.
+//   K6 _pallas_bwd (_bwd_kernel, _attn_bwd_math): dq, dk, dv.
 // They serve head widths the token-major K1/K2 do not take: ViT-H's D = 80.
 //
 // Layout: q, k and v are [B, N, H, D] tensors that share strides (batch sB,
@@ -16,38 +14,36 @@
 // key_valid [B, N] (or null) gives masked keys a -1e30 bias, as
 // _bias_from_valid does.
 //
-// What bounds it on the H100: at ViT-H's lengths (N <= 512) and D = 80 the
-// four N^2*D products of the forward (ten in the backward, which recomputes
-// s) are small, and the work is the softmax's exp and the score tiles'
-// shared-memory traffic. No N^2 tile reaches device memory.
-//
 // K5: one block per (64-query tile, head, sample) walks the key tiles with an
 // online softmax in f32 (the TPU kernel takes the whole row at once; the sum
-// is the same), normalising after the PV product.
-// K6: two kernels, deterministic, no atomics.
-//   dq kernel, one block per query tile: a first walk over the key tiles
-//   recomputes s and dp = do v^T, and keeps per row the running max m, the
-//   denominator l = sum(e) and sum(e * dp), rescaled as m grows; so
-//   r = 1 / l and c = rowsum(dp * p) = r * sum(e * dp), _attn_bwd_math's r
-//   and c. (m, r, c) go to a [B, H, N, 3] f32 scratch. A second walk forms
-//   ds = p * (dp - c) and accumulates dq = scale * ds k.
-//   dk/dv kernel, one block per key tile: walks the query tiles with their
-//   (m, r, c), recomputes s^T and dp^T, and accumulates dv = p^T do and
-//   dk = scale * ds^T q.
-// Products take bf16 operands (an f32 call too) with f32 accumulation, as the
-// TPU kernels do; p and ds are rounded to bf16 before their products (the
-// TPU kernel rounds e and r * do, e * (dp - c) and r * q instead: the same
-// sums up to where the rounding falls).
+// is the same), normalising after the PV product. It is K1's forward body
+// (attention_tile.cuh), and like K1 it saves each row's max and 1/denominator
+// to stats [B, H, N, 2] for the backward.
 //
-// Tiles, warps, the wmma helpers and the loops are K1/K2's
-// (attention_tile.cuh): K5 is K1's forward without saved statistics, the dq
-// kernel's second walk and the dk/dv kernel are K2's; the walk that finds
-// (m, r, c) is K6's own. Each kernel keeps its own name, so that its
-// launches and device time stay apart from K1/K2's. These kernels are the
-// simple, correct first form; wgmma, TMA and warp specialisation are later
-// work.
+// K6 (redesigned) reads those statistics and the output: the two kernels of
+// attention_bwd.cuh, a dq kernel (which also writes delta = rowsum(do * o))
+// and a dk/dv kernel, seven N^2 D products in all, no atomics. What differs
+// from the JAX VJP: JAX keeps only q, k, v and the bias, and its backward
+// recomputes the softmax; the port also keeps the forward's output (the
+// tensor the output projection reads, so no extra memory) and its [B, H, N,
+// 2] statistics. The gradients are the same function.
+//
+// What bounds them on the H100: at ViT-H's lengths (N <= 512) and D = 80 the
+// N^2 D products are small (a few GFLOP a call) and the bytes a few MB, so
+// the bound is microseconds and latency rules: the exp, the tiles' trips
+// through shared memory, and blocks waiting on loads. K6's first form
+// recomputed the statistics in a second walk over the keys (nine products),
+// staged every score and dp tile through shared memory as f32 and read them
+// back row by row, and loaded its tiles synchronously, single-buffered. The
+// redesign keeps scores, p, dp and ds in registers (mma.sync m16n8k16, the
+// accumulator fragments feeding the next product's A operand), double
+// buffers its tiles with cp.async, and does seven products. Products take
+// bf16 operands (an f32 call too) with f32 accumulation, as the TPU kernels
+// do; p and ds are rounded to bf16 before their products (the TPU kernel
+// rounds e and r * do, e * (dp - c) and r * q instead: the same sums up to
+// where the rounding falls).
 
-#include "attention_tile.cuh"
+#include "attention_bwd.cuh"
 
 namespace {
 
@@ -55,88 +51,26 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attn_hm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                   T* __restrict__ out, int N, int H, long long sB, int sN,
-                   float scale) {
+                   T* __restrict__ out, float* __restrict__ stats, int N, int H, long long sB,
+                   int sN, float scale) {
   const int b = blockIdx.z;
   const size_t boff = (size_t)b * sB;
-  attn_fwd_tile<T, D>(q + boff, k + boff, v + boff, sN, key_valid, out, nullptr, b,
+  attn_fwd_tile<T, D>(q + boff, k + boff, v + boff, sN, key_valid, out, stats, b,
                       blockIdx.y, blockIdx.x * BQ, N, H, scale);
 }
 
-// dq: walk 1 finds each row's m, r = 1/denom and c and writes them to the
-// [B, H, N, 3] scratch; walk 2 is K2's.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attn_hm_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                      const T* __restrict__ dout, float* __restrict__ stats,
-                      T* __restrict__ dq, int N, int H, long long sB, int sN,
-                      float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdQTiles<D> t(smem);
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
-  const int C = H * D;
-  const size_t boff = (size_t)b * sB;
-
-  load_tile<T, D>(t.Qs, q + boff, q0, N, sN, h * D, tid);
-  load_tile<T, D>(t.DOs, dout + (size_t)b * N * C, q0, N, C, h * D, tid);
-  if (tid < BQ) {
-    t.Ms[tid] = -INFINITY;
-    t.Rs[tid] = 0.f;
-    t.Cs[tid] = 0.f;
-  }
-
-  // walk 1: m, l = sum(e) (in Rs) and sum(e * dp) (in Cs), each rescaled as
-  // m grows
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();
-    load_tile<T, D>(t.Ks, k + boff, k0, N, sN, h * D, tid);
-    load_tile<T, D>(t.Vs, v + boff, k0, N, sN, h * D, tid);
-    if (tid < BK) t.Bs[tid] = key_bias(key_valid, b, N, k0 + tid);
-    __syncthreads();
-
-    warp_scores<D>(t.Ss, t.Qs, t.Ks, wr);    // s = q k^T
-    warp_scores<D>(t.DPs, t.DOs, t.Vs, wr);  // dp = do v^T
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const float s0 = t.Ss[row * LDS + lane] * scale + t.Bs[lane];
-      const float s1 = t.Ss[row * LDS + lane + 32] * scale + t.Bs[lane + 32];
-      const float m_old = t.Ms[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float e0 = expf(s0 - m_new), e1 = expf(s1 - m_new);
-      const float esum = warp_sum(e0 + e1);
-      const float edp = warp_sum(e0 * t.DPs[row * LDS + lane] +
-                                 e1 * t.DPs[row * LDS + lane + 32]);
-      const float alpha = expf(m_old - m_new);
-      __syncwarp();
-      if (lane == 0) {
-        t.Ms[row] = m_new;
-        t.Rs[row] = t.Rs[row] * alpha + esum;
-        t.Cs[row] = t.Cs[row] * alpha + edp;
-      }
-    }
-  }
-  __syncwarp();
-  // r = 1 / l and c = r * sum(e dp); (m, r, c) for the dk/dv kernel
-  for (int r = lane; r < 16; r += 32) {
-    const int row = wr + r, n = q0 + row;
-    const float rinv = 1.f / t.Rs[row];
-    t.Rs[row] = rinv;
-    t.Cs[row] *= rinv;
-    if (n < N) {
-      float* st = stats + (((size_t)b * H + h) * N + n) * 3;
-      st[0] = t.Ms[row];
-      st[1] = rinv;
-      st[2] = t.Cs[row];
-    }
-  }
-  __syncwarp();
-
-  // walk 2: ds = p * (dp - c), dq += ds k
-  attn_bwd_dq_walk<T, D>(t, k + boff, v + boff, sN, key_valid, dq + (size_t)b * N * C, C,
-                         b, h, q0, N, scale);
+                      const T* __restrict__ out, const T* __restrict__ dout,
+                      const float* __restrict__ stats, float* __restrict__ delta,
+                      T* __restrict__ dq, int N, int H, long long sB, int sN, float scale) {
+  const int b = blockIdx.z, C = H * D;
+  const size_t boff = (size_t)b * sB, goff = (size_t)b * N * C;
+  attn_bwd_dq_body<T, D>(q + boff, k + boff, v + boff, sN, out + goff, dout + goff, C, stats,
+                         delta, key_valid, dq + goff, C, b, blockIdx.y, blockIdx.x * BQ, N, H,
+                         scale);
 }
 
 template <typename T, int D>
@@ -144,18 +78,18 @@ __global__ void __launch_bounds__(THREADS)
 attn_hm_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
                         const T* __restrict__ dout, const float* __restrict__ stats,
-                        T* __restrict__ dk, T* __restrict__ dv, int N, int H,
-                        long long sB, int sN, float scale) {
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int N, int H, long long sB, int sN, float scale) {
   const int b = blockIdx.z, C = H * D;
   const size_t boff = (size_t)b * sB, goff = (size_t)b * N * C;
-  attn_bwd_dkdv_tile<T, D>(q + boff, k + boff, v + boff, sN, key_valid, dout, stats, 3,
-                           stats + 2, 3, dk + goff, dv + goff, C, b, blockIdx.y,
-                           blockIdx.x * BK, N, H, scale);
+  attn_bwd_dkdv_body<T, D>(q + boff, k + boff, v + boff, sN, dout + goff, C, stats, delta,
+                           key_valid, dk + goff, dv + goff, C, b, blockIdx.y, blockIdx.x * BK, N,
+                           H, scale);
 }
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* key_valid,
-               void* out, int B, int N, int H, long long sB, int sN, float scale,
+               void* out, void* stats, int B, int N, int H, long long sB, int sN, float scale,
                cudaStream_t stream) {
   const int smem = FwdSmem<D>::BYTES;
   cudaError_t err = allow_smem(attn_hm_fwd_kernel<T, D>, smem);
@@ -163,32 +97,34 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* key_vali
   dim3 grid((N + BQ - 1) / BQ, H, B);
   attn_hm_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), N, H, sB, sN,
-      scale);
+      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out),
+      static_cast<float*>(stats), N, H, sB, sN, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* key_valid,
-               const void* dout, void* stats, void* dq, void* dk, void* dv, int B,
-               int N, int H, long long sB, int sN, float scale, cudaStream_t stream) {
-  const int smem_q = BwdQSmem<D>::BYTES, smem_kv = BwdKVSmem<D>::BYTES;
+               const void* out, const void* dout, const void* stats, void* delta, void* dq,
+               void* dk, void* dv, int B, int N, int H, long long sB, int sN, float scale,
+               cudaStream_t stream) {
+  const int smem_q = DqSmem<D>::BYTES, smem_kv = DkvSmem<D>::BYTES;
   cudaError_t err = allow_smem(attn_hm_bwd_dq_kernel<T, D>, smem_q);
   if (err == cudaSuccess) err = allow_smem(attn_hm_bwd_dkdv_kernel<T, D>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((N + BQ - 1) / BQ, H, B);
   attn_hm_bwd_dq_kernel<T, D><<<grid_q, THREADS, smem_q, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<const T*>(dout),
-      static_cast<float*>(stats), static_cast<T*>(dq), N, H, sB, sN, scale);
+      static_cast<const uint8_t*>(key_valid), static_cast<const T*>(out),
+      static_cast<const T*>(dout), static_cast<const float*>(stats),
+      static_cast<float*>(delta), static_cast<T*>(dq), N, H, sB, sN, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_kv((N + BK - 1) / BK, H, B);
   attn_hm_bwd_dkdv_kernel<T, D><<<grid_kv, THREADS, smem_kv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(key_valid), static_cast<const T*>(dout),
-      static_cast<const float*>(stats), static_cast<T*>(dk), static_cast<T*>(dv), N,
-      H, sB, sN, scale);
+      static_cast<const float*>(stats), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), N, H, sB, sN, scale);
   return (int)cudaGetLastError();
 }
 
@@ -205,28 +141,29 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* key_vali
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [B, N, H, D] with strides
 // (sB, sN, D, 1), in elements; key_valid: [B, N] bytes or null; out:
-// contiguous [B, N, H, D].
+// contiguous [B, N, H, D]; stats: [B, H, N, 2] f32 (row max, 1/denom).
 extern "C" int avsiam_attn_hm_fwd(const void* q, const void* k, const void* v,
-                                  const void* key_valid, void* out, int B, int N, int H,
-                                  int D, long long sB, long long sN, int dtype,
+                                  const void* key_valid, void* out, void* stats, int B, int N,
+                                  int H, int D, long long sB, long long sN, int dtype,
                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HM_FWD(T, DD) \
-  launch_fwd<T, DD>(q, k, v, key_valid, out, B, N, H, sB, (int)sN, scale, s)
+  launch_fwd<T, DD>(q, k, v, key_valid, out, stats, B, N, H, sB, (int)sN, scale, s)
   HM_DISPATCH(HM_FWD)
 #undef HM_FWD
 }
 
-// dout, dq, dk, dv: contiguous [B, N, H, D], every element of dq, dk and dv
-// written; stats: [B, H, N, 3] f32 scratch (row max, 1/denom, c).
+// out (K5's output), dout, dq, dk, dv: contiguous [B, N, H, D], every element
+// of dq, dk and dv written; stats: K5's [B, H, N, 2]; delta: [B, H, N] f32
+// scratch (rowsum(dout * out), written by the dq kernel).
 extern "C" int avsiam_attn_hm_bwd(const void* q, const void* k, const void* v,
-                                  const void* key_valid, const void* dout, void* stats,
-                                  void* dq, void* dk, void* dv, int B, int N, int H,
-                                  int D, long long sB, long long sN, int dtype,
-                                  float scale, void* stream) {
+                                  const void* key_valid, const void* out, const void* dout,
+                                  const void* stats, void* delta, void* dq, void* dk, void* dv,
+                                  int B, int N, int H, int D, long long sB, long long sN,
+                                  int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HM_BWD(T, DD)                                                             \
-  launch_bwd<T, DD>(q, k, v, key_valid, dout, stats, dq, dk, dv, B, N, H, sB,      \
+#define HM_BWD(T, DD)                                                                    \
+  launch_bwd<T, DD>(q, k, v, key_valid, out, dout, stats, delta, dq, dk, dv, B, N, H, sB, \
                     (int)sN, scale, s)
   HM_DISPATCH(HM_BWD)
 #undef HM_BWD

@@ -1,17 +1,18 @@
-// Tiles and shared bodies of the attention kernels (sm_90a): the token-major
-// K1/K2 (attention.cu) and the head-major K5/K6 (attention_hm.cu).
+// Tiles and bodies of the attention kernels (sm_90a): the forward shared by
+// the token-major K1 (attention.cu) and the head-major K5 (attention_hm.cu),
+// and K2's backward (attention.cu). K6 has its own backward bodies in
+// attention_bwd.cuh, which K2 is to move onto; this file's then go.
 //
 // A block owns a 64-row tile of queries or keys and 4 warps, each warp 16 rows
 // of it. Operands sit in shared memory as bf16 tiles [64][D + 8]; products
 // run on the tensor cores through nvcuda::wmma (16 x 16 x 16, bf16 operands,
 // f32 accumulation); score tiles are f32 [64][LDS].
 //
-// The kernels differ in where q, k and v live and in what the forward saves
-// for the backward, not in their loops: the forward (attn_fwd_tile), the dq
-// walk (attn_bwd_dq_walk) and the dk/dv kernel's body (attn_bwd_dkdv_tile)
-// are shared here. q, k and v are read as rows `ld` elements apart from a
+// K1 and K5 differ in where q, k and v live, not in their loop
+// (attn_fwd_tile). q, k and v are read as rows `ld` elements apart from a
 // sample's first row, the head's channels at [h * D, h * D + D); outputs are
-// written the same way.
+// written the same way. The backward bodies (attn_bwd_dq_walk,
+// attn_bwd_dkdv_tile) take K2's head widths, D = 32 and 64, only.
 #pragma once
 
 #include <math.h>
@@ -30,11 +31,6 @@ constexpr int WARPS = 4;     // each warp owns 16 rows of a tile
 constexpr int THREADS = WARPS * 32;
 constexpr int LDS = BK + 4;  // f32 score tile row stride (floats)
 constexpr int LDP = BK + 8;  // bf16 probability tile row stride
-
-// Row stride of the f32 [64][D] results staged through a score tile's
-// region: LDS up to D = 64, D + 4 beyond (D = 80).
-template <int D>
-constexpr int res_stride() { return D + 4 > LDS ? D + 4 : LDS; }
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
@@ -228,15 +224,15 @@ __device__ __forceinline__ void attn_fwd_tile(
 // ------------------------------------------------------------ backward dq
 template <int D>
 struct BwdQSmem {
+  static_assert(D <= 64, "the backward bodies take K2's head widths");
   static constexpr int LDB = D + 8;
-  static constexpr int LDG = res_stride<D>();
   static constexpr int Q = 0;
   static constexpr int DO = align128(Q + BQ * LDB * 2);
   static constexpr int K = align128(DO + BQ * LDB * 2);
   static constexpr int V = align128(K + BK * LDB * 2);
   static constexpr int S = align128(V + BK * LDB * 2);
-  static constexpr int DP = align128(S + BQ * LDG * 4);
-  static constexpr int DS = align128(DP + BQ * LDG * 4);
+  static constexpr int DP = align128(S + BQ * LDS * 4);
+  static constexpr int DS = align128(DP + BQ * LDS * 4);
   static constexpr int ROW = align128(DS + BQ * LDP * 2);  // m, 1/denom, c
   static constexpr int BIAS = ROW + 3 * BQ * 4;
   static constexpr int BYTES = BIAS + BK * 4;
@@ -267,12 +263,12 @@ struct BwdQTiles {
 // The dq walk of a block whose Qs and DOs hold its 64 queries' q and do and
 // whose Ms, Rs and Cs hold each row's max, 1/denom and c = rowsum(dp * p):
 // over the key tiles, ds = p * (dp - c) and dq += ds k; then scale * dq goes
-// to the rows of dq, `ldq` elements apart, from the sample's first row.
+// to the rows of dq, `ldq` elements apart, from the sample's first row,
+// restaged through each warp's own rows of the s tile.
 template <typename T, int D>
 __device__ __forceinline__ void attn_bwd_dq_walk(
     const BwdQTiles<D>& t, const T* k, const T* v, int ld, const uint8_t* key_valid,
     T* dq, int ldq, int b, int h, int q0, int N, float scale) {
-  constexpr int LDG = BwdQSmem<D>::LDG;
   const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
   const int col = h * D;
 
@@ -305,34 +301,30 @@ __device__ __forceinline__ void attn_bwd_dq_walk(
     warp_pv<D>(acc, t.DSs, t.Ks, wr);  // dq += ds k
   }
 
-  // Every warp is done with the score tiles before any restages its dq
-  // there: past D = 64 a warp's rows at stride LDG overlap the next warp's
-  // rows at stride LDS.
-  __syncthreads();
 #pragma unroll
   for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(t.Ss + wr * LDG + j * 16, acc[j], LDG, wmma::mem_row_major);
+    wmma::store_matrix_sync(t.Ss + wr * LDS + j * 16, acc[j], LDS, wmma::mem_row_major);
   __syncwarp();
   for (int r = 0; r < 16; ++r) {
     const int row = wr + r, n = q0 + row;
     if (n >= N) break;
     T* g = dq + (size_t)n * ldq + col;
-    for (int d = lane; d < D; d += 32) g[d] = from_f32<T>(t.Ss[row * LDG + d] * scale);
+    for (int d = lane; d < D; d += 32) g[d] = from_f32<T>(t.Ss[row * LDS + d] * scale);
   }
 }
 
 // --------------------------------------------------------- backward dk, dv
 template <int D>
 struct BwdKVSmem {
+  static_assert(D <= 64, "the backward bodies take K2's head widths");
   static constexpr int LDB = D + 8;
-  static constexpr int LDG = res_stride<D>();
   static constexpr int K = 0;
   static constexpr int V = align128(K + BK * LDB * 2);
   static constexpr int Q = align128(V + BK * LDB * 2);
   static constexpr int DO = align128(Q + BQ * LDB * 2);
   static constexpr int S = align128(DO + BQ * LDB * 2);
-  static constexpr int DP = align128(S + BK * LDG * 4);
-  static constexpr int P = align128(DP + BK * LDG * 4);
+  static constexpr int DP = align128(S + BK * LDS * 4);
+  static constexpr int P = align128(DP + BK * LDS * 4);
   static constexpr int DS = align128(P + BK * LDP * 2);
   static constexpr int COL = align128(DS + BK * LDP * 2);  // m, 1/denom, c
   static constexpr int BIAS = COL + 3 * BQ * 4;
@@ -340,18 +332,17 @@ struct BwdKVSmem {
 };
 
 // dk and dv of the 64 keys from k0 of head h of sample b: walks the query
-// tiles, recomputing s^T and dp^T, with each query row's max, 1/denom and c
-// read from the row statistics of query (b, h, n) at index i = (b*H + h)*N + n:
-// m = rstat[rstride * i], 1/denom = rstat[rstride * i + 1], c = cstat[cstride * i].
-// dout is the contiguous [B, N, H * D] cotangent; dk and dv get rows `ldg`
-// elements apart from the sample's first row.
+// tiles, recomputing s^T and dp^T, with each query row's max and 1/denom
+// read from stats [B, H, N, 2] and its c from delta [B, H, N]. dout is the
+// contiguous [B, N, H * D] cotangent; dk and dv get rows `ldg` elements apart
+// from the sample's first row, restaged through each warp's own rows of the
+// s and dp tiles.
 template <typename T, int D>
 __device__ __forceinline__ void attn_bwd_dkdv_tile(
     const T* q, const T* k, const T* v, int ld, const uint8_t* key_valid,
-    const T* dout, const float* rstat, int rstride, const float* cstat, int cstride,
-    T* dk, T* dv, int ldg, int b, int h, int k0, int N, int H, float scale) {
+    const T* dout, const float* stats, const float* delta, T* dk, T* dv, int ldg,
+    int b, int h, int k0, int N, int H, float scale) {
   using SM = BwdKVSmem<D>;
-  constexpr int LDG = SM::LDG;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + SM::K);
   bf16* Vs = reinterpret_cast<bf16*>(smem + SM::V);
@@ -387,9 +378,9 @@ __device__ __forceinline__ void attn_bwd_dkdv_tile(
     if (tid < BQ) {
       const int n = q0 + tid;
       const size_t i = ((size_t)b * H + h) * N + n;
-      Qm[tid] = n < N ? rstat[rstride * i] : 0.f;
-      Qr[tid] = n < N ? rstat[rstride * i + 1] : 0.f;
-      Qc[tid] = n < N ? cstat[cstride * i] : 0.f;
+      Qm[tid] = n < N ? stats[2 * i] : 0.f;
+      Qr[tid] = n < N ? stats[2 * i + 1] : 0.f;
+      Qc[tid] = n < N ? delta[i] : 0.f;
     }
     __syncthreads();
 
@@ -412,11 +403,10 @@ __device__ __forceinline__ void attn_bwd_dkdv_tile(
     warp_pv<D>(gk, DSs, Qs, wr);  // dk += ds^T q
   }
 
-  __syncthreads();  // as in attn_bwd_dq_walk: the restaging overlaps past D = 64
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(Ss + wr * LDG + j * 16, gk[j], LDG, wmma::mem_row_major);
-    wmma::store_matrix_sync(DPs + wr * LDG + j * 16, gv[j], LDG, wmma::mem_row_major);
+    wmma::store_matrix_sync(Ss + wr * LDS + j * 16, gk[j], LDS, wmma::mem_row_major);
+    wmma::store_matrix_sync(DPs + wr * LDS + j * 16, gv[j], LDS, wmma::mem_row_major);
   }
   __syncwarp();
   for (int r = 0; r < 16; ++r) {
@@ -424,8 +414,8 @@ __device__ __forceinline__ void attn_bwd_dkdv_tile(
     if (n >= N) break;
     const size_t off = (size_t)n * ldg + col;
     for (int d = lane; d < D; d += 32) {
-      dk[off + d] = from_f32<T>(Ss[row * LDG + d] * scale);
-      dv[off + d] = from_f32<T>(DPs[row * LDG + d]);
+      dk[off + d] = from_f32<T>(Ss[row * LDS + d] * scale);
+      dv[off + d] = from_f32<T>(DPs[row * LDS + d]);
     }
   }
 }

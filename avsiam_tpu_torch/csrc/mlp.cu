@@ -31,13 +31,38 @@
 //     shared memory), and accumulates dw1 [16, D] and dw2 [D, 16] in
 //     registers. The recomputation costs 4 T D H FLOPs over the Pallas
 //     kernel's 10 T D H; no [T, H] tensor touches device memory;
-//   - K9: a block per 64 x 64 tile of dw walks all rows.
-// wgmma, TMA-fed tiles and a row split of the weight gradients are later work.
+//   - K9: a block per 192 x 96 (or 128 x 128) tile of dw walks all rows,
+//     below.
+// wgmma and TMA-fed tiles for K4, K7 and K8 are later work.
+//
+// K9 (redesigned). What bounds it on the H100: at ViT-B's widths
+// (m, n = 768, 3072) and T of 156-1416 rows a call is 2 T m n FLOPs (1-7
+// GFLOP) and writes a 9.4 MB f32 dw, so the bound is about equal parts
+// tensor-core rate and the dw write (about 5 us at T = 1024). The wmma form
+// before this one (64 x 64 tiles of 4 warps, synchronous loads) re-read
+// every input from L2 48 or 12 times and never overlapped a load with a
+// product. This one: 192 x 96 tiles, so each input is read from L2 by 4 to
+// 32 blocks, and dw1/dw2 at ViT-B are 128 tiles, one wave on 132 SMs; TMA
+// loads of 64-row slabs into a ring of mbarrier-tracked stages; and wgmma
+// on both operands in their reduction-major (MN-major) layout, swizzled so
+// the tensor cores read shared memory without bank conflicts. On an NVIDIA
+// H100 80GB HBM3 (700 W), per phase-C step of chip_smoke.py: the wmma form
+// 9.22 ms; mma.sync fed by ldmatrix.trans from a cp.async ring, 5.28 ms with
+// 128 x 192 tiles and 32-row slabs and 3.94 ms with 96 x 192 tiles and
+// 64-row slabs; wgmma on the cp.async ring 3.54 ms, where issuing the loads
+// from every thread held it back. 128 x 128 tiles would be 144 at ViT-B's
+// widths, a second wave, so they serve the decoder's. What bounds it now: the f32
+// write at the end and the slabs' L2 traffic (36 KB per block per 64 rows,
+// the same rows read by many blocks), which TMA multicast across a cluster
+// would cut.
 //
 // Weights use nn.Linear's layout: w1 [H, D] (fc1.weight), w2 [D, H]
 // (fc2.weight); biases are f32. Gradients likewise: dw1 [H, D], dw2 [D, H].
 
+#include <cuda.h>
+
 #include "mlp_tile.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -317,6 +342,145 @@ mlp_bwd_dw_kernel(const T* __restrict__ x, const bf16* __restrict__ w1,
 }
 
 // ------------------------------------------------------------------ K9
+// bf16 (the step path): mlp_dw_tc_kernel. A block owns a BM x BN tile of
+// dw (192 x 96, or 128 x 128 where 192 and 96 do not divide the widths; the
+// caller picks), one warpgroup per 64 of its rows, and walks the rows of g
+// and a in 64-row slabs. One thread issues TMA loads of the slabs into a
+// 4-stage ring, two slabs in flight while the tensor cores work on a third;
+// each stage's mbarrier counts the bytes in. The TMA boxes land in wgmma's
+// swizzled MN-major layout (GmmaLayout, mma.cuh), since both operands are
+// reduction-major in memory: g^T is A (64 dw rows per warpgroup), a is B
+// (BN columns), with the transpose bits set. Each warpgroup keeps one
+// slab's wgmma group in flight while it issues the next. The blocks of tile
+// column 0 also sum db from the g slabs in shared memory: each thread two
+// columns over a fixed quarter of every slab's rows, the quarters then
+// added in order. One owner per output element, no atomics, the same bits
+// every call.
+constexpr int DW_BK = 64;  // rows of a and g per slab
+constexpr int DW_STAGES = 4;
+
+template <int BM, int BN>
+struct DwTcSmem {
+  using LA = GmmaLayout<BM, DW_BK>;  // g slab: A = g^T
+  using LB = GmmaLayout<BN, DW_BK>;  // a slab: B
+  static constexpr int THREADS = BM / 64 * 128;
+  static constexpr int STAGE = LA::BYTES + LB::BYTES;  // a multiple of 1 KB
+  static constexpr int DB = DW_STAGES * STAGE;         // f32 [4][BM] db quarters
+  static constexpr int BAR = DB + 4 * BM * 4;          // an mbarrier per stage
+  static constexpr int BYTES = BAR + 8 * DW_STAGES + 1024;  // + room to align to 1 KB
+};
+
+// slab `s` (rows s * DW_BK ..) of g and a into a ring stage, by TMA
+template <int BM, int BN>
+__device__ __forceinline__ void dw_issue_slab(unsigned char* stage, uint64_t* bar,
+                                              const CUtensorMap* gmap, const CUtensorMap* amap,
+                                              int n0, int m0, int s) {
+  using SM = DwTcSmem<BM, BN>;
+  using LA = typename SM::LA;
+  using LB = typename SM::LB;
+  mbar_expect_tx(bar, SM::STAGE);
+#pragma unroll
+  for (int c = 0; c < BM / LA::BOX; ++c)
+    tma_load_2d(stage + c * LA::LBO, gmap, n0 + c * LA::BOX, s * DW_BK, bar);
+#pragma unroll
+  for (int c = 0; c < BN / LB::BOX; ++c)
+    tma_load_2d(stage + LA::BYTES + c * LB::LBO, amap, m0 + c * LB::BOX, s * DW_BK, bar);
+}
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<96> {
+  static __device__ __forceinline__ void run(float (&d)[48], uint64_t a, uint64_t b) {
+    wgmma_m64n96(d, a, b);
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
+    wgmma_m64n128(d, a, b);
+  }
+};
+
+// gmap, amap: TMA maps of g [rows, n] and a [rows, m] with boxes of DW_BK
+// rows by GmmaLayout's BOX columns and its swizzle
+template <int BM, int BN>
+__global__ void __launch_bounds__(DwTcSmem<BM, BN>::THREADS, 1)
+mlp_dw_tc_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap amap,
+                 float* __restrict__ dw, float* __restrict__ db, int rows, int m, int n) {
+  using SM = DwTcSmem<BM, BN>;
+  using LA = typename SM::LA;
+  using LB = typename SM::LB;
+  constexpr int PAIRS = BM / 2;  // db column pairs, one per thread of each quarter
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
+  const int n0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
+  const bool owns_db = blockIdx.x == 0, db_thread = tid < 4 * PAIRS;
+  const int slabs = (rows + DW_BK - 1) / DW_BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < DW_STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    for (int s = 0; s < DW_STAGES - 2 && s < slabs; ++s)
+      dw_issue_slab<BM, BN>(smem + s * SM::STAGE, bars + s, &gmap, &amap, n0, m0, s);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  float acc[BN / 2];  // the warpgroup's 64 x BN accumulator, BN / 2 a thread
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  float db0 = 0.f, db1 = 0.f;  // columns dbc, dbc + 1 over rows quarter tid / PAIRS
+  const int dbc = 2 * (tid % PAIRS), dbq = (tid / PAIRS) * (DW_BK / 4);
+
+  for (int s = 0; s < slabs; ++s) {
+    mbar_wait(bars + s % DW_STAGES, (s / DW_STAGES) & 1);  // slab s has landed
+    __syncthreads();  // and every warpgroup is done with slab s - 2
+    const int next = s + DW_STAGES - 2;  // into the stage slab s - 2 held
+    if (tid == 0 && next < slabs) {
+      fence_proxy_async();  // after the db reads of that stage
+      dw_issue_slab<BM, BN>(smem + (next % DW_STAGES) * SM::STAGE, bars + next % DW_STAGES, &gmap,
+                            &amap, n0, m0, next);
+    }
+    const unsigned char* As = smem + (s % DW_STAGES) * SM::STAGE;
+    const unsigned char* Bs = As + LA::BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_BK / 16; ++kk)
+      Wgmma<BN>::run(acc, LA::desc(As + wg * (64 / LA::BOX) * LA::LBO + kk * LA::KSTEP),
+                     LB::desc(Bs + kk * LB::KSTEP));
+    wgmma_commit();
+    if (owns_db && db_thread) {
+#pragma unroll
+      for (int r = 0; r < DW_BK / 4; ++r) {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            As + LA::chunk(dbq + r, dbc >> 3) + (dbc & 7) * 2));
+        db0 += v.x;
+        db1 += v.y;
+      }
+    }
+    wgmma_wait<1>();  // slab s - 1's products are done
+  }
+  wgmma_wait<0>();
+
+  const int row = n0 + wg * 64 + (warp & 3) * 16 + (lane >> 2), col = m0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    store_pair(dw + (size_t)row * m + col + 8 * j, acc[4 * j], acc[4 * j + 1]);
+    store_pair(dw + (size_t)(row + 8) * m + col + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  if (owns_db) {
+    float* q = reinterpret_cast<float*>(smem + SM::DB);
+    if (db_thread) {
+      q[(tid / PAIRS) * BM + dbc] = db0;
+      q[(tid / PAIRS) * BM + dbc + 1] = db1;
+    }
+    __syncthreads();
+    if (tid < BM) db[n0 + tid] = ((q[tid] + q[BM + tid]) + q[2 * BM + tid]) + q[3 * BM + tid];
+  }
+}
+
+// float32 storage (off the step path): the first form, a block of 4 warps per
+// 64 x 64 tile of dw walking all rows in order through wmma; db sums the
+// unrounded f32 g
 constexpr int DW_TILE = 64;   // dw tile edge
 constexpr int DW_ROWS = 32;   // rows per step
 constexpr int DW_THREADS = 128;
@@ -487,20 +651,72 @@ extern "C" int avsiam_mlp_bwd_dx(const void* x, const void* w1, const void* b1, 
   return (int)cudaErrorInvalidValue;
 }
 
+// cuTensorMapEncodeTiled, looked up at run time (no link to libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                       cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of a row-major bf16 [rows, cols] matrix in boxes of DW_BK rows
+// by L::BOX columns, swizzled as L lays them out
+template <typename L>
+bool dw_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)L::BOX, (cuuint32_t)DW_BK};
+  const cuuint32_t steps[2] = {1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;  // rows past the end: zeros
+}
+
+template <int BM, int BN>
+int launch_dw_tc(const void* a, const void* g, void* dw, void* db, int rows, int m, int n,
+                 cudaStream_t stream) {
+  using SM = DwTcSmem<BM, BN>;
+  CUtensorMap gmap, amap;
+  if (!dw_map<typename SM::LA>(&gmap, g, rows, n) || !dw_map<typename SM::LB>(&amap, a, rows, m))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_dw_tc_kernel<BM, BN>, SM::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  mlp_dw_tc_kernel<BM, BN><<<dim3(m / BN, n / BM), SM::THREADS, SM::BYTES, stream>>>(
+      gmap, amap, static_cast<float*>(dw), static_cast<float*>(db), rows, m, n);
+  return (int)cudaGetLastError();
+}
+
 // K9: a [rows, m], g [rows, n] -> dw [n, m] = g^T a, db [n] = column sums of
-// g, in f32; m and n multiples of 64
+// g, in f32. bf16 takes a bm x bn tile, 192 x 96 or 128 x 128, that divides
+// [n, m]; the float32 form takes m and n multiples of 64 and ignores bm, bn.
 extern "C" int avsiam_mlp_dw(const void* a, const void* g, void* dw, void* db, int rows, int m,
-                             int n, int dtype, void* stream) {
+                             int n, int bm, int bn, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || m % DW_TILE != 0 || n % DW_TILE != 0 || m <= 0 || n <= 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(m / DW_TILE, n / DW_TILE);
-  if (dtype == 1)
-    mlp_dw_kernel<bf16><<<grid, DW_THREADS, 0, s>>>(static_cast<const bf16*>(a),
-                                                    static_cast<const bf16*>(g),
-                                                    static_cast<float*>(dw),
-                                                    static_cast<float*>(db), rows, m, n);
-  else if (dtype == 0)
+  if (dtype == 1) {
+    if (bm == 192 && bn == 96 && n % 192 == 0 && m % 96 == 0)
+      return launch_dw_tc<192, 96>(a, g, dw, db, rows, m, n, s);
+    if (bm == 128 && bn == 128 && n % 128 == 0 && m % 128 == 0)
+      return launch_dw_tc<128, 128>(a, g, dw, db, rows, m, n, s);
+    return (int)cudaErrorInvalidValue;
+  } else if (dtype == 0)
     mlp_dw_kernel<float><<<grid, DW_THREADS, 0, s>>>(static_cast<const float*>(a),
                                                      static_cast<const float*>(g),
                                                      static_cast<float*>(dw),

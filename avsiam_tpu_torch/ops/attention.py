@@ -10,8 +10,12 @@ the CUDA kernels of ``csrc/attention.cu`` and ``csrc/attention_hm.cu``:
   packed qkv in place; head widths 32 and 64;
 - K5 ``attention_hm_fwd_kernel`` (``_pallas_fwd``) and K6
   ``attention_hm_bwd_kernel`` (``_pallas_bwd``): head-major, for the widths
-  K1 does not take (ViT-H's D=80). K6 recomputes the softmax from q and k,
-  as the JAX backward does; the forward saves nothing.
+  K1 does not take (ViT-H's D=80). K5 saves each row's softmax max and
+  1/denominator, as K1 does, and K6 reads them with the output: the JAX
+  VJP keeps only q, k and v and recomputes the softmax, the port's kernels
+  take the saved-statistics form (``attention_hm_bwd_stats_reference``) of
+  the same gradients. On the CPU the autograd Function keeps the JAX form
+  (``attention_hm_bwd_reference``).
 
 This module holds their wrappers, their plain PyTorch versions and the
 autograd Functions that join them. The qkv channel order is (3, H, D), the
@@ -244,6 +248,42 @@ def attention_hm_bwd_reference(q, k, v, do, key_valid=None):
     return tuple(g.transpose(1, 2).contiguous().to(qd) for g in (dq, dk, dv))
 
 
+def attention_hm_stats_reference(q, k, key_valid=None):
+    """Plain version of K5's saved statistics: [B, H, N, 2] float32, each
+    row's max of s * scale + bias and 1 / rowsum(exp(s * scale + bias -
+    max))."""
+    s = _hm_scores(q, k, key_valid)
+    m = s.amax(dim=-1)
+    r = 1.0 / torch.exp(s - m[..., None]).sum(dim=-1)
+    return torch.stack((m, r), dim=-1)
+
+
+def attention_hm_bwd_stats_reference(q, k, v, out, stats, do,
+                                     key_valid=None):
+    """Plain version of K6 as its kernels compute it, from K5's output and
+    saved statistics: (dq, dk, dv) [B, N, H, D] in q's dtype. With (m, r) =
+    stats, p = exp(s * scale + bias - m) * r, dp = do v^T, delta =
+    rowsum(do * out), ds = p * (dp - delta); dq = scale * ds k, dk = scale *
+    ds^T q, dv = p^T do, with p and ds rounded to q's dtype before their
+    products (the kernels round them to bf16). The same function as
+    ``attention_hm_bwd_reference``: rowsum(p * dp) = rowsum(do * out)."""
+    f32 = torch.float32
+    qd = q.dtype
+    scale = q.shape[-1] ** -0.5
+    q_h, k_h, v_h, o_h, do_h = (t.to(f32).transpose(1, 2)
+                                for t in (q, k, v, out, do))  # [B, H, N, D]
+    m, r = stats[..., :1], stats[..., 1:]
+    p = torch.exp(_hm_scores(q, k, key_valid) - m) * r
+    dp = do_h @ v_h.transpose(-1, -2)
+    delta = (do_h * o_h).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(qd).to(f32)
+    p = p.to(qd).to(f32)
+    dq = (ds @ k_h) * scale
+    dk = (ds.transpose(-1, -2) @ q_h) * scale
+    dv = p.transpose(-1, -2) @ do_h
+    return tuple(g.transpose(1, 2).contiguous().to(qd) for g in (dq, dk, dv))
+
+
 def _hm_geometry(q, k, v, key_valid):
     """Validate a K5/K6 call; returns (B, N, H, D, batch stride, row
     stride)."""
@@ -279,65 +319,77 @@ def _hm_geometry(q, k, v, key_valid):
     return B, N, H, D, sB, sN
 
 
-def attention_hm_fwd_kernel(q, k, v, key_valid=None) -> torch.Tensor:
+def attention_hm_fwd_kernel(q, k, v, key_valid=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5 on q, k, v [B, N, H, D] sharing strides (e.g. the three slices of
-    a packed [B, N, 3, H, D] qkv): the output, contiguous [B, N, H, D] in
-    q's dtype."""
+    a packed [B, N, 3, H, D] qkv): (out, contiguous [B, N, H, D] in q's
+    dtype; stats [B, H, N, 2] f32 = per-row softmax max and 1/denominator,
+    K6's input)."""
     B, N, H, D, sB, sN = _hm_geometry(q, k, v, key_valid)
     lib = kernels.library()
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    stats = torch.empty((B, H, N, 2), dtype=torch.float32, device=q.device)
     err = lib.avsiam_attn_hm_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_valid is None else key_valid.data_ptr(), out.data_ptr(),
-        B, N, H, D, sB, sN, kernels.DTYPE_CODES[q.dtype], D ** -0.5,
-        kernels.stream_handle(q))
+        stats.data_ptr(), B, N, H, D, sB, sN, kernels.DTYPE_CODES[q.dtype],
+        D ** -0.5, kernels.stream_handle(q))
     kernels.check(err, "head-major attention forward")
     kernels.LAUNCHES["attention_hm_fwd"] += 1
-    return out
+    return out, stats
 
 
-def attention_hm_bwd_kernel(q, k, v, do, key_valid=None):
+def attention_hm_bwd_kernel(q, k, v, out, stats, do, key_valid=None):
     """K6: (dq, dk, dv), each contiguous [B, N, H, D] in q's dtype, from q,
-    k, v (as K5 takes them) and the output's contiguous cotangent do."""
+    k, v (as K5 takes them), K5's output and statistics, and the output's
+    contiguous cotangent do. One call runs the dq kernel (which also forms
+    delta = rowsum(do * out)) and the dk/dv kernel."""
     B, N, H, D, sB, sN = _hm_geometry(q, k, v, key_valid)
-    if (do.shape != (B, N, H, D) or do.dtype != q.dtype
-            or do.device != q.device or not do.is_contiguous()
-            or do.data_ptr() % 16):
-        raise ValueError(f"do must be a contiguous 16-byte aligned "
-                         f"{(B, N, H, D)} {q.dtype} tensor on {q.device}")
+    for name, t, shape, dtype in (
+            ("out", out, (B, N, H, D), q.dtype),
+            ("do", do, (B, N, H, D), q.dtype),
+            ("stats", stats, (B, H, N, 2), torch.float32)):
+        if (t.shape != shape or t.dtype != dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous 16-byte aligned "
+                             f"{shape} {dtype} tensor on {q.device}")
     lib = kernels.library()
-    stats = torch.empty((B, H, N, 3), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     err = lib.avsiam_attn_hm_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if key_valid is None else key_valid.data_ptr(), do.data_ptr(),
-        stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N,
-        H, D, sB, sN, kernels.DTYPE_CODES[q.dtype], D ** -0.5,
-        kernels.stream_handle(q))
+        None if key_valid is None else key_valid.data_ptr(), out.data_ptr(),
+        do.data_ptr(), stats.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, N, H, D, sB, sN,
+        kernels.DTYPE_CODES[q.dtype], D ** -0.5, kernels.stream_handle(q))
     kernels.check(err, "head-major attention backward")
     kernels.LAUNCHES["attention_hm_bwd"] += 1
     return dq, dk, dv
 
 
 class _HeadMajorAttention(torch.autograd.Function):
-    """K5 forward, K6 backward (their plain versions on the CPU). Saves only
-    q, k, v and key_valid, as the JAX VJP does."""
+    """K5 forward, K6 backward; their JAX-form plain versions on the CPU,
+    which save only q, k, v and key_valid, as the JAX VJP does. On the card
+    the output and K5's statistics are saved too: the output is the tensor
+    returned (its storage, no copy) and the statistics [B, H, N, 2] f32."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid):
-        ctx.save_for_backward(q, k, v, key_valid)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, key_valid)
             return attention_hm_reference(q, k, v, key_valid)
-        return attention_hm_fwd_kernel(q, k, v, key_valid)
+        out, stats = attention_hm_fwd_kernel(q, k, v, key_valid)
+        ctx.save_for_backward(q, k, v, key_valid, out, stats)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_valid = ctx.saved_tensors
+        q, k, v, key_valid, *saved = ctx.saved_tensors
         if q.device.type == "cpu":
             grads = attention_hm_bwd_reference(q, k, v, do, key_valid)
         else:
-            grads = attention_hm_bwd_kernel(q, k, v, do.contiguous(),
+            grads = attention_hm_bwd_kernel(q, k, v, *saved, do.contiguous(),
                                             key_valid)
         return (*grads, None)
 

@@ -50,7 +50,8 @@ KERNEL_DIMS = (512, 768)
 HIDDEN_CHUNK = 64  # hidden columns per step of the kernel's loop
 ROW_TILE = 32      # rows per block
 MAX_SPLITS = 16    # bounds the f32 partial sums at 16 x [T, D]
-WEIGHT_GRAD_TILE = 64  # K9's dw tile edge: m and n must be multiples
+WEIGHT_GRAD_TILE = 128  # K9 takes dw [n, m] with m and n multiples of it
+WEIGHT_GRAD_TILES = ((192, 96), (128, 128))  # K9's bf16 dw tiles (rows, cols)
 
 
 def hidden_splits(rows: int, hidden: int, num_sms: int) -> int:
@@ -66,6 +67,20 @@ def hidden_splits(rows: int, hidden: int, num_sms: int) -> int:
         return -(-tiles * s // num_sms) * -(-chunks // s)
 
     return min(range(1, min(chunks, MAX_SPLITS) + 1), key=cost)
+
+
+def weight_grad_tile(m: int, n: int, num_sms: int):
+    """K9's bf16 dw tile (rows, columns) for dw [n, m]: of the tiles that
+    divide it, the one whose call takes the least waves * tile area (a
+    block fills an SM and takes time in proportion to its area). At ViT-B's
+    (768, 3072) 192 x 96 gives 128 tiles, one wave on 132 SMs, where 128 x
+    128 gives 144, two waves."""
+    def cost(tile):
+        r, c = tile
+        return -(-(n // r) * (m // c) // num_sms) * r * c
+
+    return min((t for t in WEIGHT_GRAD_TILES if n % t[0] == 0 and m % t[1] == 0),
+               key=cost)
 
 
 def ln_mlp_reference(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
@@ -389,7 +404,8 @@ def mlp_bwd_dx_kernel(x2, w1, b1, w2, do):
 
 def weight_grads_kernel(a, g):
     """K9 on a [T, m] and g [T, n] (float32 or bfloat16, alike; m and n
-    multiples of 64): (g^T a [n, m], the column sums of g [n]) in float32."""
+    multiples of 128): (g^T a [n, m], the column sums of g [n]) in float32.
+    bf16 sums db from the stored g, float32 from the unrounded g."""
     if a.device.type != "cuda":
         raise ValueError(f"weight-gradient kernel needs a CUDA tensor, got "
                          f"{a.device}")
@@ -406,11 +422,12 @@ def weight_grads_kernel(a, g):
     _check_aligned("weight gradients", a, g)
     T, m = a.shape
     n = g.shape[1]
+    tile = weight_grad_tile(m, n, kernels.num_sms(a.device))
     lib = kernels.library()
     dw = torch.empty((n, m), dtype=torch.float32, device=a.device)
     db = torch.empty((n,), dtype=torch.float32, device=a.device)
     err = lib.avsiam_mlp_dw(a.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                            db.data_ptr(), T, m, n,
+                            db.data_ptr(), T, m, n, *tile,
                             kernels.DTYPE_CODES[a.dtype],
                             kernels.stream_handle(a))
     kernels.check(err, "weight gradients")

@@ -13,7 +13,7 @@ Phases (any failure raises and the script exits non-zero):
    the step phases give it (bf16 inputs; the plain version runs in float32
    on the same values) and times kernel, plain version and, where one
    PyTorch call computes the same function (``F.scaled_dot_product_attention``
-   for attention, ``torch.mm`` for the weight gradient,
+   for attention, ``torch.mm`` with a float32 output for the weight gradient,
    ``native_layer_norm_backward`` for the LN backward), that call as a
    yardstick the port never calls; each time is device time per call, from
    torch.profiler.
@@ -367,8 +367,8 @@ def check_mlp_family(calls_b, calls_c, gen):
     """K4 (with and without the pre-GELU hidden), K7, K8 and K9 at every
     (rows, D, H) of phases B and C, against their plain versions in float32
     on the same values; times of kernel, plain version, and for K9
-    ``torch.mm``. ``calls_b`` and ``calls_c`` are ``mlp_shape_launches`` of
-    phases B and C."""
+    ``torch.mm`` (float32 and bf16 output). ``calls_b`` and ``calls_c`` are
+    ``mlp_shape_launches`` of phases B and C."""
     from avsiam_tpu_torch.ops import mlp as pm
     rows = []
     for t, d, h in sorted(set(calls_b) | set(calls_c), key=lambda k: -k[0]):
@@ -421,8 +421,14 @@ def check_mlp_family(calls_b, calls_c, gen):
             dw=time_ms(lambda: pm.weight_grads_reference(f["x"], gh.float()))
             + time_ms(lambda: pm.weight_grads_reference(act.float(),
                                                         f["do"])))
-        library = dict(dw=time_ms(lambda: torch.mm(gh.t(), x))
-                       + time_ms(lambda: torch.mm(do.t(), act)))
+        # the f32-output product is K9's function without db; the bf16-output
+        # one, the earlier yardstick, is logged beside it
+        library = dict(dw=time_ms(lambda: torch.mm(gh.t(), x,
+                                                   out_dtype=torch.float32))
+                       + time_ms(lambda: torch.mm(do.t(), act,
+                                                  out_dtype=torch.float32)))
+        mm_bf16 = (time_ms(lambda: torch.mm(gh.t(), x))
+                   + time_ms(lambda: torch.mm(do.t(), act)))
         bb, fb = 2, 4  # bytes of a bf16 and an f32 value
         bounds = dict(
             fwd=bound_ms(4 * t * d * h,
@@ -442,12 +448,14 @@ def check_mlp_family(calls_b, calls_c, gen):
                      bwd=cb.get("mlp_bwd", 0), bwd_dx=cc.get("mlp_bwd_dx", 0),
                      dw=cc.get("mlp_dw", 0) // 2)
         rows.append(dict(T=t, D=d, H=h, calls=calls, errs=errs, ms=ms,
-                         plain_ms=plain, library_ms=library, bound=bounds))
+                         plain_ms=plain, library_ms=library,
+                         mm_bf16_ms=mm_bf16, bound=bounds))
         log(f"  mlp T={t:5d} D={d} H={h} calls/step B {calls['fwd']} "
             f"C {calls['bwd_dx']}+{calls['fwd_hpre']}  worst rel err "
             f"{errs[worst][1]:.1e} ({worst}) <= {MLP_TOL}")
         for k in ms:
-            extra = f" mm {library[k]:.4f}" if k in library else ""
+            extra = (f" mm f32 {library[k]:.4f} (bf16 out {mm_bf16:.4f})"
+                     if k in library else "")
             log(f"    {k:8s} {ms[k]:.4f} ms plain {plain[k]:.4f}{extra} bound "
                 f"{bounds[k][0]:.4f}")
     return rows
@@ -504,9 +512,12 @@ def check_attention_hm(shapes, extra, gen):
     """K5 and K6 at each (b, N, H, D) of ``shapes`` ({shape: calls per
     step}) and of ``extra`` ([(shape, masked)]), reading q, k, v as the
     three slices of a packed bf16 qkv, against their plain versions in
-    float32 on the same values; where K1 takes the shape, K5 against K1
-    too. Times of kernel, plain version and SDPA on contiguous bf16
-    [B, H, N, D] copies."""
+    float32 on the same values (K6 against both plain forms: the JAX form
+    that recomputes the softmax and the saved-statistics form, fed K5's
+    output and statistics); where K1 takes the shape, K5 against K1 too.
+    Times of kernel (K6: the whole call, delta included), plain version (K6:
+    the saved-statistics form) and SDPA on contiguous bf16 [B, H, N, D]
+    copies."""
     import torch.nn.functional as F
     from avsiam_tpu_torch.ops import attention as pat
     rows = []
@@ -523,31 +534,39 @@ def check_attention_hm(shapes, extra, gen):
         if masked:
             kv = torch.rand((b, n), generator=gen, device="cuda") > 0.3
             kv[:, 0] = True
-        out = pat.attention_hm_fwd_kernel(q, k, v, kv)
-        grads = pat.attention_hm_bwd_kernel(q, k, v, dout, kv)
+        out, stats = pat.attention_hm_fwd_kernel(q, k, v, kv)
+        grads = pat.attention_hm_bwd_kernel(q, k, v, out, stats, dout, kv)
         torch.cuda.synchronize()
         f = [t.float() for t in (q, k, v)]
         ferr = rel_err(out, pat.attention_hm_reference(*f, kv))
-        berr = max((rel_err(g, w) for g, w in zip(
-            grads, pat.attention_hm_bwd_reference(*f, dout.float(), kv))),
-            key=lambda e: e[1])
+        # the max and the 1/denominator each against its own scale: the max
+        # is far larger, and one scale for both would hide a wrong 1/denom
+        want_st = pat.attention_hm_stats_reference(f[0], f[1], kv)
+        serr = max((rel_err(stats[..., i], want_st[..., i]) for i in (0, 1)),
+                   key=lambda e: e[1])
+        berr = max((rel_err(g, w) for form in (
+            pat.attention_hm_bwd_reference(*f, dout.float(), kv),
+            pat.attention_hm_bwd_stats_reference(*f, out.float(), stats,
+                                                 dout.float(), kv))
+            for g, w in zip(grads, form)), key=lambda e: e[1])
         k1 = None
         if pat.attention_route("pallas", C, heads) == "token_major":
             k1 = rel_err(out, pat.attention_fwd_kernel(xqkv, heads, kv)[0]
                          .view(b, n, heads, hd))[1]
-        if max(ferr[1], berr[1], k1 or 0.0) > ATTN_TOL:
+        if max(ferr[1], serr[1], berr[1], k1 or 0.0) > ATTN_TOL:
             raise AssertionError(
                 f"attention_hm b={b} N={n} H={heads} D={hd} masked={masked}: "
-                f"fwd rel err {ferr[1]:.3e}, bwd {berr[1]:.3e}, against K1 "
-                f"{k1} > {ATTN_TOL}")
+                f"fwd rel err {ferr[1]:.3e}, stats {serr[1]:.3e}, bwd "
+                f"{berr[1]:.3e}, against K1 {k1} > {ATTN_TOL}")
         ms = dict(fwd=time_ms(lambda: pat.attention_hm_fwd_kernel(q, k, v,
                                                                   kv)),
                   bwd=time_ms(lambda: pat.attention_hm_bwd_kernel(
-                      q, k, v, dout, kv)))
+                      q, k, v, out, stats, dout, kv)))
+        of, df = out.float(), dout.float()
         plain = dict(
             fwd=time_ms(lambda: pat.attention_hm_reference(*f, kv)),
-            bwd=time_ms(lambda: pat.attention_hm_bwd_reference(
-                *f, dout.float(), kv)))
+            bwd=time_ms(lambda: pat.attention_hm_bwd_stats_reference(
+                *f, of, stats, df, kv)))
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         mask = None if kv is None else kv[:, None, None, :]
@@ -558,19 +577,22 @@ def check_attention_hm(shapes, extra, gen):
                 qh, kh, vh, attn_mask=mask)),
             bwd=time_ms(lambda: torch.autograd.grad(
                 lib_out, (qh, kh, vh), do_h, retain_graph=True)))
-        # operations: q k^T and p v forward; the backward recomputes q k^T
-        # and adds do v^T, dv, dq and dk. Bytes (bf16): q, k, v read and o
-        # written; q, k, v, do read and dq, dk, dv written.
+        # the functions the JAX kernels compute, not what this design moves
+        # besides (K5's statistics, K6 reading them and o): operations q k^T
+        # and p v forward; the backward recomputes q k^T and adds do v^T,
+        # dv, dq and dk. Bytes (bf16): q, k, v read and o written; q, k, v,
+        # do read and dq, dk, dv written.
         sq = b * heads * n * n * hd
         tok = b * n * C * 2  # one [B, N, H, D] bf16 tensor
         bounds = dict(fwd=bound_ms(4 * sq, 4 * tok),
                       bwd=bound_ms(10 * sq, 7 * tok))
         rows.append(dict(b=b, N=n, H=heads, D=hd, masked=masked, calls=calls,
-                         err=dict(fwd=ferr, bwd=berr), k1_rel=k1, ms=ms,
+                         err=dict(fwd=ferr, bwd=berr), stats_err=serr,
+                         k1_rel=k1, ms=ms,
                          plain_ms=plain, library_ms=library, bound=bounds))
         log(f"  attention_hm b={b} N={n:4d} H={heads:2d} D={hd} "
             f"mask={int(masked)} x{calls:3d}/step  fwd err {ferr[0]:.2e} "
-            f"(rel {ferr[1]:.1e} <= {ATTN_TOL}"
+            f"(rel {ferr[1]:.1e} <= {ATTN_TOL}; stats {serr[1]:.1e}"
             + ("" if k1 is None else f"; vs K1 {k1:.1e}")
             + f") {ms['fwd']:.4f} ms plain {plain['fwd']:.4f} sdpa "
             f"{library['fwd']:.4f} bound {bounds['fwd'][0]:.4f} | bwd err "
@@ -639,8 +661,8 @@ def check_float32(gen, eps: float = 1e-5):
     x = torch.randn((b, n, 3 * heads * hd), generator=gen, device="cuda")
     q, k, v = x.view(b, n, 3, heads, hd).unbind(2)
     do = torch.randn((b, n, heads, hd), generator=gen, device="cuda")
-    out = pat.attention_hm_fwd_kernel(q, k, v)
-    grads = pat.attention_hm_bwd_kernel(q, k, v, do)
+    out, stats = pat.attention_hm_fwd_kernel(q, k, v)
+    grads = pat.attention_hm_bwd_kernel(q, k, v, out, stats, do)
     errs[f"attention_hm N={n} D={hd}"] = (
         rel_err(out, pat.attention_hm_reference(q, k, v))[1],
         max(rel_err(g, w)[1] for g, w in
@@ -980,7 +1002,7 @@ KERNEL_GROUPS = (
     ("K4 mlp fwd", ("mlp_fwd_kernel",)),
     ("K7/K8 mlp bwd dx", ("mlp_bwd_dx_kernel",)),
     ("K7 mlp bwd dw", ("mlp_bwd_dw_kernel",)),
-    ("K9 mlp dw", ("mlp_dw_kernel",)),
+    ("K9 mlp dw", ("mlp_dw_",)),
     ("K3/K4/K7/K8 partial-sum epilogue", ("mlp_epilogue",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("Adam", ("multi_tensor_apply", "adam")),

@@ -186,7 +186,35 @@ def test_head_major_kernels_refuse_non_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pat.attention_qkv(x, 2, impl="pallas")
     q = torch.zeros((2, 25, 2, 80))
+    stats = torch.zeros((2, 2, 25, 2))
     with pytest.raises(ValueError, match="CUDA"):
         pat.attention_hm_fwd_kernel(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
-        pat.attention_hm_bwd_kernel(q, q, q, q)
+        pat.attention_hm_bwd_kernel(q, q, q, q, stats, q)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("D", [32, 64, 80])
+def test_saved_stats_backward_matches_jax(D, masked):
+    """K6's algorithm, ``attention_hm_bwd_stats_reference``: dq, dk, dv from
+    the forward's output and its saved row statistics (max, 1/denominator)
+    with delta = rowsum(do * out), against the JAX head-major VJP (the
+    Pallas ``_pallas_bwd`` in interpret mode, which recomputes the softmax),
+    in float32 to 1e-4 (the sums run in another order). The statistics come
+    from ``attention_hm_stats_reference`` and reproduce the JAX forward's
+    output to 1e-5."""
+    q, k, v, ct, kv = _qkv(2, 53, 2, D, masked, seed=D + int(masked))
+    jout, jgrads = _jax_run(jatt.pallas_attention, (q, k, v), ct, kv)
+    tq, tk, tv, tct, tout = (torch.from_numpy(np.array(a))
+                             for a in (q, k, v, ct, jout))
+    tkv = None if kv is None else torch.from_numpy(kv)
+    stats = pat.attention_hm_stats_reference(tq, tk, tkv)
+    assert stats.shape == (2, 2, 53, 2) and stats.dtype == torch.float32
+    p = torch.exp(pat._hm_scores(tq, tk, tkv) - stats[..., :1]) * stats[..., 1:]
+    out = torch.einsum("bhqk,bkhd->bqhd", p, tv)
+    np.testing.assert_allclose(out.numpy(), jout, rtol=1e-5, atol=1e-5)
+    grads = pat.attention_hm_bwd_stats_reference(tq, tk, tv, tout, stats,
+                                                 tct, tkv)
+    for name, g, jg in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), jg, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"d{name}")

@@ -224,7 +224,10 @@ def test_attention_hm_kernels_match_plain_versions(gen, dtype, B, N, H, D,
                                                    masked):
     """K5 and K6 on the three slices of a packed qkv, through
     ``attention_qkv(impl='pallas')`` where it routes there, against the
-    plain versions in float32 on the same values."""
+    plain versions in float32 on the same values: K5's output and saved
+    statistics, K6's gradients against both plain forms (the JAX form that
+    recomputes the softmax, and the saved-statistics form the kernels
+    take)."""
     x = torch.randn((B, N, 3 * H * D), generator=gen, device="cuda").to(dtype)
     do = torch.randn((B, N, H, D), generator=gen, device="cuda").to(dtype)
     kv = None
@@ -233,17 +236,23 @@ def test_attention_hm_kernels_match_plain_versions(gen, dtype, B, N, H, D,
         kv[:, 0] = True
     q, k, v = x.view(B, N, 3, H, D).unbind(2)
     kernels.reset_launches()
-    out = pat.attention_hm_fwd_kernel(q, k, v, kv)
-    grads = pat.attention_hm_bwd_kernel(q, k, v, do, kv)
+    out, stats = pat.attention_hm_fwd_kernel(q, k, v, kv)
+    grads = pat.attention_hm_bwd_kernel(q, k, v, out, stats, do, kv)
     assert (kernels.LAUNCHES["attention_hm_fwd"],
             kernels.LAUNCHES["attention_hm_bwd"]) == (1, 1)
     f = [t.float() for t in (q, k, v)]
-    assert out.dtype == dtype
+    assert out.dtype == dtype and stats.dtype == torch.float32
     assert _rel(out, pat.attention_hm_reference(*f, kv)) <= TOL
-    for name, g, w in zip("qkv", grads, pat.attention_hm_bwd_reference(
-            *f, do.float(), kv)):
-        assert g.dtype == dtype
-        assert _rel(g, w) <= TOL, f"d{name}"
+    want = pat.attention_hm_stats_reference(f[0], f[1], kv)
+    for i, name in enumerate(("max", "1/denominator")):
+        # each column against its own scale: the max is far larger
+        assert _rel(stats[..., i], want[..., i]) <= TOL, name
+    for form in (pat.attention_hm_bwd_reference(*f, do.float(), kv),
+                 pat.attention_hm_bwd_stats_reference(
+                     *f, out.float(), stats, do.float(), kv)):
+        for name, g, w in zip("qkv", grads, form):
+            assert g.dtype == dtype
+            assert _rel(g, w) <= TOL, f"d{name}"
     if pat.attention_route("pallas", H * D, H) == "head_major":
         xk = x.clone().requires_grad_(True)
         out2 = pat.attention_qkv(xk, H, kv, impl="pallas")
@@ -268,8 +277,9 @@ def test_attention_kernels_give_the_same_bits_every_call(gen, route, B, N, H,
         do = do.view(B, N, H, D)
 
         def call():
-            return (pat.attention_hm_fwd_kernel(q, k, v),
-                    *pat.attention_hm_bwd_kernel(q, k, v, do))
+            out, stats = pat.attention_hm_fwd_kernel(q, k, v)
+            return (out, stats,
+                    *pat.attention_hm_bwd_kernel(q, k, v, out, stats, do))
     else:
         def call():
             out, stats = pat.attention_fwd_kernel(x, H)
@@ -280,16 +290,18 @@ def test_attention_kernels_give_the_same_bits_every_call(gen, route, B, N, H,
 
 
 def test_k5_matches_k1_at_d64(gen):
-    """Where both kernels take the shape, K5 and K1 give the same output bit
-    for bit: they run the same forward body, from different layouts."""
+    """Where both kernels take the shape, K5 and K1 give the same output and
+    statistics bit for bit: they run the same forward body, from different
+    layouts."""
     x = torch.randn((2, 196, 3 * 768), generator=gen, device="cuda"
                     ).bfloat16()
     kv = torch.rand((2, 196), generator=gen, device="cuda") > 0.2
     kv[:, 0] = True
     q, k, v = x.view(2, 196, 3, 12, 64).unbind(2)
-    k5 = pat.attention_hm_fwd_kernel(q, k, v, kv).reshape(2, 196, 768)
-    k1, _ = pat.attention_fwd_kernel(x, 12, kv)
-    assert torch.equal(k5, k1)
+    k5, s5 = pat.attention_hm_fwd_kernel(q, k, v, kv)
+    k1, s1 = pat.attention_fwd_kernel(x, 12, kv)
+    assert torch.equal(k5.reshape(2, 196, 768), k1)
+    assert torch.equal(s5, s1)
 
 
 def test_saved_hidden_backward_keeps_dh_in_float32(gen):
@@ -391,3 +403,42 @@ def test_av_tail_launches_the_mlp_kernel(gen):
     a.float().sum().backward()
     assert kernels.LAUNCHES == dict(_NO_LAUNCHES, attention_fwd=1,
                                     attention_bwd=1, mlp_fwd=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("Dm", [768, 512])
+@pytest.mark.parametrize("T", [37, 156, 1416, 5664])
+def test_weight_grads_kernel_matches_plain_version(gen, T, Dm, dtype):
+    """K9 on (x [T, D], gh [T, 4D]) and (act [T, 4D], do [T, D]), dw and
+    its db form (the bf16 kernel sums the stored bf16 g, the f32 kernel the
+    f32 g), against ``weight_grads_reference`` on the same values. In bf16
+    on 132 SMs the decoder's widths take the 128 x 128 tiles, ViT-B's the
+    192 x 96 (``test_weight_grad_tile_takes_the_fewest_waves``)."""
+    Hm = 4 * Dm
+    x, h, o = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in ((T, Dm), (T, Hm), (T, Dm)))
+    kernels.reset_launches()
+    for a, g in ((x, h), (h, o)):
+        wdw, wdb = pmlp.weight_grads_reference(a.float(), g.float())
+        dw, db = pmlp.weight_grads_kernel(a, g)
+        assert dw.dtype == db.dtype == torch.float32
+        assert dw.shape == (g.shape[1], a.shape[1])
+        assert db.shape == (g.shape[1],)
+        # db: one sum of T values in float32 in another order, no products
+        assert _rel(dw, wdw) <= TOL and _rel(db, wdb) <= 1e-4
+    assert kernels.LAUNCHES["mlp_dw"] == 2
+
+
+@pytest.mark.parametrize("T", [1416, 156])
+def test_weight_grads_kernel_gives_the_same_bits_every_call(gen, T):
+    """K9 at a phase-C shape (T, 768, 3072), called 100 times on the same
+    bf16 inputs, gives bit-identical dw and db both ways round: every output
+    element has one owner summing in a fixed order."""
+    x = torch.randn((T, 768), generator=gen, device="cuda").bfloat16()
+    h = torch.randn((T, 3072), generator=gen, device="cuda").bfloat16()
+    first = (*pmlp.weight_grads_kernel(x, h), *pmlp.weight_grads_kernel(h, x))
+    for _ in range(100):
+        again = (*pmlp.weight_grads_kernel(x, h),
+                 *pmlp.weight_grads_kernel(h, x))
+        assert all(torch.equal(a, b) for a, b in zip(again, first))

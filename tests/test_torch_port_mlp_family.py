@@ -345,3 +345,20 @@ def test_split_backward_stashes_the_cast_gh():
     assert torch.equal(db1_9, gh.float().sum(dim=0))
     assert not torch.equal(db1_9, db1_f32)
     torch.testing.assert_close(db1_9, db1_f32, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("m,n,sms,want", [
+    (768, 3072, 132, (192, 96)), (3072, 768, 132, (192, 96)),
+    (512, 2048, 132, (128, 128)), (2048, 512, 132, (128, 128)),
+    (768, 3072, 200, (128, 128)), (768, 384, 132, (128, 128)),
+    (384, 3072, 132, (128, 128))])
+def test_weight_grad_tile_takes_the_fewest_waves(m, n, sms, want):
+    """K9's bf16 tile: 192 x 96 where it divides dw [n, m] and takes fewer
+    waves * area than 128 x 128. ViT-B's widths give 128 tiles of 192 x 96,
+    one wave on 132 SMs, where 128 x 128 gives 144, two waves; on 200 SMs
+    both are one wave and the smaller tile is quicker, as where either fits
+    in one wave (768 x 384, 384 x 3072). The decoder's widths (512, 2048) take
+    128 x 128: 192 does not divide them."""
+    tile = pmlp.weight_grad_tile(m, n, sms)
+    assert tile == want and tile in pmlp.WEIGHT_GRAD_TILES
+    assert n % tile[0] == 0 and m % tile[1] == 0
