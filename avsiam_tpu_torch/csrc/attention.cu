@@ -6,34 +6,36 @@
 //      (3, H, D)), written token-major to [B, N, C];
 //   K2 _pallas_bwd_tm (_bwd_kernel_tm, _bwd_tm_one): its backward, written as
 //      the [B, N, 3C] cotangent.
+// q, k and v are read in place from [B, N, 3C] through strides (no
+// transposes); ragged N is masked in the kernels (keys past N get -inf).
 //
-// What bounds it on the H100: at AVSiam's lengths (N <= 708) and head widths
-// (D = 64 encoder, 32 decoder) the four N^2*D products per head are small and
-// the work is dominated by the softmax's exp and the score-tile traffic
-// through shared memory; the bytes (q, k, v, o read or written once) are a few
-// MB per call. The design keeps every N^2 tile on chip: one block per
-// (query tile, head, sample) streams key tiles with an online softmax in f32
-// (flash-attention style), so no score matrix reaches device memory.
-// q, k and v are read in place from [B, N, 3C] through strides (no transposes),
-// ragged N is masked in the kernel (keys past N get -inf), and products run
-// on the tensor cores through nvcuda::wmma with bf16 operands and f32
-// accumulation. An f32 call stores f32 but still multiplies bf16 operands.
+// What bounds them on the H100: at AVSiam's lengths (N <= 708) and head
+// widths (D = 64 encoder, 32 decoder) the N^2 D products of a call are a few
+// GFLOP and its bytes (q, k, v, o read or written once) a few MB, so the
+// bound is microseconds. What limits a kernel is latency: the exp of every
+// score, the tiles' trips through shared memory, blocks waiting on their
+// loads, and grids of 48-192 blocks at most encoder shapes, on 132 SMs that
+// could each hold four.
 //
-// The forward saves, per (sample, head, row), the running max m and 1/denom
-// (the TPU kernel's statistics) for the backward. A logsumexp would be one
-// float, but a row whose keys are all invalid has m = -1e30 and its
-// logsumexp -1e30 + log N rounds back to -1e30, losing the 1/N.
+// K1's forward body (attention_fwd.cuh, shared with K5) keeps scores,
+// probabilities and the output accumulator in registers: mma.sync m16n8k16
+// with the warp's q fragments held for the whole key walk, the online
+// softmax in base 2 on the score fragments, p fed from them as the A operand
+// of the PV product, and K, V and the key bias through a two-stage cp.async
+// ring with one barrier per key tile. No N^2 tile reaches device memory or
+// shared memory. It saves, per (sample, head, row), the max m of s * scale +
+// bias in natural units and 1/denom (the TPU kernel's statistics) for the
+// backward. A logsumexp would be one float, but a row whose keys are all
+// masked has m = -1e30 and its logsumexp -1e30 + log N rounds back to -1e30,
+// losing the 1/N.
 //
-// The backward is deterministic and uses no atomics: a dq kernel walks the
-// key tiles of one query tile (and writes delta_i = rowsum(do_i * o_i), the
-// TPU kernel's c), then a dk/dv kernel walks the query tiles of one key tile.
-//
-// Tiles are 64 x 64 and each of the 4 warps owns 16 rows of a tile. The
-// loops are attention_tile.cuh's, the forward's shared with K5; the kernels here say
-// where q, k and v live and what the forward saves. These kernels are the
-// simple, correct first form; wgmma, TMA and warp specialisation are later
-// work.
+// The backward (attention_tile.cuh, nvcuda::wmma, score tiles through shared
+// memory) is deterministic and uses no atomics: a dq kernel walks the key
+// tiles of one query tile (and writes delta_i = rowsum(do_i * o_i), the TPU
+// kernel's c), then a dk/dv kernel walks the query tiles of one key tile. It
+// is the first form, to be moved onto K6's bodies (attention_bwd.cuh).
 
+#include "attention_fwd.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -45,8 +47,8 @@ attn_fwd_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ key_valid
                 float scale) {
   const int b = blockIdx.z, C = H * D, ld = 3 * C;
   const T* base = qkv + (size_t)b * N * ld;
-  attn_fwd_tile<T, D>(base, base + C, base + 2 * C, ld, key_valid, out, stats, b,
-                      blockIdx.y, blockIdx.x * BQ, N, H, scale);
+  attn_fwd_body<T, D>(base, base + C, base + 2 * C, ld, key_valid, out + (size_t)b * N * C, C,
+                      stats, b, blockIdx.y, blockIdx.x * BQ, N, H, scale);
 }
 
 // dq: the row statistics come from the forward's stats and
@@ -106,7 +108,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ key_
 template <typename T, int D>
 int launch_fwd(const void* qkv, const void* key_valid, void* out, void* stats, int B,
                int N, int H, float scale, cudaStream_t stream) {
-  const int smem = FwdSmem<D>::BYTES;
+  const int smem = FwdRing<D>::BYTES;
   cudaError_t err = allow_smem(attn_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BQ - 1) / BQ, H, B);

@@ -32,15 +32,9 @@
 // The exponentials run in base 2 on s * scale * log2(e) + bias * log2(e).
 #pragma once
 
-#include "attention_tile.cuh"
-#include "mma.cuh"
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <int D>
-constexpr int tile_bytes() { return 64 * (D + 8) * 2; }
 
 template <int D>
 struct DqSmem {
@@ -77,85 +71,6 @@ __device__ __forceinline__ float dot8(const float* a, const float* b) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) s += a[i] * b[i];
   return s;
-}
-
-// Rows [row0, row0 + 64) of D channels at column `col` of a row-major [N, ld]
-// matrix into a bf16 tile [64][D + 8], rows past N as zeros: by cp.async
-// for bf16 (complete after cp_async_wait), through registers for f32.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const T* src, int row0, int N, int ld,
-                                           int col, int tid) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr int PER_ROW = D / 8;
-    for (int c = tid; c < 64 * PER_ROW; c += THREADS) {
-      const int r = c / PER_ROW, d0 = (c % PER_ROW) * 8, n = row0 + r;
-      const bool ok = n < N;
-      cp_async16(dst + r * (D + 8) + d0, src + (size_t)(ok ? n : 0) * ld + col + d0, ok);
-    }
-  } else {
-    load_tile<T, D>(dst, src, row0, N, ld, col, tid);
-  }
-}
-
-// c = A[wr : wr + 16] . B[0 : 64]^T over D channels, A and B bf16 tiles
-// [64][D + 8]: the warp's 16 x 64 tile as eight 16 x 8 C fragments.
-template <int D>
-__device__ __forceinline__ void warp_abt(float (&c)[8][4], const bf16* A, const bf16* B, int wr,
-                                         int lane) {
-  constexpr int LDT = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < D; kd += 16) {
-    uint32_t a[4];
-    ldsm_x4(a, A + (wr + (lane & 15)) * LDT + kd + ((lane >> 4) << 3));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t b[4];  // B rows 16 j .. 16 j + 16 as two 8-column fragments
-      ldsm_x4(b, B + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LDT + kd +
-                     (((lane >> 3) & 1) << 3));
-      mma_bf16(c[2 * j], a, b[0], b[1]);
-      mma_bf16(c[2 * j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc += P . M: P the warp's 16 x 64 f32 C fragments (rounded to bf16 as the
-// A operand), M a bf16 tile [64][D + 8]; acc holds 16 x D as D / 8 fragments.
-template <int D>
-__device__ __forceinline__ void warp_pm(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                        const bf16* M, int lane) {
-  constexpr int LDT = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    pack_a(a, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      uint32_t b[4];  // M rows 16 kk .. + 16, columns 16 j .. + 16, transposed
-      ldsm_x4_t(b, M + (16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)) * LDT + 16 * j +
-                       ((lane >> 4) << 3));
-      mma_bf16(acc[2 * j], a, b[0], b[1]);
-      mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The warp's 16 x D result, scaled, to rows row0 + g and row0 + g + 8 of a
-// row-major output `ld` elements apart (channels from col); rows past N are
-// not written.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], float scale,
-                                           int row0, int N, int ld, int col, int lane) {
-  const int n = row0 + (lane >> 2), c = col + 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (n < N) store_pair(dst + (size_t)n * ld + c + 8 * j, acc[j][0] * scale, acc[j][1] * scale);
-    if (n + 8 < N)
-      store_pair(dst + (size_t)(n + 8) * ld + c + 8 * j, acc[j][2] * scale, acc[j][3] * scale);
-  }
 }
 
 // dq of the 64 queries from q0 of head h of sample b; also writes delta

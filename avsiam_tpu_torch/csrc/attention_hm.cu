@@ -17,8 +17,9 @@
 // K5: one block per (64-query tile, head, sample) walks the key tiles with an
 // online softmax in f32 (the TPU kernel takes the whole row at once; the sum
 // is the same), normalising after the PV product. It is K1's forward body
-// (attention_tile.cuh), and like K1 it saves each row's max and 1/denominator
-// to stats [B, H, N, 2] for the backward.
+// (attention_fwd.cuh: scores, p and the output in registers, a cp.async
+// ring for the key tiles), and like K1 it saves each row's max and
+// 1/denominator to stats [B, H, N, 2] for the backward.
 //
 // K6 (redesigned) reads those statistics and the output: the two kernels of
 // attention_bwd.cuh, a dq kernel (which also writes delta = rowsum(do * o))
@@ -31,19 +32,20 @@
 // What bounds them on the H100: at ViT-H's lengths (N <= 512) and D = 80 the
 // N^2 D products are small (a few GFLOP a call) and the bytes a few MB, so
 // the bound is microseconds and latency rules: the exp, the tiles' trips
-// through shared memory, and blocks waiting on loads. K6's first form
-// recomputed the statistics in a second walk over the keys (nine products),
-// staged every score and dp tile through shared memory as f32 and read them
-// back row by row, and loaded its tiles synchronously, single-buffered. The
-// redesign keeps scores, p, dp and ds in registers (mma.sync m16n8k16, the
-// accumulator fragments feeding the next product's A operand), double
-// buffers its tiles with cp.async, and does seven products. Products take
-// bf16 operands (an f32 call too) with f32 accumulation, as the TPU kernels
-// do; p and ds are rounded to bf16 before their products (the TPU kernel
+// through shared memory, blocks waiting on loads, and grids of 64-384
+// blocks on 132 SMs. The forward body keeps scores, p and the output in
+// registers and rings its loads (attention_fwd.cuh). K6 keeps scores, p, dp
+// and ds in registers (mma.sync m16n8k16, the accumulator fragments feeding
+// the next product's A operand), double buffers its tiles with cp.async,
+// and does seven products from the forward's output and statistics (the
+// backward that recomputes the statistics takes nine). Products take bf16
+// operands (an f32 call too) with f32 accumulation, as the TPU kernels do;
+// p and ds are rounded to bf16 before their products (the TPU kernel
 // rounds e and r * do, e * (dp - c) and r * q instead: the same sums up to
 // where the rounding falls).
 
 #include "attention_bwd.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
@@ -55,8 +57,8 @@ attn_hm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    int sN, float scale) {
   const int b = blockIdx.z;
   const size_t boff = (size_t)b * sB;
-  attn_fwd_tile<T, D>(q + boff, k + boff, v + boff, sN, key_valid, out, stats, b,
-                      blockIdx.y, blockIdx.x * BQ, N, H, scale);
+  attn_fwd_body<T, D>(q + boff, k + boff, v + boff, sN, key_valid, out + (size_t)b * N * H * D,
+                      H * D, stats, b, blockIdx.y, blockIdx.x * BQ, N, H, scale);
 }
 
 template <typename T, int D>
@@ -91,7 +93,7 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* key_valid,
                void* out, void* stats, int B, int N, int H, long long sB, int sN, float scale,
                cudaStream_t stream) {
-  const int smem = FwdSmem<D>::BYTES;
+  const int smem = FwdRing<D>::BYTES;
   cudaError_t err = allow_smem(attn_hm_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BQ - 1) / BQ, H, B);

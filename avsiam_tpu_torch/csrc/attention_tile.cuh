@@ -1,34 +1,26 @@
-// Tiles and bodies of the attention kernels (sm_90a): the forward shared by
-// the token-major K1 (attention.cu) and the head-major K5 (attention_hm.cu),
-// and K2's backward (attention.cu). K6 has its own backward bodies in
-// attention_bwd.cuh, which K2 is to move onto; this file's then go.
+// K2's backward bodies (attention.cu), sm_90a, on nvcuda::wmma: the first
+// form of the attention backward, kept until K2 moves onto K6's bodies in
+// attention_bwd.cuh (which read the same saved statistics); this file then
+// goes. The forward of K1 and K5 is attention_fwd.cuh, and the tile
+// geometry, key bias and tile loads are attention_common.cuh's.
 //
-// A block owns a 64-row tile of queries or keys and 4 warps, each warp 16 rows
-// of it. Operands sit in shared memory as bf16 tiles [64][D + 8]; products
-// run on the tensor cores through nvcuda::wmma (16 x 16 x 16, bf16 operands,
-// f32 accumulation); score tiles are f32 [64][LDS].
-//
-// K1 and K5 differ in where q, k and v live, not in their loop
-// (attn_fwd_tile). q, k and v are read as rows `ld` elements apart from a
-// sample's first row, the head's channels at [h * D, h * D + D); outputs are
-// written the same way. The backward bodies (attn_bwd_dq_walk,
-// attn_bwd_dkdv_tile) take K2's head widths, D = 32 and 64, only.
+// Each of a block's 4 warps owns 16 rows of a 64-row tile. Operands sit in
+// shared memory as bf16 tiles [64][D + 8]; products run on the tensor cores
+// through nvcuda::wmma (16 x 16 x 16, bf16 operands, f32 accumulation) and
+// their results go through shared memory as f32 tiles [64][LDS]. The bodies
+// (attn_bwd_dq_walk, attn_bwd_dkdv_tile) take K2's head widths, D = 32 and
+// 64, only, and read the forward's statistics in natural units: p = exp(s *
+// scale + bias - m) r.
 #pragma once
 
-#include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include "common.cuh"
+#include "attention_common.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // key rows per tile
-constexpr int WARPS = 4;     // each warp owns 16 rows of a tile
-constexpr int THREADS = WARPS * 32;
 constexpr int LDS = BK + 4;  // f32 score tile row stride (floats)
 constexpr int LDP = BK + 8;  // bf16 probability tile row stride
 
@@ -36,32 +28,6 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-
-// Rows [row0, row0 + 64) of D channels starting at column `col` of a row-major
-// [N, ld] matrix, into a bf16 tile [64][D + 8]; rows past N become zeros.
-template <typename T, int D>
-__device__ void load_tile(bf16* dst, const T* src, int row0, int N, int ld,
-                          int col, int tid) {
-  constexpr int LDB = D + 8;
-  constexpr int PER_ROW = D / 8;
-  for (int c = tid; c < 64 * PER_ROW; c += THREADS) {
-    const int r = c / PER_ROW;
-    const int d0 = (c % PER_ROW) * 8;
-    const int n = row0 + r;
-    bf16* out = dst + r * LDB + d0;
-    if (n < N) {
-      const T* in = src + (size_t)n * ld + col + d0;
-      if constexpr (sizeof(T) == 2) {
-        *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(in);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) out[i] = __float2bfloat16(in[i]);
-      }
-    } else {
-      *reinterpret_cast<uint4*>(out) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
 
 // S[rows of this warp][0:64] = A[rows] . B[0:64]^T over D channels (f32).
 template <int D>
@@ -101,122 +67,6 @@ __device__ __forceinline__ void warp_pv(FragC* acc, const bf16* P, const bf16* M
       FragBr fb;
       wmma::load_matrix_sync(fb, M + kk * LDB + j * 16, LDB);
       wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-__device__ __forceinline__ float key_bias(const uint8_t* key_valid, int b, int N,
-                                          int j) {
-  if (j >= N) return -INFINITY;  // past the ragged end: not a key at all
-  if (key_valid != nullptr && !key_valid[(size_t)b * N + j]) return -1e30f;
-  return 0.f;
-}
-
-template <typename KernelT>
-cudaError_t allow_smem(KernelT kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// ---------------------------------------------------------------- forward
-template <int D>
-struct FwdSmem {
-  static constexpr int LDB = D + 8;
-  static constexpr int LDO = D + 4;
-  static constexpr int Q = 0;
-  static constexpr int K = align128(Q + BQ * LDB * 2);
-  static constexpr int V = align128(K + BK * LDB * 2);
-  static constexpr int S = align128(V + BK * LDB * 2);
-  static constexpr int P = align128(S + BQ * LDS * 4);
-  static constexpr int O = align128(P + BQ * LDP * 2);
-  static constexpr int M = align128(O + BQ * LDO * 4);
-  static constexpr int L = M + BQ * 4;
-  static constexpr int BIAS = L + BQ * 4;
-  static constexpr int BYTES = BIAS + BK * 4;
-};
-
-// The forward of the 64 queries from q0 of head h of sample b: walks the key
-// tiles with an online softmax in f32 and normalises after the PV product.
-// out is the contiguous [B, N, H * D] output; stats, if not null, receives
-// each row's max and 1/denom at [b, h, n, 0:2].
-template <typename T, int D>
-__device__ __forceinline__ void attn_fwd_tile(
-    const T* q, const T* k, const T* v, int ld, const uint8_t* key_valid, T* out,
-    float* stats, int b, int h, int q0, int N, int H, float scale) {
-  using SM = FwdSmem<D>;
-  constexpr int LDO = SM::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + SM::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + SM::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + SM::V);
-  float* Ss = reinterpret_cast<float*>(smem + SM::S);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + SM::P);
-  float* Os = reinterpret_cast<float*>(smem + SM::O);
-  float* Ms = reinterpret_cast<float*>(smem + SM::M);
-  float* Ls = reinterpret_cast<float*>(smem + SM::L);
-  float* Bs = reinterpret_cast<float*>(smem + SM::BIAS);
-
-  const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
-  const int C = H * D, col = h * D;
-
-  load_tile<T, D>(Qs, q, q0, N, ld, col, tid);
-  for (int i = tid; i < BQ * LDO; i += THREADS) Os[i] = 0.f;
-  if (tid < BQ) {
-    Ms[tid] = -INFINITY;
-    Ls[tid] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    load_tile<T, D>(Ks, k, k0, N, ld, col, tid);
-    load_tile<T, D>(Vs, v, k0, N, ld, col, tid);
-    if (tid < BK) Bs[tid] = key_bias(key_valid, b, N, k0 + tid);
-    __syncthreads();
-
-    warp_scores<D>(Ss, Qs, Ks, wr);
-    __syncwarp();
-    // online softmax; lane owns columns lane and lane + 32. Key k0 < N is
-    // always a key, so m_new is finite and exp(m_old - m_new) never NaN.
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const float s0 = Ss[row * LDS + lane] * scale + Bs[lane];
-      const float s1 = Ss[row * LDS + lane + 32] * scale + Bs[lane + 32];
-      const float m_old = Ms[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      const float rowsum = warp_sum(p0 + p1);
-      const float alpha = expf(m_old - m_new);
-      Ps[row * LDP + lane] = __float2bfloat16(p0);
-      Ps[row * LDP + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < D; d += 32) Os[row * LDO + d] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = Ls[row] * alpha + rowsum;
-      }
-    }
-    __syncwarp();
-    FragC acc[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::load_matrix_sync(acc[j], Os + wr * LDO + j * 16, LDO, wmma::mem_row_major);
-    warp_pv<D>(acc, Ps, Vs, wr);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::store_matrix_sync(Os + wr * LDO + j * 16, acc[j], LDO, wmma::mem_row_major);
-    __syncwarp();
-  }
-
-  // normalisation after PV: one reciprocal per row
-  for (int r = 0; r < 16; ++r) {
-    const int row = wr + r, n = q0 + row;
-    if (n >= N) break;
-    const float inv = 1.f / Ls[row];
-    T* o = out + ((size_t)b * N + n) * C + col;
-    for (int d = lane; d < D; d += 32) o[d] = from_f32<T>(Os[row * LDO + d] * inv);
-    if (stats != nullptr && lane == 0) {
-      float* st = stats + (((size_t)b * H + h) * N + n) * 2;
-      st[0] = Ms[row];
-      st[1] = inv;
     }
   }
 }

@@ -2,10 +2,13 @@
 
 On the CPU the port runs its plain version, held here against the JAX
 package's token-major Pallas kernels (``attn_impl='pallas'``, interpret mode
-on the CPU), forward and gradient, in float32. The kernels themselves run
+on the CPU), forward and gradient, in float32; and the saved statistics'
+plain version against the statistics the JAX forward kernel writes. The kernels themselves run
 only on a card: ``tests/test_torch_port_cuda.py`` and ``python3
 chip_smoke.py`` hold them against the plain version there.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,9 @@ import torch
 from avsiam_tpu.ops.attention import attention_qkv as jax_attention_qkv
 from avsiam_tpu_torch import kernels
 from avsiam_tpu_torch.ops import attention as pat
+
+# the module (``avsiam_tpu.ops`` re-exports a function of the same name)
+jatt = importlib.import_module("avsiam_tpu.ops.attention")
 
 # (B, N, H, D, masked): ragged N (37, 25, 70 are not multiples of 16), the
 # encoder's D=64 and the decoder's D=32, and key_valid masks
@@ -72,3 +78,46 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         pat.attention_qkv(x, 4)
     with pytest.raises(ValueError, match="CUDA"):
         pat.attention_fwd_kernel(torch.zeros(2, 25, 384), 4)
+
+
+@pytest.mark.parametrize("mask", ["none", "some", "one_sample_all"])
+@pytest.mark.parametrize("H,D", [(4, 64), (8, 32)])
+def test_saved_statistics_match_jax_pallas(H, D, mask):
+    """The statistics contract that K1's forward, K2 and K6 share: each
+    row's max m of s * scale + bias (natural units) and 1 / rowsum(exp(s *
+    scale + bias - m)). The port's ``attention_hm_stats_reference`` on the
+    [B, N, 3, H, D] views of a packed qkv, against the statistics the JAX
+    ``_pallas_fwd_tm(save_stats=True)`` writes in interpret mode: packed
+    [B, C / 128, N, 8], head g hp + i's max at lane i of column group g and
+    its 1/denom at lane hp + i (hp = 128 / D heads a group). Float32 to
+    1e-5; N = 48 is a multiple of float32's 8-row sublane, so JAX pads no
+    row. A sample whose keys are all masked has m = -1e30 exactly in both
+    and 1/denom 1/N."""
+    B, N = 2, 48
+    rs = np.random.RandomState(D + len(mask))
+    x = rs.randn(B, N, 3 * H * D).astype(np.float32)
+    kv = None
+    if mask != "none":
+        kv = rs.rand(B, N) > 0.3
+        kv[:, 0] = True
+        if mask == "one_sample_all":
+            kv[1, :] = False
+    bias = None if kv is None else jatt._bias_from_valid(jnp.asarray(kv), B,
+                                                         N, N)
+    _, jst = jatt._pallas_fwd_tm(jnp.asarray(x), bias, num_heads=H,
+                                 save_stats=True)
+    jst = np.asarray(jst)
+    hp = 128 // D
+    assert jst.shape == (B, H // hp, N, 8)
+    # [B, G, N, hp] per column -> [B, H, N]
+    jm, jr = (np.moveaxis(jst[..., lanes], -1, 2).reshape(B, H, N)
+              for lanes in (slice(0, hp), slice(hp, 2 * hp)))
+    q, k, _ = torch.from_numpy(x).view(B, N, 3, H, D).unbind(2)
+    st = pat.attention_hm_stats_reference(
+        q, k, None if kv is None else torch.from_numpy(kv)).numpy()
+    np.testing.assert_allclose(st[..., 0], jm, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(st[..., 1], jr, rtol=1e-5, atol=1e-6)
+    if mask == "one_sample_all":
+        assert (st[1, ..., 0] == np.float32(-1e30)).all()
+        assert (jm[1] == np.float32(-1e30)).all()
+        np.testing.assert_allclose(st[1, ..., 1], 1.0 / N, rtol=1e-6)

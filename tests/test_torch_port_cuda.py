@@ -32,17 +32,24 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _rel(got, want):
+def _rel(got, want, scale=None):
+    """max |got - want| / max |scale|, the scale ``want`` unless given."""
     got, want = got.detach().float(), want.detach().float()
-    return float((got - want).abs().max() / want.abs().max())
+    scale = want if scale is None else scale.detach().float()
+    return float((got - want).abs().max() / scale.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("N,H,D,masked", [
     (512, 12, 64, False), (177, 12, 64, True), (708, 16, 32, False),
-    (39, 12, 64, False), (708, 16, 32, True)])
+    (39, 12, 64, False), (708, 16, 32, True), (1, 12, 64, False),
+    (15, 16, 32, True), (65, 12, 64, True)])
 def test_attention_kernels_match_plain_version(gen, dtype, N, H, D, masked):
+    """K1 and K2 through ``attention_qkv`` against the plain version in
+    float32 on the same values, and K1's saved statistics against
+    ``attention_hm_stats_reference`` on the [B, N, 3, H, D] views, each
+    column against its own scale (the max is far larger than 1/denom)."""
     x = torch.randn((2, N, 3 * H * D), generator=gen, device="cuda").to(dtype)
     ct = torch.randn((2, N, H * D), generator=gen, device="cuda").to(dtype)
     kv = None
@@ -61,6 +68,13 @@ def test_attention_kernels_match_plain_version(gen, dtype, N, H, D, masked):
     assert out.dtype == dtype and xk.grad.dtype == dtype
     assert _rel(out, ref) <= TOL
     assert _rel(xk.grad, xr.grad) <= TOL
+    out1, stats = pat.attention_fwd_kernel(x, H, kv)
+    assert torch.equal(out1, out)
+    q, k, _ = x.float().view(2, N, 3, H, D).unbind(2)
+    want = pat.attention_hm_stats_reference(q, k, kv)
+    assert stats.shape == want.shape == (2, H, N, 2)
+    for i, name in enumerate(("max", "1/denominator")):
+        assert _rel(stats[..., i], want[..., i]) <= TOL, name
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -219,7 +233,8 @@ def test_layer_norm_module_launches_k10(gen, monkeypatch):
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,N,H,D,masked", [
     (2, 512, 16, 80, False), (2, 177, 16, 80, True), (8, 49, 16, 80, False),
-    (2, 130, 12, 64, True), (3, 37, 16, 32, False)])
+    (2, 130, 12, 64, True), (3, 37, 16, 32, False), (2, 1, 16, 80, False),
+    (2, 15, 16, 80, True), (2, 65, 16, 80, False)])
 def test_attention_hm_kernels_match_plain_versions(gen, dtype, B, N, H, D,
                                                    masked):
     """K5 and K6 on the three slices of a packed qkv, through
@@ -252,7 +267,9 @@ def test_attention_hm_kernels_match_plain_versions(gen, dtype, B, N, H, D,
                      *f, out.float(), stats, do.float(), kv)):
         for name, g, w in zip("qkv", grads, form):
             assert g.dtype == dtype
-            assert _rel(g, w) <= TOL, f"d{name}"
+            # one key (N = 1): the softmax has no gradient, so dq and dk
+            # are 0 up to rounding, held against dv's scale
+            assert _rel(g, w, w if N > 1 else form[2]) <= TOL, f"d{name}"
     if pat.attention_route("pallas", H * D, H) == "head_major":
         xk = x.clone().requires_grad_(True)
         out2 = pat.attention_qkv(xk, H, kv, impl="pallas")
@@ -287,6 +304,57 @@ def test_attention_kernels_give_the_same_bits_every_call(gen, route, B, N, H,
     first = call()
     for _ in range(100):
         assert all(torch.equal(a, b) for a, b in zip(call(), first))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("route,N,H,D", [
+    ("token_major", 130, 12, 64), ("token_major", 77, 16, 32),
+    ("head_major", 130, 16, 80)])
+def test_all_masked_sample_attends_to_every_key(gen, dtype, route, N, H, D):
+    """A sample whose keys are all masked (K1/K2, K5/K6): every key has bias
+    -1e30, so each row's softmax is uniform and its output the mean of v
+    over the N keys; the saved max is exactly -1e30 (the contract both
+    backwards read: anything else raises exp of a residue of order 1e23)
+    and 1/denom 1/N. The gradients are finite and within the tolerance of
+    the plain versions, the other sample's (partly masked) too."""
+    x = torch.randn((2, N, 3 * H * D), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((2, N, H * D), generator=gen, device="cuda").to(dtype)
+    kv = torch.rand((2, N), generator=gen, device="cuda") > 0.3
+    kv[0, 0] = True
+    kv[1, :] = False
+    q, k, v = x.view(2, N, 3, H, D).unbind(2)
+    f = [t.float() for t in (q, k, v)]
+    if route == "token_major":
+        out, stats = pat.attention_fwd_kernel(x, H, kv)
+        dx = pat.attention_bwd_kernel(x, out, stats, do, H, kv)
+        out = out.view(2, N, H, D)
+        grads = dx.view(2, N, 3, H, D).unbind(2)
+        xr = x.float().requires_grad_(True)
+        ref = pat.attention_reference(xr, H, kv)
+        (gref,) = torch.autograd.grad(ref, xr, do.float())
+        forms = [gref.view(2, N, 3, H, D).unbind(2)]
+    else:
+        out, stats = pat.attention_hm_fwd_kernel(q, k, v, kv)
+        grads = pat.attention_hm_bwd_kernel(q, k, v, out, stats,
+                                            do.view(2, N, H, D), kv)
+        ref = pat.attention_hm_reference(*f, kv)
+        forms = [pat.attention_hm_bwd_reference(*f, do.float().view(
+            2, N, H, D), kv), pat.attention_hm_bwd_stats_reference(
+            *f, out.float(), stats, do.float().view(2, N, H, D), kv)]
+    torch.cuda.synchronize()
+    mean = v[1].bfloat16().float().mean(dim=0)  # the kernels' bf16 operands
+    assert _rel(out[1], mean.expand(N, H, D)) <= (
+        4e-3 if dtype == torch.bfloat16 else 1e-5)
+    assert _rel(out, ref.view(2, N, H, D)) <= TOL
+    assert bool((stats[1, ..., 0] == -1e30).all())
+    inv_n = torch.ones((), device="cuda") / N
+    torch.testing.assert_close(stats[1, ..., 1], inv_n.expand(H, N),
+                               rtol=1e-6, atol=0)
+    for form in forms:
+        for name, g, w in zip("qkv", grads, form):
+            assert bool(torch.isfinite(g).all()), f"d{name}"
+            assert _rel(g, w) <= TOL, f"d{name}"
 
 
 def test_k5_matches_k1_at_d64(gen):
