@@ -29,14 +29,20 @@
 // masked has m = -1e30 and its logsumexp -1e30 + log N rounds back to -1e30,
 // losing the 1/N.
 //
-// The backward (attention_tile.cuh, nvcuda::wmma, score tiles through shared
-// memory) is deterministic and uses no atomics: a dq kernel walks the key
-// tiles of one query tile (and writes delta_i = rowsum(do_i * o_i), the TPU
-// kernel's c), then a dk/dv kernel walks the query tiles of one key tile. It
-// is the first form, to be moved onto K6's bodies (attention_bwd.cuh).
+// K2 runs K6's backward bodies (attention_bwd.cuh) on the packed layout:
+// q, k and v are the three C-wide column blocks of each qkv row (ld = 3 C),
+// out and do rows C apart, and dq, dk and dv the three column blocks of each
+// dqkv row. Two kernels, one owner per output element, no atomics: a dq
+// kernel per 64-query tile (which also writes delta = rowsum(do * o), the TPU
+// kernel's c), then a dk/dv kernel per 64-key tile. Scores, p, dp and ds stay
+// in registers (mma.sync m16n8k16), and the next key or query tile comes
+// through a two-stage cp.async ring. p is exp2(fmaf(s, scale log2e, bias
+// log2e) - m log2e) r, the forward's expression (attention_fwd.cuh), so the
+// saved m in natural units (exactly -1e30 for an all-masked sample) gives
+// an exponent of exactly 0 there.
 
+#include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
-#include "attention_tile.cuh"
 
 namespace {
 
@@ -51,44 +57,20 @@ attn_fwd_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ key_valid
                       stats, b, blockIdx.y, blockIdx.x * BQ, N, H, scale);
 }
 
-// dq: the row statistics come from the forward's stats and
-// delta_i = rowsum(do_i * o_i), which is written for the dk/dv kernel.
+// dq (and delta) of one 64-query tile, and dk, dv of one 64-key tile: K6's
+// bodies on the [B, N, 3C] qkv and dqkv of sample blockIdx.z.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ key_valid,
                    const T* __restrict__ out, const T* __restrict__ dout,
                    const float* __restrict__ stats, float* __restrict__ delta,
                    T* __restrict__ dqkv, int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdQTiles<D> t(smem);
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
-  const int C = H * D, ld = 3 * C;
-  const T* base = qkv + (size_t)b * N * ld;
-
-  load_tile<T, D>(t.Qs, base, q0, N, ld, h * D, tid);
-  load_tile<T, D>(t.DOs, dout + (size_t)b * N * C, q0, N, C, h * D, tid);
-  for (int r = 0; r < 16; ++r) {
-    const int row = wr + r, n = q0 + row;
-    float m = 0.f, rinv = 0.f, dl = 0.f;
-    if (n < N) {
-      const size_t off = ((size_t)b * N + n) * C + h * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc += to_f32(out[off + d]) * to_f32(dout[off + d]);
-      dl = warp_sum(acc);
-      const float* st = stats + (((size_t)b * H + h) * N + n) * 2;
-      m = st[0];
-      rinv = st[1];
-      if (lane == 0) delta[((size_t)b * H + h) * N + n] = dl;
-    }
-    if (lane == 0) {
-      t.Ms[row] = m;
-      t.Rs[row] = rinv;
-      t.Cs[row] = dl;
-    }
-  }
-  attn_bwd_dq_walk<T, D>(t, base + C, base + 2 * C, ld, key_valid, dqkv + (size_t)b * N * ld,
-                         ld, b, h, q0, N, scale);
+  const int b = blockIdx.z, C = H * D, ld = 3 * C;
+  const size_t boff = (size_t)b * N * ld, ooff = (size_t)b * N * C;
+  const T* base = qkv + boff;
+  attn_bwd_dq_body<T, D>(base, base + C, base + 2 * C, ld, out + ooff, dout + ooff, C, stats,
+                         delta, key_valid, dqkv + boff, ld, b, blockIdx.y, blockIdx.x * BQ, N, H,
+                         scale);
 }
 
 template <typename T, int D>
@@ -98,10 +80,11 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ key_
                      const float* __restrict__ delta, T* __restrict__ dqkv, int N,
                      int H, float scale) {
   const int b = blockIdx.z, C = H * D, ld = 3 * C;
-  const T* base = qkv + (size_t)b * N * ld;
-  T* g = dqkv + (size_t)b * N * ld;
-  attn_bwd_dkdv_tile<T, D>(base, base + C, base + 2 * C, ld, key_valid, dout, stats,
-                           delta, g + C, g + 2 * C, ld, b, blockIdx.y, blockIdx.x * BK,
+  const size_t boff = (size_t)b * N * ld;
+  const T* base = qkv + boff;
+  T* g = dqkv + boff;
+  attn_bwd_dkdv_body<T, D>(base, base + C, base + 2 * C, ld, dout + (size_t)b * N * C, C, stats,
+                           delta, key_valid, g + C, g + 2 * C, ld, b, blockIdx.y, blockIdx.x * BK,
                            N, H, scale);
 }
 
@@ -122,7 +105,7 @@ template <typename T, int D>
 int launch_bwd(const void* qkv, const void* key_valid, const void* out,
                const void* dout, const void* stats, void* delta, void* dqkv, int B,
                int N, int H, float scale, cudaStream_t stream) {
-  const int smem_q = BwdQSmem<D>::BYTES, smem_kv = BwdKVSmem<D>::BYTES;
+  const int smem_q = DqSmem<D>::BYTES, smem_kv = DkvSmem<D>::BYTES;
   cudaError_t err = allow_smem(attn_bwd_dq_kernel<T, D>, smem_q);
   if (err == cudaSuccess) err = allow_smem(attn_bwd_dkdv_kernel<T, D>, smem_kv);
   if (err != cudaSuccess) return (int)err;

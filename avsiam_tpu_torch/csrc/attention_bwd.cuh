@@ -1,7 +1,7 @@
 // The attention backward from the forward's saved row statistics, sm_90a:
-// the bodies of K6 (attention_hm.cu), written so that K2 (attention.cu) can
-// move onto them from attention_tile.cuh's attn_bwd_dq_walk and
-// attn_bwd_dkdv_tile.
+// the bodies of K6 (attention_hm.cu, head-major q, k, v) and K2
+// (attention.cu, the packed [B, N, 3C] qkv), which differ only in where the
+// operands and gradients live.
 //
 // Per (sample, head): q, k and v rows `ld` elements apart from the sample's
 // first row, the head's channels at [h D, h D + D); the output o, its

@@ -1,8 +1,8 @@
 // What the attention bodies of both directions share (sm_90a): the tile
 // geometry, the key bias, the staging of operand tiles into shared memory
 // and the warp-level products on the tensor cores. The forward body
-// (attention_fwd.cuh, K1 and K5), K6's backward bodies (attention_bwd.cuh)
-// and K2's older ones (attention_tile.cuh) include it.
+// (attention_fwd.cuh, K1 and K5) and the backward bodies
+// (attention_bwd.cuh, K2 and K6) include it.
 //
 // A block owns a 64-row tile of queries or keys and 4 warps, each warp 16
 // rows of it. q, k and v are read as rows `ld` elements apart from a

@@ -35,13 +35,13 @@
 // across the softmax): 46 KB at D = 64, 56 KB at D = 80. An f32 call stages
 // its tiles through registers and multiplies bf16 operands as well.
 //
-// The statistics are a contract with both backwards. K2 (attention_tile.cuh)
-// computes p = exp(s * scale + bias - m) r; K6 (attention_bwd.cuh) computes
-// p = exp2(fmaf(s, scale log2e, bias log2e) - m log2e) r. So m must be the
-// natural-unit max, and for a sample whose keys are all masked it must be
-// exactly -1e30 (the bias), or either backward would raise exp of a residue
-// of order 1e23. This body computes p with K6's expression, so the forward's
-// and the backwards' p are one formula, and tracks the max in natural units
+// The statistics are a contract with the backward bodies that K2 and K6
+// share (attention_bwd.cuh), which compute p = exp2(fmaf(s, scale log2e,
+// bias log2e) - m log2e) r. So m must be the natural-unit max, and for a
+// sample whose keys are all masked it must be exactly -1e30 (the bias), or
+// the backward would raise exp2 of a residue of order 1e23. This body
+// computes p with the same expression, so the forward's and the backward's
+// p are one formula, and tracks the max in natural units
 // as max(fmaf(s, scale, bias)). For an all-masked row every key's value is
 // fmaf(s, scale, -1e30) = -1e30 exactly (|s scale| is far below half an ulp
 // of 1e30), so m = -1e30; its base-2 form m log2e is the same f32 product as

@@ -21,12 +21,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // Offsets of shared-memory regions are rounded to 128 bytes, which keeps
 // every wmma fragment pointer 32-byte aligned.
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }

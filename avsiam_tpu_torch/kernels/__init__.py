@@ -69,9 +69,10 @@ _SIGNATURES = {
                           _I, _P),
     # a, g, dw, db, rows, m, n, tile rows, tile columns, dtype, stream
     "avsiam_mlp_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, dy, scale, dx, dgamma, dbeta, partial, rows, C, rows per tile,
-    # dtype, eps, stream
-    "avsiam_ln_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # x, dy, scale, dx, dgamma, dbeta, stats, rows, C, rows per warp,
+    # row ranges, dtype, eps, stream
+    "avsiam_ln_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                      _P),
     # q, k, v, key_valid, out, stats, B, N, H, D, batch stride, row stride,
     # dtype, scale, stream
     "avsiam_attn_hm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,

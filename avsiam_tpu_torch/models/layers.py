@@ -10,9 +10,11 @@ statistics, GELU and losses run in float32.
 Attention runs through ``ops.attention.attention_qkv`` in the block's
 ``attn_impl`` (kernels K1/K2, or K5/K6 for head widths K1 does not take, on
 the GPU); ``LayerNormFP32`` under ``AVSIAM_LN=pallas`` through
-``ops.layernorm.layer_norm_fp32`` (kernel K10 in its backward); with ``mlp_impl`` 'auto' or 'lnfres' the MLP sub-block runs through
-``ops.mlp.fused_ln_mlp`` (kernel K3 on the GPU), and with 'fused', 'fbwd' or
-'fres' the MLP through ``ops.mlp.fused_mlp`` (kernels K4, K7, K8, K9).
+``ops.layernorm.layer_norm_fp32`` (kernel K10 in its backward); with
+``mlp_impl`` 'lnfres' ('auto' where the MLP kernels take the width,
+``mlp_route``) the MLP sub-block runs through ``ops.mlp.fused_ln_mlp``
+(kernel K3 on the GPU), and with 'fused', 'fbwd' or 'fres' the MLP through
+``ops.mlp.fused_mlp`` (kernels K4, K7, K8, K9).
 """
 
 from __future__ import annotations
@@ -29,11 +31,28 @@ from avsiam_tpu_torch.configs import ViTConfig
 from avsiam_tpu_torch.ops.attention import ATTN_IMPLS, attention_qkv
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
 from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_fp32
-from avsiam_tpu_torch.ops.mlp import FUSED_IMPLS, fused_ln_mlp, fused_mlp
+from avsiam_tpu_torch.ops.mlp import (FUSED_IMPLS, HIDDEN_CHUNK, KERNEL_DIMS,
+                                      fused_ln_mlp, fused_mlp)
 from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
 
 MLP_IMPLS = ("dense", "remat_g", "remat_all", "fused", "fbwd", "fres", "auto",
              "lnfres")
+
+
+def mlp_route(impl: str, dim: int, hidden: int) -> str:
+    """The form ``impl`` takes for an MLP of width ``dim`` and hidden width
+    ``hidden``: 'auto' is 'lnfres' where the MLP kernels take the width (D
+    in ``ops.mlp.KERNEL_DIMS``, H a multiple of ``HIDDEN_CHUNK``) and the
+    unfused 'dense' elsewhere, as the JAX 'auto' folds the LN only where its
+    kernels take the width (``avsiam_tpu/models/layers.py:339-343``); every
+    other impl is itself. An explicit kernel impl at a width the kernels do
+    not take raises at the kernel call on the card."""
+    if impl != "auto":
+        return impl
+    if dim in KERNEL_DIMS and hidden % HIDDEN_CHUNK == 0:
+        return "lnfres"
+    return "dense"
+
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
 # so that the truncated distribution has variance 1 / fan_in
@@ -115,7 +134,8 @@ class Mlp(nn.Module):
     * 'remat_all': the same forward, saving neither: the backward
       recomputes fc1 and the GELU;
     * 'fused', 'fbwd', 'fres': ``ops.mlp.fused_mlp``;
-    * 'auto': 'fres' on the card, as on the TPU; 'dense' on the CPU;
+    * 'auto': 'fres' on the card where the kernels take the width
+      (``mlp_route``), as on the TPU; 'dense' elsewhere and on the CPU;
     * 'lnfres': 'fres' here (the LN fold happens one level up, in
       ``ModalityBlock._mlp_res``; this is the 'av' tail's MLP).
     """
@@ -136,8 +156,10 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         impl = self.impl
-        if impl == "auto":
-            impl = "fres" if x.device.type == "cuda" else "dense"
+        if impl == "auto" and x.device.type != "cuda":
+            impl = "dense"
+        impl = mlp_route(impl, self.fc1.weight.shape[1],
+                         self.fc1.weight.shape[0])
         if impl == "lnfres":
             impl = "fres"
         if impl in FUSED_IMPLS:
@@ -217,11 +239,16 @@ class ModalityBlock(nn.Module):
         return self._mlp_res(x, n2)
 
     def _mlp_res(self, x, n2):
-        """``x + mlp(n2(x))``; 'auto'/'lnfres' run it as one fused forward."""
-        if self.mlp_impl not in ("auto", "lnfres"):
+        """``x + mlp(n2(x))``, as one fused forward where ``mlp_route``
+        gives 'lnfres' and x is at the block's dtype; a promoted x takes the
+        unfused form, which keeps the residual in x's dtype
+        (``avsiam_tpu/models/layers.py:344``)."""
+        fc1 = self.mlp.fc1
+        impl = mlp_route(self.mlp_impl, fc1.weight.shape[1],
+                         fc1.weight.shape[0])
+        if impl != "lnfres" or x.dtype != self.dtype:
             return x + self.mlp(n2(x))
-        return fused_ln_mlp(x.to(self.dtype), n2.weight, n2.bias,
-                            self.mlp.fc1.weight, self.mlp.fc1.bias,
+        return fused_ln_mlp(x, n2.weight, n2.bias, fc1.weight, fc1.bias,
                             self.mlp.fc2.weight, self.mlp.fc2.bias,
                             eps=self.ln_eps, gelu=self.gelu)
 

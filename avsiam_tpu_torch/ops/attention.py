@@ -46,26 +46,23 @@ HM_KERNEL_HEAD_DIMS = (32, 64, 80)  # K5/K6
 
 def attention_route(impl: str, C: int, num_heads: int) -> str:
     """Which path ``attention_qkv`` takes, as
-    ``avsiam_tpu/ops/attention.py:741-757`` decides: 'token_major' (K1/K2)
-    where the shape is token-major (C % 128 == 0 and 128 % D == 0, with D a
-    width K1 takes); otherwise 'head_major' (K5/K6) under 'pallas' and
-    'xla' under 'auto' (the JAX 'auto' is XLA there); 'xla' under 'xla'.
-    Under 'pallas' a D that neither kernel takes raises."""
+    ``avsiam_tpu/ops/attention.py:741-757`` decides: where the shape is
+    token-major (C % 128 == 0 and 128 % D == 0), 'token_major' (K1/K2) under
+    'pallas', and under 'auto' where K1 also takes D; elsewhere
+    'head_major' (K5/K6) under 'pallas' and 'xla' under 'auto' (the JAX
+    'auto' is XLA there); 'xla' under 'xla'. The route does not look at
+    which widths the kernels take: on a CPU tensor every route takes its
+    plain version, and on the card a kernel refuses a D it does not take
+    (K1/K2 ``KERNEL_HEAD_DIMS``, K5/K6 ``HM_KERNEL_HEAD_DIMS``)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not in {ATTN_IMPLS}")
     D = C // num_heads
     if impl == "xla":
         return "xla"
-    if C % LANE == 0 and LANE % D == 0 and D in KERNEL_HEAD_DIMS:
+    if C % LANE == 0 and LANE % D == 0 and (impl == "pallas"
+                                            or D in KERNEL_HEAD_DIMS):
         return "token_major"
-    if impl == "auto":
-        return "xla"
-    if D not in HM_KERNEL_HEAD_DIMS:
-        raise ValueError(f"attn_impl 'pallas': no attention kernel takes head "
-                         f"width {D} (token-major {KERNEL_HEAD_DIMS} with C a "
-                         f"multiple of {LANE}, head-major "
-                         f"{HM_KERNEL_HEAD_DIMS})")
-    return "head_major"
+    return "head_major" if impl == "pallas" else "xla"
 
 
 def _key_bias(key_valid: torch.Tensor) -> torch.Tensor:
@@ -95,12 +92,6 @@ def attention_reference(xqkv: torch.Tensor, num_heads: int,
 def _geometry(xqkv: torch.Tensor, num_heads: int,
               key_valid: Optional[torch.Tensor]):
     """Validate a kernel call; returns (B, N, H, D)."""
-    if xqkv.device.type != "cuda":
-        raise ValueError(f"attention kernel needs a CUDA tensor, got "
-                         f"{xqkv.device}")
-    if xqkv.dtype not in kernels.DTYPE_CODES:
-        raise ValueError(f"attention kernel takes float32 or bfloat16, got "
-                         f"{xqkv.dtype}")
     if xqkv.dim() != 3 or xqkv.shape[2] % (3 * num_heads) != 0:
         raise ValueError(f"xqkv must be [B, N, 3*H*D], got {tuple(xqkv.shape)}"
                          f" for {num_heads} heads")
@@ -109,6 +100,12 @@ def _geometry(xqkv: torch.Tensor, num_heads: int,
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernel takes head dims {KERNEL_HEAD_DIMS}"
                          f", got {D}")
+    if xqkv.device.type != "cuda":
+        raise ValueError(f"attention kernel needs a CUDA tensor, got "
+                         f"{xqkv.device}")
+    if xqkv.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"attention kernel takes float32 or bfloat16, got "
+                         f"{xqkv.dtype}")
     if B == 0 or N == 0:
         raise ValueError("attention kernel needs a non-empty batch")
     if not xqkv.is_contiguous() or xqkv.data_ptr() % 16 != 0:

@@ -21,6 +21,10 @@ import torch
 from avsiam_tpu_torch import kernels
 
 LN_BWD_MAX_C = 1280  # K10 keeps a row in registers: C/32 values a lane
+LN_BWD_ROW_WARPS = 4  # warps a block of K10's rows kernel
+LN_BWD_WARPS_PER_SM = 32
+LN_BWD_SPLIT_ROWS = 16  # rows a block of K10's cols kernel takes at least
+LN_BWD_MAX_SPLITS = 8
 
 
 def _stats_f32(xf: torch.Tensor, eps: float):
@@ -65,13 +69,24 @@ def ln_bwd_reference(x2, dy2, scale, eps: float):
     return layer_norm_vjp(x2, scale, dy2, eps)
 
 
-def ln_bwd_rows_per_tile(rows: int, num_sms: int) -> int:
-    """Rows per block of K10: a multiple of its 8 warps, at least 4 rows a
-    warp, and at most one block per SM. Each block writes one [C] partial
-    of dgamma and dbeta, which the second kernel adds up."""
-    warps, min_rows = 8, 32
-    tiles = max(1, min(num_sms, -(-rows // min_rows)))
-    return warps * -(-rows // (warps * tiles))
+def ln_bwd_rows_per_warp(rows: int, num_sms: int) -> int:
+    """Rows each warp of K10's rows kernel walks (blocks of
+    ``LN_BWD_ROW_WARPS`` warps): 1 while every row fits on
+    ``LN_BWD_WARPS_PER_SM`` warps an SM, half of the 64 an SM holds, so that
+    all rows' loads are in flight at once; beyond that as many as spread the
+    rows over that many warps, at most 4, each warp loading its next row
+    while it reduces the current one."""
+    return max(1, min(4, -(-rows // (num_sms * LN_BWD_WARPS_PER_SM))))
+
+
+def ln_bwd_col_splits(rows: int) -> int:
+    """Into how many row ranges K10's cols kernel splits the rows: a block
+    per (range, 64-column stripe), the ranges of a stripe one thread-block
+    cluster, whose first block adds the others' sums from their shared
+    memory. As many as the largest portable cluster, ``LN_BWD_MAX_SPLITS``
+    (measured the fastest at every phase-D shape, from 156 rows up), while
+    each range keeps at least ``LN_BWD_SPLIT_ROWS`` rows."""
+    return max(1, min(LN_BWD_MAX_SPLITS, rows // LN_BWD_SPLIT_ROWS))
 
 
 def ln_bwd_kernel(x2, dy2, scale, eps: float):
@@ -100,16 +115,17 @@ def ln_bwd_kernel(x2, dy2, scale, eps: float):
     if any(t.data_ptr() % 16 for t in (x2, dy2, scale)):
         raise ValueError("LN backward kernel reads 16-byte aligned rows")
     lib = kernels.library()
-    rows = ln_bwd_rows_per_tile(R, kernels.num_sms(x2.device))
-    tiles = -(-R // rows)
+    rows_per_warp = ln_bwd_rows_per_warp(R, kernels.num_sms(x2.device))
+    splits = ln_bwd_col_splits(R)
     dx = torch.empty_like(x2)
     dgamma = torch.empty((C,), dtype=f32, device=x2.device)
     dbeta = torch.empty((C,), dtype=f32, device=x2.device)
-    partial = torch.empty((2, tiles, C), dtype=f32, device=x2.device)
+    stats = torch.empty((R, 2), dtype=f32, device=x2.device)
     err = lib.avsiam_ln_bwd(
         x2.data_ptr(), dy2.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(), R, C, rows,
-        kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
+        dgamma.data_ptr(), dbeta.data_ptr(), stats.data_ptr(), R, C,
+        rows_per_warp, splits, kernels.DTYPE_CODES[x2.dtype], eps,
+        kernels.stream_handle(x2))
     kernels.check(err, "LN backward")
     kernels.LAUNCHES["ln_bwd"] += 1
     return dx, dgamma, dbeta

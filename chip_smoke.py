@@ -78,13 +78,14 @@ def device_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, by_kernel: bool = False):
     """Device time of one call of ``fn``: the summed time of every kernel and
     copy it runs on the card, over ``iters`` calls under torch.profiler,
-    divided by ``iters``. The host's issue time between kernels is not
-    counted, so a call shorter than it (about 40 us through ctypes) still
-    reads its own device time; CUDA events around back-to-back calls would
-    read the host's issue rate there.
+    divided by ``iters`` (with ``by_kernel``, a dict of it by kernel name).
+    The host's issue time between kernels is not counted, so a call shorter
+    than it (about 40 us through ctypes) still reads its own device time;
+    CUDA events around back-to-back calls would read the host's issue rate
+    there.
 
     The profiler keeps the device records that fall inside its window on the
     host's clock. Late in a long run, sessions whose calls took well under a
@@ -116,7 +117,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         raise AssertionError("the profiler recorded no device time")
     if count % iters:
         log(f"  note: {count} device records over {iters} calls")
-    return sum(e.self_device_time_total for e in device) / 1e3 / iters
+    per = {}
+    for e in device:
+        per[e.key] = (per.get(e.key, 0.0)
+                      + e.self_device_time_total / 1e3 / iters)
+    return per if by_kernel else sum(per.values())
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -134,8 +139,9 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
 
 
 # ------------------------------------------------------------------ build
-# kernels whose design keeps its tiles in registers: a spill would undo it
-NO_SPILL = ("attn_fwd_kernel", "attn_hm_fwd_kernel")
+# kernels whose design keeps its tiles or rows in registers, a spill would
+# undo it: every attention kernel (K1, K2, K5, K6) and K10's two
+NO_SPILL = ("attn_", "ln_bwd_")
 
 
 def kernel_resources(build_log: str):
@@ -177,10 +183,12 @@ def kernel_resources(build_log: str):
 def main_path_shapes(cfg, batch: int):
     """Distinct (kernel-call) shapes of one pretrain step and their calls per
     step: {(b, N, H, D): calls} for attention, {(rows, D, H, mlp_impl):
-    calls} for the MLP sub-blocks, {(rows, C): calls} for the LayerNormFP32
-    calls (each block call's norm1, and its norm2 unless K3 folds it in;
-    the encoders' final norms and the decoder's)."""
+    calls} for the MLP sub-blocks (the impl as ``mlp_route`` resolves it),
+    {(rows, C): calls} for the LayerNormFP32 calls (each block call's norm1,
+    and its norm2 unless K3 folds it in; the encoders' final norms and the
+    decoder's)."""
     from avsiam_tpu_torch.models.cavmae import chunk_sizes
+    from avsiam_tpu_torch.models.layers import mlp_route
     from avsiam_tpu_torch.ops.masking import len_keep_for
     m = cfg.model
     v, d = m.vit, m.decoder
@@ -193,10 +201,10 @@ def main_path_shapes(cfg, batch: int):
         table[key] = table.get(key, 0) + calls
 
     def add(b, n, heads, dim, hidden, calls, impl=m.mlp_impl):
+        impl = mlp_route(impl, dim, hidden)
         count(attn, (b, n, heads, dim // heads), calls)
         count(mlp, (b * n, dim, hidden, impl), calls)
-        count(ln, (b * n, dim), calls * (1 if impl in ("auto", "lnfres")
-                                         else 2))
+        count(ln, (b * n, dim), calls * (1 if impl == "lnfres" else 2))
 
     sizes = chunk_sizes(batch, m.mmixed_num_chunks)
     for i, size in enumerate(sizes):  # pass 1: contrastive chunks
@@ -217,10 +225,11 @@ def main_path_shapes(cfg, batch: int):
 
 def mlp_call_launches(impl: str, split: bool) -> dict:
     """Kernel launches of one MLP sub-block call, forward and backward, in
-    a block's ``mlp_impl`` ('auto'/'lnfres' fold the LN into K3 on the card;
-    'fres' and 'dense' have backwards of PyTorch ops)."""
+    a block's ``mlp_impl`` as ``mlp_route`` resolves it ('lnfres' folds the
+    LN into K3 on the card; 'fres' and 'dense' have backwards of PyTorch
+    ops)."""
     out = {}
-    if impl in ("auto", "lnfres"):
+    if impl == "lnfres":
         out["ln_mlp_fwd"] = 1
     elif impl in ("fused", "fres"):
         out["mlp_fwd"] = 1
@@ -350,7 +359,8 @@ def check_attention(shapes, extra, gen):
             f"ms plain {plain_fwd:.4f} sdpa {lib_fwd:.4f} ({fwd_ms / lib_fwd:.2f}x) bound {fb[0]:.4f} "
             f"({100 * fb[0] / fwd_ms:.1f}%) | bwd err "
             f"{berr:.2e} (rel {brel:.1e}) {bwd_ms:.4f} ms plain "
-            f"{plain_bwd:.4f} sdpa {lib_bwd:.4f} bound {bb[0]:.4f}")
+            f"{plain_bwd:.4f} sdpa {lib_bwd:.4f} ({bwd_ms / lib_bwd:.2f}x) "
+            f"bound {bb[0]:.4f} ({100 * bb[0] / bwd_ms:.1f}%)")
     return rows
 
 
@@ -512,7 +522,8 @@ def check_mlp_family(calls_b, calls_c, gen):
 def check_ln_bwd(shapes, gen, eps: float = 1e-5):
     """K10 at each (rows, C) of ``shapes`` ({(rows, C): calls per step})
     against its plain version in float32 on the same bf16 values; times of
-    kernel, plain version and torch's LayerNorm backward
+    kernel (and of its rows and cols kernels), plain version and torch's
+    LayerNorm backward
     (``native_layer_norm_backward``, given the flax-formula mean and rstd:
     the same function)."""
     from avsiam_tpu_torch.ops.layernorm import (_stats_f32, ln_bwd_kernel,
@@ -541,18 +552,25 @@ def check_ln_bwd(shapes, gen, eps: float = 1e-5):
                     zip(_stats_f32(x.float(), eps), (mu0, rstd0)))
         lib = time_ms(lambda: native(dy, x, [c], mu, rstd, w16, b16,
                                      [True, True, True]))
-        ms = time_ms(lambda: ln_bwd_kernel(x, dy, scale, eps))
+        parts = time_ms(lambda: ln_bwd_kernel(x, dy, scale, eps),
+                        by_kernel=True)
+        ms = sum(parts.values())
+        split = {k: sum(t for n, t in parts.items() if f"ln_bwd_{k}" in n)
+                 for k in ("rows", "cols")}
         plain = time_ms(lambda: ln_bwd_reference(x.float(), dy.float(),
                                                  scale, eps))
         # bytes: x, dy read and dx written (bf16), scale read and dgamma,
         # dbeta written (f32); about 15 float32 operations a value
         bd = bound_ms(15 * r * c, 3 * r * c * 2 + 3 * c * 4, PEAK_F32_FLOPS)
         rows.append(dict(R=r, C=c, calls=calls, err=dict(ln=err),
-                         ms=dict(ln=ms), plain_ms=dict(ln=plain),
+                         ms=dict(ln=ms), split_ms=split,
+                         plain_ms=dict(ln=plain),
                          library_ms=dict(ln=lib), bound=dict(ln=bd)))
         log(f"  ln_bwd R={r:5d} C={c} x{calls:3d}/step  err {err[0]:.2e} "
-            f"(rel {err[1]:.1e} <= {LN_TOL})  {ms:.4f} ms plain {plain:.4f} "
-            f"native {lib:.4f} bound {bd[0]:.4f}")
+            f"(rel {err[1]:.1e} <= {LN_TOL})  {ms:.4f} ms (rows "
+            f"{split['rows']:.4f}, cols {split['cols']:.4f}) plain "
+            f"{plain:.4f} native {lib:.4f} ({ms / lib:.2f}x) bound {bd[0]:.4f} "
+            f"({100 * bd[0] / ms:.1f}%)")
     return rows
 
 
@@ -1052,7 +1070,7 @@ KERNEL_GROUPS = (
     ("K2 attention bwd", ("attn_bwd_",)),
     ("K5 attention_hm fwd", ("attn_hm_fwd_kernel",)),
     ("K6 attention_hm bwd", ("attn_hm_bwd_",)),
-    ("K10 ln bwd", ("ln_bwd_rows_kernel", "ln_bwd_reduce_kernel")),
+    ("K10 ln bwd", ("ln_bwd_rows_kernel", "ln_bwd_cols_kernel")),
     ("K3 ln_mlp fwd", ("ln_mlp_fwd",)),
     ("K4 mlp fwd", ("mlp_fwd_kernel",)),
     ("K7/K8 mlp bwd dx", ("mlp_bwd_dx_kernel",)),

@@ -113,12 +113,13 @@ def test_xla_attention_matches_jax_in_bf16(masked):
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 @pytest.mark.parametrize("C,H", [(768, 12), (512, 16), (1280, 16), (160, 2),
-                                 (128, 2), (96, 3), (256, 8)])
+                                 (128, 2), (96, 3), (256, 8), (256, 2)])
 def test_attention_route_follows_the_jax_dispatch(monkeypatch, impl, C, H):
     """``attention_route`` against the branch the JAX ``attention_qkv``
     takes (``avsiam_tpu/ops/attention.py:741-759``), seen by spying on its
     three callees: token-major Pallas, head-major Pallas or XLA. D=80
-    (ViT-H) and D=32 at C=96 are head-major; D=32 at C=256 token-major."""
+    (ViT-H) and D=32 at C=96 are head-major; D=32 at C=256 token-major, and
+    so is D=128, which no kernel of the port takes."""
     taken = []
     for name, route in (("pallas_attention_qkv", "token_major"),
                         ("pallas_attention", "head_major"),
@@ -141,11 +142,48 @@ def test_auto_route_is_the_kernel_or_xla(C, H, route):
     assert pat.attention_route("auto", C, H) == route
 
 
-def test_pallas_route_refuses_a_width_no_kernel_takes():
-    with pytest.raises(ValueError, match="head width 128"):
-        pat.attention_route("pallas", 256, 2)
-    with pytest.raises(ValueError, match="attn_impl"):
-        pat.attention_route("cudnn", 768, 12)
+@pytest.mark.parametrize("case", ["d128", "d16", "d128_off_the_cpu",
+                                  "unknown_impl"])
+def test_pallas_route_refuses_a_width_no_kernel_takes(case):
+    """Under 'pallas' only a kernel refuses a head width: on the CPU the
+    token-major route takes its plain version at every D the JAX
+    ``attention_qkv`` runs, D=128 (C=256) and D=16 (C=128) here, held
+    against it (its Pallas kernel in interpret mode; float32, with masked
+    keys): output to 1e-5, d(xqkv) to 1e-4. Off the CPU the route goes to
+    K1, which refuses D=128. An unknown ``attn_impl`` raises."""
+    if case == "unknown_impl":
+        with pytest.raises(ValueError, match="attn_impl"):
+            pat.attention_route("cudnn", 768, 12)
+        return
+    C, H = (128, 8) if case == "d16" else (256, 2)
+    assert pat.attention_route("pallas", C, H) == "token_major"
+    if case == "d128_off_the_cpu":
+        x = torch.empty((2, 5, 3 * C), device="meta")
+        with pytest.raises(ValueError, match="head dims"):
+            pat.attention_qkv(x, H, impl="pallas")
+        return
+    B, N = 2, 37
+    rs = np.random.RandomState(C + H)
+    x = rs.randn(B, N, 3 * C).astype(np.float32)
+    ct = rs.randn(B, N, C).astype(np.float32)
+    kv = rs.rand(B, N) > 0.3
+    kv[:, 0] = True
+
+    def jloss(x):
+        out = jatt.attention_qkv(x, H, key_valid=jnp.asarray(kv),
+                                 impl="pallas")
+        return jnp.sum(out * ct), out
+
+    (_, jout), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    out = pat.attention_qkv(xt, H, torch.from_numpy(kv), impl="pallas")
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert kernels.LAUNCHES == before  # CPU tensors: the plain versions
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])

@@ -128,19 +128,27 @@ def test_fused_ln_mlp_backward_on_the_card(gen):
 _NO_LAUNCHES = {k: 0 for k in kernels.LAUNCHES}
 
 
-def _depth1_step(gen, vit=None, **impls):
+def _depth1_step(gen, vit=None, model=None, **impls):
     """One depth-1 full-width bf16 step at batch 2 in the given impls (ViT-B
-    unless ``vit`` gives other ViTConfig fields): the launch counts. The
-    step makes 9 attention and 9 MLP calls: two contrastive chunks x 2
-    modalities, then 1 + 1 + 2 + 1 (one decoder), and 16 LayerNormFP32
-    calls under 'lnfres' (9 norm1s, 4 + 2 final norms, the decoder's)."""
+    unless ``vit`` gives other ViTConfig fields, or ``model`` names a
+    variant's ``pretrain_config``): the launch counts. The step makes 9
+    attention and 9 MLP calls: two contrastive chunks x 2 modalities, then
+    1 + 1 + 2 + 1 (one decoder), and 16 LayerNormFP32 calls under 'lnfres'
+    (9 norm1s, 4 + 2 final norms, the decoder's)."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
-                                          PretrainConfig, ViTConfig)
+                                          PretrainConfig, ViTConfig, replace)
+    from avsiam_tpu_torch.models.variants import pretrain_config
     from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
-    cfg = PretrainConfig(model=CAVMAEConfig(
-        vit=ViTConfig(**dict(vit or {}, depth=1)),
-        decoder=DecoderConfig(depth=1), dtype=torch.bfloat16,
-        mmixed_impl="exact", **impls), batch_size=2)
+    if model is None:
+        m = CAVMAEConfig(vit=ViTConfig(**dict(vit or {}, depth=1)),
+                         decoder=DecoderConfig(depth=1), dtype=torch.bfloat16,
+                         mmixed_impl="exact", **impls)
+    else:
+        m = pretrain_config(model, dtype=torch.bfloat16, mmixed_impl="exact",
+                            **impls)
+        m = replace(m, vit=replace(m.vit, depth=1),
+                    decoder=replace(m.decoder, depth=1))
+    cfg = PretrainConfig(model=m, batch_size=2)
     state = init_state(cfg, gen)
     a = torch.randn((2, 1024, 128), generator=gen, device="cuda")
     v = torch.randn((2, 3, 224, 224), generator=gen, device="cuda")
@@ -176,6 +184,20 @@ def test_vit_h_shaped_step_on_the_card(gen):
                             attention_hm_fwd=8, attention_hm_bwd=8)
 
 
+@pytest.mark.parametrize("model,attention", [
+    ("cav-mae-large", 9), ("cav-mae-huge", 1)], ids=["vit_l", "vit_h"])
+def test_wide_variants_step_under_auto(gen, model, attention):
+    """ViT-L (dim 1024, 16 heads of 64) and ViT-H (dim 1280, 16 heads of 80)
+    in the default impls, 'auto' for attention and the MLP: the MLP kernels
+    do not take their widths, so their blocks take the dense MLP
+    (``mlp_route``) and only the decoder's block (dim 512) folds its LN into
+    K3. ViT-L's attention (D=64) is K1/K2 at every call; ViT-H's (D=80) is
+    the XLA form, K1/K2 only in the decoder."""
+    launches = _depth1_step(gen, model=model)
+    assert launches == dict(_NO_LAUNCHES, attention_fwd=attention,
+                            attention_bwd=attention, ln_mlp_fwd=1)
+
+
 def test_ln_pallas_step_on_the_card(gen, monkeypatch):
     """Under ``AVSIAM_LN=pallas`` K10 runs at every LayerNormFP32 call, and
     the 'lnfres' kernels as without it."""
@@ -201,6 +223,40 @@ def test_ln_bwd_kernel_matches_plain_version(gen, R, C, dtype):
         assert _rel(g, w) <= TOL, name
     again = pln.ln_bwd_kernel(x, dy, scale, 1e-5)  # no atomics: bit for bit
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("C", [512, 768, 1280])
+@pytest.mark.parametrize("R", [1, 7, 33, 5664])
+def test_ln_bwd_kernel_at_ragged_rows(gen, R, C, dtype):
+    """K10 at row counts that leave its warps and blocks partly filled (1,
+    7, 33) and at the decoder's 5664 (two rows a warp on 132 SMs), against
+    its plain version in float32 on the same values."""
+    x = (0.5 + torch.randn((R, C), generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn((R, C), generator=gen, device="cuda").to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    kernels.reset_launches()
+    got = pln.ln_bwd_kernel(x, dy, scale, 1e-5)
+    assert kernels.LAUNCHES["ln_bwd"] == 1
+    want = pln.ln_bwd_reference(x.float(), dy.float(), scale, 1e-5)
+    for name, g, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) <= TOL, name
+
+
+@pytest.mark.parametrize("R,C", [(5664, 512), (1416, 768), (98, 768)])
+def test_ln_bwd_kernel_gives_the_same_bits_every_call(gen, R, C):
+    """K10 called 100 times on the same bf16 rows gives bit-identical dx,
+    dgamma and dbeta: every sum runs in an order fixed by R and C, with no
+    atomics."""
+    x = torch.randn((R, C), generator=gen, device="cuda").bfloat16()
+    dy = torch.randn((R, C), generator=gen, device="cuda").bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    first = pln.ln_bwd_kernel(x, dy, scale, 1e-5)
+    for _ in range(100):
+        again = pln.ln_bwd_kernel(x, dy, scale, 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 def test_layer_norm_module_launches_k10(gen, monkeypatch):
@@ -370,6 +426,32 @@ def test_k5_matches_k1_at_d64(gen):
     k1, s1 = pat.attention_fwd_kernel(x, 12, kv)
     assert torch.equal(k5.reshape(2, 196, 768), k1)
     assert torch.equal(s5, s1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,N,H,D,masked", [
+    (2, 196, 12, 64, True), (2, 512, 12, 64, False), (2, 708, 16, 32, True),
+    (3, 77, 16, 32, False)])
+def test_k2_matches_k6(gen, dtype, B, N, H, D, masked):
+    """K2 and K6 run the same backward bodies, from the packed [B, N, 3C]
+    qkv and from its head-major views: on the same q, k, v, output, its
+    cotangent and statistics, K2's dqkv slices equal K6's dq, dk and dv bit
+    for bit."""
+    x = torch.randn((B, N, 3 * H * D), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, N, H * D), generator=gen, device="cuda").to(dtype)
+    kv = None
+    if masked:
+        kv = torch.rand((B, N), generator=gen, device="cuda") > 0.2
+        kv[:, 0] = True
+    out, stats = pat.attention_fwd_kernel(x, H, kv)
+    dqkv = pat.attention_bwd_kernel(x, out, stats, do, H, kv)
+    q, k, v = x.view(B, N, 3, H, D).unbind(2)
+    grads = pat.attention_hm_bwd_kernel(q, k, v, out.view(B, N, H, D), stats,
+                                        do.view(B, N, H, D), kv)
+    for name, g2, g6 in zip("qkv", dqkv.view(B, N, 3, H, D).unbind(2),
+                            grads):
+        assert torch.equal(g2, g6), f"d{name}"
 
 
 def test_saved_hidden_backward_keeps_dh_in_float32(gen):

@@ -142,9 +142,23 @@ def test_ln_bwd_kernel_refuses_what_it_cannot_run():
 
 @pytest.mark.parametrize("R", [1, 37, 708, 5664, 100000])
 def test_ln_bwd_row_tiles_cover_every_row(R):
-    """K10's row tiles: a multiple of its 8 warps, at most one tile per SM
-    (132 on the H100), and together they cover every row once."""
-    rows = pln.ln_bwd_rows_per_tile(R, 132)
-    tiles = -(-R // rows)
-    assert rows % 8 == 0 and tiles <= 132
-    assert (tiles - 1) * rows < R <= tiles * rows
+    """K10's tiling on 132 SMs (the H100). Rows kernel: each warp walks 1-4
+    rows, one while the rows fit on 32 warps an SM, and no more than spread
+    them over that many warps; its blocks of 4 warps cover every row once.
+    Cols kernel: 1-8 row ranges (a cluster), each of at least 16 rows where
+    there are that many, and all of them holding rows."""
+    sms, per_sm = 132, pln.LN_BWD_WARPS_PER_SM
+    rpw = pln.ln_bwd_rows_per_warp(R, sms)
+    per_block = pln.LN_BWD_ROW_WARPS * rpw
+    blocks = -(-R // per_block)
+    assert 1 <= rpw <= 4
+    assert (blocks - 1) * per_block < R <= blocks * per_block
+    assert (rpw == 1) == (R <= sms * per_sm)
+    assert rpw == 4 or R <= sms * per_sm * rpw
+    splits = pln.ln_bwd_col_splits(R)
+    per_split = -(-R // splits)
+    assert 1 <= splits <= pln.LN_BWD_MAX_SPLITS
+    assert splits == 1 or per_split >= pln.LN_BWD_SPLIT_ROWS
+    assert (splits - 1) * per_split < R <= splits * per_split
+    assert splits == pln.LN_BWD_MAX_SPLITS or (
+        R < (splits + 1) * pln.LN_BWD_SPLIT_ROWS)

@@ -362,3 +362,87 @@ def test_weight_grad_tile_takes_the_fewest_waves(m, n, sms, want):
     tile = pmlp.weight_grad_tile(m, n, sms)
     assert tile == want and tile in pmlp.WEIGHT_GRAD_TILES
     assert n % tile[0] == 0 and m % tile[1] == 0
+
+
+@pytest.mark.parametrize("dim,folds", [(768, True), (1024, False),
+                                       (1280, False)],
+                         ids=["vit_b", "vit_l", "vit_h"])
+def test_auto_mlp_route_takes_the_kernels_where_they_take_the_width(
+        monkeypatch, dim, folds):
+    """``mlp_route``: 'auto' folds the LN into K3 ('lnfres') at ViT-B's
+    width, which the MLP kernels take, and runs the unfused 'dense' form at
+    ViT-L's and ViT-H's, which they do not take yet; an explicit impl is
+    itself. A block in 'auto' at each width runs its MLP sub-block by that
+    route (on the CPU: the plain version of K3, or the dense ops)."""
+    hidden = 4 * dim
+    assert players.mlp_route("auto", dim, hidden) == (
+        "lnfres" if folds else "dense")
+    for impl in ("lnfres", "fused", "fres", "dense"):
+        assert players.mlp_route(impl, dim, hidden) == impl
+    seen = []
+    for name in ("fused_ln_mlp", "fused_mlp"):
+        real = getattr(players, name)
+
+        def spy(*args, real=real, name=name, **kw):
+            seen.append(name)
+            return real(*args, **kw)
+
+        monkeypatch.setattr(players, name, spy)
+    blk = players.ModalityBlock(dim, dim // 64, 4.0, True, 1e-5,
+                                torch.float32, "xla", "erf", "auto", "cpu")
+    gen = torch.Generator().manual_seed(dim)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    out = blk(torch.randn((1, 5, dim), generator=gen))
+    assert bool(torch.isfinite(out).all())
+    assert seen == (["fused_ln_mlp"] if folds else [])
+
+
+def test_lnfres_block_keeps_a_promoted_residual():
+    """A float32 x through a bfloat16 'lnfres' block runs ``x + mlp(n2(x))``
+    with the residual in float32, as the JAX block does
+    (``avsiam_tpu/models/layers.py:344``), not the LN-fused kernel, which
+    would add it in bfloat16: output in float32 and the output and the
+    gradient of x within 1e-4 of their largest values of the JAX block's
+    (its Pallas 'fres' kernel in interpret mode; the same bf16 roundings, so
+    only the order of sums differs), where a residual added in bfloat16
+    would be off by a rounding of x, about 4e-3."""
+    from flax import linen as fnn
+
+    from avsiam_tpu.models.layers import ModalityBlock as JaxBlock
+
+    class Wrap(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            blk = JaxBlock(D, 2, 4.0, True, 1e-5, jnp.bfloat16, "xla", "erf",
+                           "lnfres", name="blk")
+            for m in ("a", "v"):  # materialise every norm set
+                blk(x, m)
+            return blk(x, None)
+
+    rs = np.random.RandomState(11)
+    x = rs.randn(2, 21, D).astype(np.float32)
+    ct = rs.randn(2, 21, D).astype(np.float32)
+    params = jax.device_get(
+        jax.jit(Wrap().init)(jax.random.PRNGKey(2), x)["params"])
+
+    def jloss(x):
+        out = Wrap().apply({"params": params}, x)
+        return jnp.sum(out.astype(jnp.float32) * ct), out
+
+    (_, jout), jgx = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jnp.asarray(x))
+    assert jout.dtype == jnp.float32
+    port = players.ModalityBlock(D, 2, 4.0, True, 1e-5, torch.bfloat16,
+                                 "xla", "erf", "lnfres", "cpu")
+    sd = {k.split(".", 1)[1]: t for k, t in params_from_jax(params).items()}
+    port.load_state_dict(sd, strict=True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = port(xt)
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert out.dtype == torch.float32
+    for got, want in ((out, jout), (xt.grad, jgx)):
+        want = np.asarray(want, np.float32)
+        err = np.abs(got.detach().numpy() - want).max()
+        assert err <= 1e-4 * np.abs(want).max()
