@@ -21,7 +21,9 @@
 // device memory (L2-resident across blocks).
 //
 // The chunk loop, the partial store and the epilogue are shared with K4
-// (mlp_tile.cuh). One block per SM fits (its registers), and a block's time
+// (mlp_tile.cuh). D is a run-time width (any multiple of 128); past D =
+// 768 fc2's output columns are cut into column groups across the grid's z,
+// so the f32 accumulator stays at most [32, 768] a block (mlp_tile.cuh). One block per SM fits (its registers), and a block's time
 // grows with the chunks it walks, so the pass-1 calls (T of 156 to 1024
 // rows, 5 to 32 row tiles) would leave most SMs idle. The hidden dimension
 // is therefore split
@@ -39,19 +41,19 @@
 
 namespace {
 
-template <typename T, int D>
+template <typename T, int YC>
 __global__ void __launch_bounds__(THREADS, 1)
 ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                   const float* __restrict__ ln_b, const bf16* __restrict__ w1,
                   const float* __restrict__ b1, const bf16* __restrict__ w2,
                   T* __restrict__ hpre, float* __restrict__ partial, int rows,
-                  int H, int splits, float eps) {
-  using SM = MlpSmem<D>;
-  constexpr int LDN = SM::LDN;
+                  int D, int H, int splits, float eps) {
+  const MlpSmem sm(D);
+  const int LDN = sm.ldn;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ns = reinterpret_cast<bf16*>(smem + SM::NS);
-  float* Hs = reinterpret_cast<float*>(smem + SM::HS);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + SM::GS);
+  bf16* Ns = reinterpret_cast<bf16*>(smem + sm.ns);
+  float* Hs = reinterpret_cast<float*>(smem + sm.hs);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + sm.gs);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r0 = blockIdx.x * BM;
@@ -83,29 +85,32 @@ ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
       nrow[c] = __float2bfloat16((to_f32(xr[c]) - mu) * (rstd * ln_g[c]) + ln_b[c]);
   }
 
-  FragC y[2][D / 128];
-  zero_rows_acc<D>(y);
+  FragC y[2][YC];
+  zero_rows_acc<YC>(y);
   __syncthreads();
-  // 2.-4. fc1 -> + b1, hidden out -> GELU -> fc2 over this block's chunks
-  fwd_chunks<T, D>(Ns, Hs, Gs, w1, b1, w2, hpre, r0, rows, H, c_begin, c_end, y);
+  // 2.-4. fc1 -> + b1, hidden out (column group 0) -> GELU -> fc2 on this
+  // block's columns over its chunks
+  const int c0 = blockIdx.z * 128 * YC;
+  fwd_chunks<T, YC>(Ns, Hs, Gs, w1, b1, w2, blockIdx.z == 0 ? hpre : nullptr, r0, rows, D, H,
+                    c0, c_begin, c_end, y);
   // 5. the partial sum over those chunks
-  store_partial<D>(partial, y, r0);
+  store_partial<YC>(partial, y, r0, c0, D);
 }
 
-template <typename T, int D>
+template <typename T, int YC>
 int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1,
            const void* b1, const void* w2, const void* b2, void* out, void* hpre,
-           void* partial, int rows, int H, int splits, float eps, cudaStream_t stream) {
-  const int smem = MlpSmem<D>::BYTES;
+           void* partial, int rows, int D, int H, int splits, float eps, cudaStream_t stream) {
+  const int smem = MlpSmem(D).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ln_mlp_fwd_kernel<T, YC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (rows + BM - 1) / BM;
-  ln_mlp_fwd_kernel<T, D><<<dim3(tiles, splits), THREADS, smem, stream>>>(
+  ln_mlp_fwd_kernel<T, YC><<<dim3(tiles, splits, D / (128 * YC)), THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_g),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<T*>(hpre),
-      static_cast<float*>(partial), rows, H, splits, eps);
+      static_cast<float*>(partial), rows, D, H, splits, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_epilogue<T, true, true>(x, partial, b2, out, rows, tiles * BM, D, splits,
@@ -114,24 +119,28 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, out, hpre). D in {512, 768},
-// H a multiple of 64, 1 <= splits <= H / 64. out [rows, D], hpre [rows, H];
+// dtype: 0 = float32, 1 = bfloat16 (x, out, hpre). D a multiple of 128 cut
+// into `groups` fc2 column groups of 128 YC columns, 1 <= YC <= 6; H a
+// multiple of 64, 1 <= splits <= H / 64. out [rows, D], hpre [rows, H];
 // partial: f32 scratch [splits, ceil(rows / 32) * 32, D].
 extern "C" int avsiam_ln_mlp_fwd(const void* x, const void* ln_g, const void* ln_b,
                                  const void* w1, const void* b1, const void* w2,
                                  const void* b2, void* out, void* hpre, void* partial,
-                                 int rows, int D, int H, int splits, int dtype, float eps,
-                                 void* stream) {
+                                 int rows, int D, int H, int splits, int groups, int dtype,
+                                 float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % HC != 0 || rows <= 0 || splits < 1 || splits > H / HC)
+  if (H % HC != 0 || rows <= 0 || splits < 1 || splits > H / HC || !mlp_groups_ok(D, groups))
     return (int)cudaErrorInvalidValue;
-#define AVSIAM_LN_MLP(TYPE, DIM) \
-  return launch<TYPE, DIM>(x, ln_g, ln_b, w1, b1, w2, b2, out, hpre, partial, rows, H, \
-                           splits, eps, s)
-  if (dtype == 1 && D == 768) AVSIAM_LN_MLP(bf16, 768);
-  if (dtype == 1 && D == 512) AVSIAM_LN_MLP(bf16, 512);
-  if (dtype == 0 && D == 768) AVSIAM_LN_MLP(float, 768);
-  if (dtype == 0 && D == 512) AVSIAM_LN_MLP(float, 512);
+  const int yc = D / 128 / groups;
+#define AVSIAM_LN_MLP(TYPE, YC) \
+  if (yc == YC)                 \
+  return launch<TYPE, YC>(x, ln_g, ln_b, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits, eps, s)
+#define AVSIAM_LN_MLP_ALL(TYPE)                                                          \
+  AVSIAM_LN_MLP(TYPE, 1); AVSIAM_LN_MLP(TYPE, 2); AVSIAM_LN_MLP(TYPE, 3); \
+  AVSIAM_LN_MLP(TYPE, 4); AVSIAM_LN_MLP(TYPE, 5); AVSIAM_LN_MLP(TYPE, 6)
+  if (dtype == 1) { AVSIAM_LN_MLP_ALL(bf16); }
+  if (dtype == 0) { AVSIAM_LN_MLP_ALL(float); }
+#undef AVSIAM_LN_MLP_ALL
 #undef AVSIAM_LN_MLP
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,9 @@
 // The transformer MLP fc2(gelu(fc1(x))) and its backward (K4, K7, K8, K9),
 // sm_90a. Replaces the TPU kernels of avsiam_tpu/ops/mlp.py:
-//   K4 _fwd_call (_fwd_kernel)               -> mlp_fwd_kernel
-//   K7 _bwd_call (_bwd_fused_kernel)          -> mlp_bwd_dx_kernel + mlp_bwd_dw_kernel
-//   K8 _bwd_call_split (_bwd_dx_kernel)       -> mlp_bwd_dx_kernel, stashing gh and act
-//   K9 weight_grads (_dw_kernel)              -> mlp_dw_kernel
+//   K4 _fwd_call (_fwd_kernel)            -> mlp_fwd_kernel + epilogue
+//   K7 _bwd_call (_bwd_fused_kernel)      -> mlp_gh_kernel (+ db1 fold) + mlp_dx_kernel + K9 twice
+//   K8 _bwd_call_split (_bwd_dx_kernel)   -> mlp_gh_kernel + mlp_dx_kernel
+//   K9 weight_grads (_dw_kernel)          -> mlp_dw_tc_kernel (bf16), mlp_dw_kernel (f32)
 //
 // Numerics, as the Pallas kernels have them: bf16 operands with f32
 // accumulation (an f32 call stores f32 but multiplies bf16 operands), the
@@ -12,28 +12,44 @@
 // bf16; K7's db1 sums the f32 gh, K9's sums the stored gh.
 //
 // What bounds them on the H100: their FLOPs (4 T D H forward, 10 T D H
-// backward) at T of hundreds to thousands of rows. The TPU kernels keep the
-// [T, H] hidden out of device memory, and so do K4 and K7 here; K8 writes gh
-// and act ([T, H] each) by design, for K9 to read.
+// backward) at T of hundreds to thousands of rows. K4 keeps the [T, H]
+// hidden out of device memory (mlp_tile.cuh, as K3).
 //
-// K4 is K3 without the LayerNorm and the residual: the same row tiles and
-// hidden ranges (mlp_tile.cuh), with the hidden split across blocks and the
-// f32 partials added in a fixed order.
-//
-// The TPU backward accumulates dw/db over its sequential grid of row
-// blocks. Blocks on the H100 run in parallel, so here every output element
-// has one owner that sums in a fixed order (deterministic, no atomics):
-//   - dx: as K4, a block per (32-row tile, hidden range) recomputes hpre, dh
-//     and gh chunk by chunk and accumulates gh w1 in registers; the f32
-//     partials of the hidden ranges are added by the epilogue kernel;
-//   - K7's weight gradients: a block per 16 hidden columns walks all rows,
-//     recomputing hpre and dh for its columns (w1 rows and w2 columns kept in
-//     shared memory), and accumulates dw1 [16, D] and dw2 [D, 16] in
-//     registers. The recomputation costs 4 T D H FLOPs over the Pallas
-//     kernel's 10 T D H; no [T, H] tensor touches device memory;
-//   - K9: a block per 192 x 96 (or 128 x 128) tile of dw walks all rows,
-//     below.
-// wgmma and TMA-fed tiles for K4, K7 and K8 are later work.
+// The backward (redesigned; K7 and K8 share it). The TPU kernels recompute
+// hpre tile by tile and keep gh and act in VMEM; K7 also accumulates dw/db
+// over its sequential grid of row blocks. Blocks on the H100 run in
+// parallel, and a [rows, D] f32 accumulator in registers (the first form
+// here) does not fit past D = 768. So the backward is two passes on wgmma
+// with TMA-fed, swizzled operands (mma.cuh), each owning its output tiles:
+//   - the gh pass, mlp_gh_kernel: a block owns a 128-row by 128-hidden tile,
+//     walks D in 64-wide slabs (TMA into a 3-stage mbarrier ring) and
+//     accumulates x w1^T and do w2 in registers (two 64 x 128 f32 products
+//     a warpgroup); its epilogue adds b1, forms act and gelu' in f32, gh,
+//     and writes gh and act [T, H] in the storage type (and gh in bf16 for
+//     the dx pass where that type is f32), and, for K7, each row tile's f32
+//     column sums of gh to a [row tiles, H] workspace that a second kernel
+//     folds in row-tile order into db1. D enters only as the reduction
+//     length;
+//   - the dx pass, mlp_dx_kernel: dx = gh_bf16 w1, a block per 128 x 128 tile
+//     of dx walking H in 64-wide slabs (a 4-stage ring, one wgmma group in
+//     flight while the next is issued); where the dx tiles alone would
+//     leave SMs idle, H is split across blocks and an epilogue adds the f32
+//     partials in a fixed order;
+//   - K7's weight gradients are K9 on (x, gh) and (act, do): dw1 and dw2
+//     with K9's db2; K9's db1 (from the cast gh) is discarded for the f32
+//     fold above. So K7 writes gh and act ([T, H] each, transient, freed
+//     after K9), which the TPU kernel kept in VMEM: a design choice for this
+//     card, not a change of function. K8 returns them.
+// One owner per output element, a fixed summation order, no float atomics:
+// the same bits every call. What bounds the gh pass on the H100: its
+// epilogue (f32 GELU and GELU' and two scattered [128, 128] stores, with
+// nothing to overlap them) is a large share of a block's time, and the
+// products wait on the slabs' L2 traffic (64 KB a slab, read by every
+// block of a row or hidden tile); a 64-row tile with two blocks an SM, whose
+// epilogues overlap, moved twice the weight bytes and was slower. A
+// persistent block overlapping one tile's epilogue with the next tile's
+// products, and TMA multicast of the weight slabs across a cluster, are
+// the levers left.
 //
 // K9 (redesigned). What bounds it on the H100: at ViT-B's widths
 // (m, n = 768, 3072) and T of 156-1416 rows a call is 2 T m n FLOPs (1-7
@@ -67,278 +83,281 @@
 namespace {
 
 // ------------------------------------------------------------------ K4
-template <typename T, int D>
+template <typename T, int YC>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_fwd_kernel(const T* __restrict__ x, const bf16* __restrict__ w1,
                const float* __restrict__ b1, const bf16* __restrict__ w2,
-               T* __restrict__ hpre, float* __restrict__ partial, int rows, int H,
+               T* __restrict__ hpre, float* __restrict__ partial, int rows, int D, int H,
                int splits) {
-  using SM = MlpSmem<D>;
-  constexpr int LDN = SM::LDN;
+  const MlpSmem sm(D);
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ns = reinterpret_cast<bf16*>(smem + SM::NS);
-  float* Hs = reinterpret_cast<float*>(smem + SM::HS);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + SM::GS);
+  bf16* Ns = reinterpret_cast<bf16*>(smem + sm.ns);
+  float* Hs = reinterpret_cast<float*>(smem + sm.hs);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + sm.gs);
 
   const int r0 = blockIdx.x * BM;
   const int chunks = H / HC;
   const int c_begin = (int)((long long)blockIdx.y * chunks / splits);
   const int c_end = (int)((long long)(blockIdx.y + 1) * chunks / splits);
-  load_tile<T, BM, D, LDN, THREADS>(x, D, Ns, r0, rows);  // the row tile in bf16
-  FragC y[2][D / 128];
-  zero_rows_acc<D>(y);
-  __syncthreads();
-  fwd_chunks<T, D>(Ns, Hs, Gs, w1, b1, w2, hpre, r0, rows, H, c_begin, c_end, y);
-  store_partial<D>(partial, y, r0);
-}
-
-// --------------------------------------------------------- dx (K7, K8)
-template <int D>
-struct DxSmem {
-  static constexpr int LDN = D + 8;
-  static constexpr int XS = 0;
-  static constexpr int DS = align128(XS + BM * LDN * 2);
-  static constexpr int HS = align128(DS + BM * LDN * 2);  // f32 hpre chunk
-  static constexpr int PS = align128(HS + BM * LDH * 4);  // f32 dh chunk
-  static constexpr int GS = align128(PS + BM * LDH * 4);  // bf16 gh chunk
-  static constexpr int BYTES = GS + BM * LDG * 2;
-};
-
-// dx = T(gh_bf16 w1) with gh = (do w2) * gelu'(x w1^T + b1), a block per
-// (row tile, hidden range); gh and act go out in T when gh_out is not null
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_bwd_dx_kernel(const T* __restrict__ x, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const T* __restrict__ dout, T* __restrict__ gh_out, T* __restrict__ act_out,
-                  float* __restrict__ partial, int rows, int H, int splits) {
-  using SM = DxSmem<D>;
-  constexpr int LDN = SM::LDN;
-  constexpr int YC = D / 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem + SM::XS);
-  bf16* Ds = reinterpret_cast<bf16*>(smem + SM::DS);
-  float* Hs = reinterpret_cast<float*>(smem + SM::HS);
-  float* Ps = reinterpret_cast<float*>(smem + SM::PS);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + SM::GS);
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int r0 = blockIdx.x * BM;
-  const int chunks = H / HC;
-  const int c_begin = (int)((long long)blockIdx.y * chunks / splits);
-  const int c_end = (int)((long long)(blockIdx.y + 1) * chunks / splits);
-  load_tile<T, BM, D, LDN, THREADS>(x, D, Xs, r0, rows);
-  load_tile<T, BM, D, LDN, THREADS>(dout, D, Ds, r0, rows);
+  const int c0 = blockIdx.z * 128 * YC;  // this block's fc2 column group
+  load_tile<T, BM, THREADS>(x, D, Ns, sm.ldn, D, r0, rows);  // the row tile in bf16
   FragC y[2][YC];
-  zero_rows_acc<D>(y);
+  zero_rows_acc<YC>(y);
   __syncthreads();
-
-  const int frt = warp >> 2, fct = warp & 3;  // this warp's hidden fragment
-  for (int h0 = c_begin * HC; h0 < c_end * HC; h0 += HC) {
-    // hpre chunk = x . w1[h0:h0+HC]^T and dh chunk = do . w2[:, h0:h0+HC]
-    {
-      FragC acc_h, acc_d;
-      wmma::fill_fragment(acc_h, 0.f);
-      wmma::fill_fragment(acc_d, 0.f);
-      const bf16* w1c = w1 + (size_t)(h0 + fct * 16) * D;
-      const bf16* w2c = w2 + h0 + fct * 16;
-#pragma unroll 2
-      for (int kk = 0; kk < D; kk += 16) {
-        FragA fa;
-        FragBc fb;
-        FragBr fr;
-        wmma::load_matrix_sync(fa, Xs + frt * 16 * LDN + kk, LDN);
-        wmma::load_matrix_sync(fb, w1c + kk, D);
-        wmma::mma_sync(acc_h, fa, fb, acc_h);
-        wmma::load_matrix_sync(fa, Ds + frt * 16 * LDN + kk, LDN);
-        wmma::load_matrix_sync(fr, w2c + (size_t)kk * H, H);
-        wmma::mma_sync(acc_d, fa, fr, acc_d);
-      }
-      wmma::store_matrix_sync(Hs + frt * 16 * LDH + fct * 16, acc_h, LDH, wmma::mem_row_major);
-      wmma::store_matrix_sync(Ps + frt * 16 * LDH + fct * 16, acc_d, LDH, wmma::mem_row_major);
-    }
-    __syncthreads();
-    // gh = dh * gelu'(hpre + b1) in f32 -> bf16 tile Gs; the stash
-    for (int i = tid; i < BM * HC; i += THREADS) {
-      const int r = i / HC, c = i % HC, n = r0 + r;
-      float act, grad;
-      gelu_ans_act_grad(Hs[r * LDH + c] + b1[h0 + c], act, grad);
-      const float g = Ps[r * LDH + c] * grad;
-      Gs[r * LDG + c] = __float2bfloat16(g);
-      if (gh_out != nullptr && n < rows) {
-        gh_out[(size_t)n * H + h0 + c] = from_f32<T>(g);
-        act_out[(size_t)n * H + h0 + c] = from_f32<T>(act);
-      }
-    }
-    __syncthreads();
-    // dx += gh . w1[h0:h0+HC] on this warp's output columns
-#pragma unroll
-    for (int kk = 0; kk < HC; kk += 16) {
-      FragA fa0, fa1;
-      wmma::load_matrix_sync(fa0, Gs + kk, LDG);
-      wmma::load_matrix_sync(fa1, Gs + 16 * LDG + kk, LDG);
-#pragma unroll
-      for (int j = 0; j < YC; ++j) {
-        FragBr fb;
-        wmma::load_matrix_sync(fb, w1 + (size_t)(h0 + kk) * D + (warp * YC + j) * 16, D);
-        wmma::mma_sync(y[0][j], fa0, fb, y[0][j]);
-        wmma::mma_sync(y[1][j], fa1, fb, y[1][j]);
-      }
-    }
-  }
-  store_partial<D>(partial, y, r0);
+  fwd_chunks<T, YC>(Ns, Hs, Gs, w1, b1, w2, blockIdx.z == 0 ? hpre : nullptr, r0, rows, D, H,
+                    c0, c_begin, c_end, y);
+  store_partial<YC>(partial, y, r0, c0, D);
 }
 
-// --------------------------------------------- K7's weight gradients
-constexpr int HB = 16;        // hidden columns per block
-constexpr int LDW = HB + 8;   // bf16 row stride of [*, HB] tiles
-constexpr int LDP = HB + 4;   // f32 row stride of [*, HB] tiles
+// ------------------------------------------------- the gh pass (K7, K8)
+constexpr int GH_BM = 128;  // rows per block, 64 a warpgroup
+constexpr int GH_BH = 128;  // hidden columns per block
+constexpr int GH_STAGES = 3;
+constexpr int GH_THREADS = GH_BM / 64 * 128;  // a warpgroup per 64 rows
+constexpr int GH_WARPS = GH_THREADS / 32;
 
-template <int D>
-struct DwSmem {
-  static constexpr int LDN = D + 8;
-  static constexpr int XS = 0;                                 // bf16 [BM, D] x rows
-  static constexpr int DS = align128(XS + BM * LDN * 2);       // bf16 [BM, D] do rows
-  static constexpr int W1S = align128(DS + BM * LDN * 2);      // bf16 [HB, D] w1 rows
-  static constexpr int W2S = align128(W1S + HB * LDN * 2);     // bf16 [D, HB] w2 columns
-  static constexpr int PS = align128(W2S + D * LDW * 2);       // f32 [2][4][16, HB] products
-  static constexpr int GFS = align128(PS + 8 * 16 * LDP * 4);  // f32 [BM, HB] gh
-  static constexpr int GS = align128(GFS + BM * LDP * 4);      // bf16 [BM, HB] gh
-  static constexpr int AS = align128(GS + BM * LDW * 2);       // bf16 [BM, HB] act
-  static constexpr int DB2 = align128(AS + BM * LDW * 2);      // f32 [D] db2 (block 0)
-  static constexpr int BYTES = DB2 + D * 4;
+struct GhSmem {
+  using LX = GmmaKLayout<GH_BM>;            // x and do slabs [BM, 64]: A, K-major
+  using LW1 = GmmaKLayout<GH_BH>;           // w1 slab [BH, 64]: B of hpre, K-major
+  using LW2 = GmmaLayout<GH_BH, LX::BK>;    // w2 slab [64, BH]: B of dh, MN-major
+  static constexpr int BK = LX::BK;         // D values per slab
+  static constexpr int X = 0;
+  static constexpr int DO = X + LX::BYTES;
+  static constexpr int W1 = DO + LX::BYTES;
+  static constexpr int W2 = W1 + LW1::BYTES;
+  static constexpr int STAGE = W2 + LW2::BYTES;  // 64 KB, a multiple of 1 KB
+  static constexpr int RED = GH_STAGES * STAGE;  // f32 [warps][BH] column sums
+  static constexpr int BAR = RED + GH_WARPS * GH_BH * 4;
+  static constexpr int BYTES = BAR + 8 * GH_STAGES + 1024;  // + room to align to 1 KB
 };
 
-// Block b owns hidden columns [16 b, 16 b + 16): dw1 rows, dw2 columns and
-// db1 entries; block 0 also owns db2. Each walks every row tile in order.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_bwd_dw_kernel(const T* __restrict__ x, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const T* __restrict__ dout, float* __restrict__ dw1, float* __restrict__ db1,
-                  float* __restrict__ dw2, float* __restrict__ db2, int rows, int H) {
-  using SM = DwSmem<D>;
-  constexpr int LDN = SM::LDN;
-  constexpr int NF = D / 128;  // dw1 column / dw2 row fragments per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem + SM::XS);
-  bf16* Ds = reinterpret_cast<bf16*>(smem + SM::DS);
-  bf16* W1s = reinterpret_cast<bf16*>(smem + SM::W1S);
-  bf16* W2s = reinterpret_cast<bf16*>(smem + SM::W2S);
-  float* Ps = reinterpret_cast<float*>(smem + SM::PS);
-  float* GFs = reinterpret_cast<float*>(smem + SM::GFS);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + SM::GS);
-  bf16* As = reinterpret_cast<bf16*>(smem + SM::AS);
-  float* DB2s = reinterpret_cast<float*>(smem + SM::DB2);
+// slab s (D columns s * 64 ..) of x, do, w1 and w2 into a ring stage, by TMA
+__device__ __forceinline__ void gh_issue_slab(unsigned char* st, uint64_t* bar,
+                                              const CUtensorMap* xmap, const CUtensorMap* dmap,
+                                              const CUtensorMap* w1map, const CUtensorMap* w2map,
+                                              int r0, int h0, int s) {
+  using SM = GhSmem;
+  using LW2 = SM::LW2;
+  const int d0 = s * SM::BK;
+  mbar_expect_tx(bar, SM::STAGE);
+  tma_load_2d(st + SM::X, xmap, d0, r0, bar);
+  tma_load_2d(st + SM::DO, dmap, d0, r0, bar);
+  tma_load_2d(st + SM::W1, w1map, d0, h0, bar);
+#pragma unroll
+  for (int c = 0; c < GH_BH / LW2::BOX; ++c)
+    tma_load_2d(st + SM::W2 + c * LW2::LBO, w2map, h0 + c * LW2::BOX, d0, bar);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int hr = blockIdx.x * HB;
-  const bool owns_db2 = blockIdx.x == 0;
-  for (int i = tid; i < HB * D; i += THREADS) {
-    const int h = i / D, d = i - h * D;
-    W1s[h * LDN + d] = w1[(size_t)(hr + h) * D + d];
-  }
-  for (int i = tid; i < D * HB; i += THREADS) {
-    const int d = i / HB, h = i % HB;
-    W2s[d * LDW + h] = w2[(size_t)d * H + hr + h];
-  }
-  if (owns_db2)
-    for (int d = tid; d < D; d += THREADS) DB2s[d] = 0.f;
+// xmap, dmap: x and do [rows, D] in boxes of 64 columns by GH_BM rows; w1map:
+// w1 [H, D] in boxes of 64 by GH_BH; w2map: w2 [D, H] in boxes of 64 by 64;
+// all bf16 with the 128-byte swizzle. gh, act [rows, H] in T; gh16 the bf16
+// gh for the dx pass (written only where T is not bf16); colsum, when not
+// null, [row tiles, H] f32 column sums of each row tile's f32 gh.
+template <typename T>
+__global__ void __launch_bounds__(GH_THREADS, 1)
+mlp_gh_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dmap,
+              const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
+              const float* __restrict__ b1, T* __restrict__ gh, T* __restrict__ act,
+              bf16* __restrict__ gh16, float* __restrict__ colsum, int rows, int D, int H) {
+  using SM = GhSmem;
+  using LX = SM::LX;
+  using LW1 = SM::LW1;
+  using LW2 = SM::LW2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
+  const int h0 = blockIdx.x * GH_BH, r0 = blockIdx.y * GH_BM;
+  const int slabs = D / SM::BK;
 
-  FragC acc1[NF], acc2[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    wmma::fill_fragment(acc1[f], 0.f);
-    wmma::fill_fragment(acc2[f], 0.f);
+  if (tid == 0) {
+    for (int i = 0; i < GH_STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    for (int s = 0; s < GH_STAGES - 1 && s < slabs; ++s)
+      gh_issue_slab(smem + s * SM::STAGE, bars + s, &xmap, &dmap, &w1map, &w2map, r0, h0, s);
   }
-  float db1_acc = 0.f;
-  // warp -> (product job, half of the D contraction): jobs 0/1 hpre rows
-  // 0-15/16-31, jobs 2/3 dh rows 0-15/16-31
-  const int job = warp & 3, kh = warp >> 2;
-  for (int r0 = 0; r0 < rows; r0 += BM) {
-    load_tile<T, BM, D, LDN, THREADS>(x, D, Xs, r0, rows);
-    load_tile<T, BM, D, LDN, THREADS>(dout, D, Ds, r0, rows);
-    if (owns_db2 && !std::is_same<T, bf16>::value)  // f32: from the unrounded values
-      for (int d = tid; d < D; d += THREADS) {
-        float s = 0.f;
-        for (int r = 0; r < BM && r0 + r < rows; ++r) s += to_f32(dout[(size_t)(r0 + r) * D + d]);
-        DB2s[d] += s;
-      }
-    __syncthreads();
-    if (owns_db2 && std::is_same<T, bf16>::value)  // bf16: the tile holds do exactly
-      for (int d = tid; d < D; d += THREADS) {
-        float s = 0.f;
-        for (int r = 0; r < BM; ++r) s += __bfloat162float(Ds[r * LDN + d]);
-        DB2s[d] += s;
-      }
-    {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      const bf16* arow = (job < 2 ? Xs : Ds) + (job & 1) * 16 * LDN;
-#pragma unroll 4
-      for (int kk = kh * (D / 2); kk < (kh + 1) * (D / 2); kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, arow + kk, LDN);
-        if (job < 2) {
-          FragBc fb;
-          wmma::load_matrix_sync(fb, W1s + kk, LDN);
-          wmma::mma_sync(acc, fa, fb, acc);
-        } else {
-          FragBr fb;
-          wmma::load_matrix_sync(fb, W2s + kk * LDW, LDW);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-      }
-      wmma::store_matrix_sync(Ps + (kh * 4 + job) * 16 * LDP, acc, LDP, wmma::mem_row_major);
-    }
-    __syncthreads();
-    // hpre = x w1^T + b1, dh = do w2 (the two halves of D added);
-    // gh = dh * gelu'(hpre), act = gelu(hpre); zeros past rows
-    for (int i = tid; i < BM * HB; i += THREADS) {
-      const int r = i / HB, c = i % HB, rt = r >> 4, rr = r & 15;
-      const float hv = Ps[rt * 16 * LDP + rr * LDP + c] + Ps[(4 + rt) * 16 * LDP + rr * LDP + c] +
-                       b1[hr + c];
-      const float dh = Ps[(2 + rt) * 16 * LDP + rr * LDP + c] +
-                       Ps[(6 + rt) * 16 * LDP + rr * LDP + c];
-      float act, grad;
-      gelu_ans_act_grad(hv, act, grad);
-      const bool live = r0 + r < rows;
-      const float g = live ? dh * grad : 0.f;
-      GFs[r * LDP + c] = g;
-      Gs[r * LDW + c] = __float2bfloat16(g);
-      As[r * LDW + c] = __float2bfloat16(live ? act : 0.f);
-    }
-    __syncthreads();
-    if (tid < HB)
-      for (int r = 0; r < BM; ++r) db1_acc += GFs[r * LDP + tid];
+  __syncthreads();  // the barriers are initialised
+
+  float hacc[GH_BH / 2], dacc[GH_BH / 2];  // x w1^T and do w2, 64 x BH a warpgroup
 #pragma unroll
-    for (int kk = 0; kk < BM; kk += 16) {
-      FragAc ga;  // gh^T [HB, 16 rows]
-      wmma::load_matrix_sync(ga, Gs + kk * LDW, LDW);
-      FragBr ab;  // act [16 rows, HB]
-      wmma::load_matrix_sync(ab, As + kk * LDW, LDW);
+  for (int i = 0; i < GH_BH / 2; ++i) hacc[i] = dacc[i] = 0.f;
+
+  for (int s = 0; s < slabs; ++s) {
+    mbar_wait(bars + s % GH_STAGES, (s / GH_STAGES) & 1);  // slab s has landed
+    __syncthreads();  // and every warpgroup is done with slab s - 1
+    const int next = s + GH_STAGES - 1;  // into the stage slab s - 1 held
+    if (tid == 0 && next < slabs) {
+      fence_proxy_async();
+      gh_issue_slab(smem + (next % GH_STAGES) * SM::STAGE, bars + next % GH_STAGES, &xmap,
+                    &dmap, &w1map, &w2map, r0, h0, next);
+    }
+    const unsigned char* st = smem + (s % GH_STAGES) * SM::STAGE;
+    wgmma_fence();
 #pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const int j = warp * NF + f;
-        FragBr xb;  // x [16 rows, 16 columns j]
-        wmma::load_matrix_sync(xb, Xs + kk * LDN + j * 16, LDN);
-        wmma::mma_sync(acc1[f], ga, xb, acc1[f]);
-        FragAc da;  // do^T [16 columns j, 16 rows]
-        wmma::load_matrix_sync(da, Ds + kk * LDN + j * 16, LDN);
-        wmma::mma_sync(acc2[f], da, ab, acc2[f]);
+    for (int kk = 0; kk < SM::BK / 16; ++kk) {
+      wgmma_m64n128<0, 0>(hacc, LX::desc(st + SM::X, wg * 64, kk),
+                          LW1::desc(st + SM::W1, 0, kk));
+      wgmma_m64n128<0, 1>(dacc, LX::desc(st + SM::DO, wg * 64, kk),
+                          LW2::desc(st + SM::W2 + kk * LW2::KSTEP));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  // epilogue: this thread's rows ra and ra + 8, columns 8 j + 2 t (+1)
+  float* red = reinterpret_cast<float*>(smem + SM::RED);
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = r0 + wg * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+  for (int j = 0; j < GH_BH / 8; ++j) {
+    const int c = 8 * j + 2 * t, col = h0 + c;
+    float s0 = 0.f, s1 = 0.f;
+    if (col < H) {
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = ra + 8 * half, i = 4 * j + 2 * half;
+        if (row >= rows) continue;
+        float a0, a1, q0, q1;
+        gelu_ans_act_grad(hacc[i] + bb.x, a0, q0);
+        gelu_ans_act_grad(hacc[i + 1] + bb.y, a1, q1);
+        const float g0 = dacc[i] * q0, g1 = dacc[i + 1] * q1;
+        const size_t o = (size_t)row * H + col;
+        store_pair(gh + o, g0, g1);
+        store_pair(act + o, a0, a1);
+        if (!std::is_same<T, bf16>::value) store_pair(gh16 + o, g0, g1);
+        s0 += g0;
+        s1 += g1;
       }
     }
-    __syncthreads();
-  }
+    if (colsum != nullptr) {  // the warp's 16 rows, in a fixed order
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const int j = warp * NF + f;
-    wmma::store_matrix_sync(dw1 + (size_t)hr * D + j * 16, acc1[f], D, wmma::mem_row_major);
-    wmma::store_matrix_sync(dw2 + (size_t)(j * 16) * H + hr, acc2[f], H, wmma::mem_row_major);
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) {
+        red[warp * GH_BH + c] = s0;
+        red[warp * GH_BH + c + 1] = s1;
+      }
+    }
   }
-  if (tid < HB) db1[hr + tid] = db1_acc;
-  if (owns_db2)
-    for (int d = tid; d < D; d += THREADS) db2[d] = DB2s[d];
+  if (colsum != nullptr) {  // the warps' sums, in row order
+    __syncthreads();
+    if (tid < GH_BH && h0 + tid < H) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < GH_WARPS; ++w) s += red[w * GH_BH + tid];
+      colsum[(size_t)blockIdx.y * H + h0 + tid] = s;
+    }
+  }
+}
+
+// db1 [H] = the row tiles' column sums added in row-tile order
+__global__ void colsum_fold_kernel(const float* __restrict__ parts, float* __restrict__ out,
+                                   int tiles, int H) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float s = 0.f;
+  for (int i = 0; i < tiles; ++i) s += parts[(size_t)i * H + h];
+  out[h] = s;
+}
+
+// ------------------------------------------------- the dx pass (K7, K8)
+constexpr int DX_BM = 128;  // rows per block, 64 a warpgroup
+constexpr int DX_BN = 128;  // dx columns per block
+constexpr int DX_STAGES = 4;
+constexpr int DX_THREADS = 256;
+
+struct DxSmem {
+  using LA = GmmaKLayout<DX_BM>;          // gh slab [BM, 64 hidden]: A, K-major
+  using LB = GmmaLayout<DX_BN, LA::BK>;   // w1 slab [64 hidden, BN]: B, MN-major
+  static constexpr int BK = LA::BK;       // hidden values per slab
+  static constexpr int STAGE = LA::BYTES + LB::BYTES;  // 32 KB
+  static constexpr int BAR = DX_STAGES * STAGE;
+  static constexpr int BYTES = BAR + 8 * DX_STAGES + 1024;
+};
+
+// slab s (hidden s * 64 ..) of gh and w1 into a ring stage, by TMA
+__device__ __forceinline__ void dx_issue_slab(unsigned char* st, uint64_t* bar,
+                                              const CUtensorMap* gmap, const CUtensorMap* wmap,
+                                              int r0, int n0, int s) {
+  using SM = DxSmem;
+  using LB = SM::LB;
+  const int k0 = s * SM::BK;
+  mbar_expect_tx(bar, SM::STAGE);
+  tma_load_2d(st, gmap, k0, r0, bar);
+#pragma unroll
+  for (int c = 0; c < DX_BN / LB::BOX; ++c)
+    tma_load_2d(st + SM::LA::BYTES + c * LB::LBO, wmap, n0 + c * LB::BOX, k0, bar);
+}
+
+// gmap: gh16 [rows, H] in boxes of 64 columns by DX_BM rows; wmap: w1 [H,
+// D] in boxes of 64 by 64; both bf16 with the 128-byte swizzle. The grid's
+// z cuts H's slabs into contiguous ranges: with one range the block writes
+// dx in T, else its f32 partial product to partial[z] ([rows, D] each).
+template <typename T>
+__global__ void __launch_bounds__(DX_THREADS, 1)
+mlp_dx_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap wmap,
+              T* __restrict__ dx, float* __restrict__ partial, int rows, int D, int H) {
+  using SM = DxSmem;
+  using LA = SM::LA;
+  using LB = SM::LB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
+  const int n0 = blockIdx.x * DX_BN, r0 = blockIdx.y * DX_BM;
+  const int slabs = H / SM::BK, ranges = gridDim.z;
+  const int s0 = (int)((long long)blockIdx.z * slabs / ranges);
+  const int n = (int)((long long)(blockIdx.z + 1) * slabs / ranges) - s0;
+
+  if (tid == 0) {
+    for (int i = 0; i < DX_STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    for (int i = 0; i < DX_STAGES - 2 && i < n; ++i)
+      dx_issue_slab(smem + i * SM::STAGE, bars + i, &gmap, &wmap, r0, n0, s0 + i);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  float acc[DX_BN / 2];  // the warpgroup's 64 x BN accumulator
+#pragma unroll
+  for (int i = 0; i < DX_BN / 2; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(bars + i % DX_STAGES, (i / DX_STAGES) & 1);  // slab i has landed
+    __syncthreads();  // and every warpgroup is done with slab i - 2
+    const int next = i + DX_STAGES - 2;  // into the stage slab i - 2 held
+    if (tid == 0 && next < n) {
+      fence_proxy_async();
+      dx_issue_slab(smem + (next % DX_STAGES) * SM::STAGE, bars + next % DX_STAGES, &gmap,
+                    &wmap, r0, n0, s0 + next);
+    }
+    const unsigned char* st = smem + (i % DX_STAGES) * SM::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SM::BK / 16; ++kk)
+      wgmma_m64n128<0, 1>(acc, LA::desc(st, wg * 64, kk),
+                          LB::desc(st + LA::BYTES + kk * LB::KSTEP));
+    wgmma_commit();
+    wgmma_wait<1>();  // slab i - 1's products are done
+  }
+  wgmma_wait<0>();
+
+  const int ra = r0 + wg * 64 + (warp & 3) * 16 + (lane >> 2), col = n0 + 2 * (lane & 3);
+  float* part = partial == nullptr ? nullptr : partial + (size_t)blockIdx.z * rows * D;
+#pragma unroll
+  for (int j = 0; j < DX_BN / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = ra + 8 * half, i = 4 * j + 2 * half;
+      if (row >= rows) continue;
+      const size_t o = (size_t)row * D + col + 8 * j;
+      if (part != nullptr)
+        store_pair(part + o, acc[i], acc[i + 1]);
+      else
+        store_pair(dx + o, acc[i], acc[i + 1]);
+    }
 }
 
 // ------------------------------------------------------------------ K9
@@ -502,8 +521,8 @@ mlp_dw_kernel(const T* __restrict__ a, const T* __restrict__ g, float* __restric
   for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
   float db_acc = 0.f;
   for (int r0 = 0; r0 < rows; r0 += DW_ROWS) {
-    load_tile<T, DW_ROWS, DW_TILE, LDT, DW_THREADS>(a + m0, m, As, r0, rows);
-    load_tile<T, DW_ROWS, DW_TILE, LDT, DW_THREADS>(g + n0, n, Gs, r0, rows);
+    load_tile<T, DW_ROWS, DW_THREADS>(a + m0, m, As, LDT, DW_TILE, r0, rows);
+    load_tile<T, DW_ROWS, DW_THREADS>(g + n0, n, Gs, LDT, DW_TILE, r0, rows);
     if (owns_db && tid < DW_TILE && !std::is_same<T, bf16>::value)  // f32: unrounded
       for (int r = 0; r < DW_ROWS && r0 + r < rows; ++r)
         db_acc += to_f32(g[(size_t)(r0 + r) * n + n0 + tid]);
@@ -530,125 +549,29 @@ mlp_dw_kernel(const T* __restrict__ a, const T* __restrict__ g, float* __restric
   if (owns_db && tid < DW_TILE) db[n0 + tid] = db_acc;
 }
 
+
 // ------------------------------------------------------------ launches
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int D>
+template <typename T, int YC>
 int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-               void* out, void* hpre, void* partial, int rows, int H, int splits,
+               void* out, void* hpre, void* partial, int rows, int D, int H, int splits,
                cudaStream_t stream) {
-  const int smem = MlpSmem<D>::BYTES;
-  cudaError_t err = allow_smem(mlp_fwd_kernel<T, D>, smem);
+  const int smem = MlpSmem(D).bytes;
+  cudaError_t err = allow_smem(mlp_fwd_kernel<T, YC>, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (rows + BM - 1) / BM;
-  mlp_fwd_kernel<T, D><<<dim3(tiles, splits), THREADS, smem, stream>>>(
+  mlp_fwd_kernel<T, YC><<<dim3(tiles, splits, D / (128 * YC)), THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<T*>(hpre), static_cast<float*>(partial), rows,
-      H, splits);
+      D, H, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_epilogue<T, true, false>(nullptr, partial, b2, out, rows, tiles * BM, D,
                                               splits, stream);
-}
-
-template <typename T, int D>
-int launch_dx(const void* x, const void* w1, const void* b1, const void* w2, const void* dout,
-              void* dx, void* gh, void* act, void* partial, int rows, int H, int splits,
-              cudaStream_t stream) {
-  const int smem = DxSmem<D>::BYTES;
-  cudaError_t err = allow_smem(mlp_bwd_dx_kernel<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (rows + BM - 1) / BM;
-  mlp_bwd_dx_kernel<T, D><<<dim3(tiles, splits), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const T*>(dout), static_cast<T*>(gh),
-      static_cast<T*>(act), static_cast<float*>(partial), rows, H, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_epilogue<T, false, false>(nullptr, partial, nullptr, dx, rows, tiles * BM,
-                                               D, splits, stream);
-}
-
-template <typename T, int D>
-int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* dout,
-               void* dx, void* dw1, void* db1, void* dw2, void* db2, void* partial, int rows,
-               int H, int splits, cudaStream_t stream) {
-  int err = launch_dx<T, D>(x, w1, b1, w2, dout, dx, nullptr, nullptr, partial, rows, H,
-                            splits, stream);
-  if (err != 0) return err;
-  const int smem = DwSmem<D>::BYTES;
-  cudaError_t e = allow_smem(mlp_bwd_dw_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  mlp_bwd_dw_kernel<T, D><<<H / HB, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const T*>(dout), static_cast<float*>(dw1),
-      static_cast<float*>(db1), static_cast<float*>(dw2), static_cast<float*>(db2), rows, H);
-  return (int)cudaGetLastError();
-}
-
-bool bad_shape(int rows, int H, int splits) {
-  return H % HC != 0 || rows <= 0 || splits < 1 || splits > H / HC;
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (x, dout, out, hpre, dx, gh, act, a, g).
-// D in {512, 768}, H a multiple of 64, 1 <= splits <= H / 64. partial: f32
-// scratch [splits, ceil(rows / 32) * 32, D]. Each returns cudaGetLastError().
-
-// K4: out [rows, D]; hpre [rows, H] or null
-extern "C" int avsiam_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* out, void* hpre, void* partial, int rows,
-                              int D, int H, int splits, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(rows, H, splits)) return (int)cudaErrorInvalidValue;
-#define AVSIAM_MLP(TYPE, DIM) \
-  return launch_fwd<TYPE, DIM>(x, w1, b1, w2, b2, out, hpre, partial, rows, H, splits, s)
-  if (dtype == 1 && D == 768) AVSIAM_MLP(bf16, 768);
-  if (dtype == 1 && D == 512) AVSIAM_MLP(bf16, 512);
-  if (dtype == 0 && D == 768) AVSIAM_MLP(float, 768);
-  if (dtype == 0 && D == 512) AVSIAM_MLP(float, 512);
-#undef AVSIAM_MLP
-  return (int)cudaErrorInvalidValue;
-}
-
-// K7: dx [rows, D] in the activation type; dw1 [H, D], db1 [H], dw2 [D, H],
-// db2 [D] in f32
-extern "C" int avsiam_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* dout, void* dx, void* dw1, void* db1, void* dw2,
-                              void* db2, void* partial, int rows, int D, int H, int splits,
-                              int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(rows, H, splits)) return (int)cudaErrorInvalidValue;
-#define AVSIAM_MLP(TYPE, DIM)                                                                  \
-  return launch_bwd<TYPE, DIM>(x, w1, b1, w2, dout, dx, dw1, db1, dw2, db2, partial, rows, H, \
-                               splits, s)
-  if (dtype == 1 && D == 768) AVSIAM_MLP(bf16, 768);
-  if (dtype == 1 && D == 512) AVSIAM_MLP(bf16, 512);
-  if (dtype == 0 && D == 768) AVSIAM_MLP(float, 768);
-  if (dtype == 0 && D == 512) AVSIAM_MLP(float, 512);
-#undef AVSIAM_MLP
-  return (int)cudaErrorInvalidValue;
-}
-
-// K8: dx [rows, D], gh [rows, H], act [rows, H], all in the activation type
-extern "C" int avsiam_mlp_bwd_dx(const void* x, const void* w1, const void* b1, const void* w2,
-                                 const void* dout, void* dx, void* gh, void* act, void* partial,
-                                 int rows, int D, int H, int splits, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(rows, H, splits) || gh == nullptr || act == nullptr)
-    return (int)cudaErrorInvalidValue;
-#define AVSIAM_MLP(TYPE, DIM) \
-  return launch_dx<TYPE, DIM>(x, w1, b1, w2, dout, dx, gh, act, partial, rows, H, splits, s)
-  if (dtype == 1 && D == 768) AVSIAM_MLP(bf16, 768);
-  if (dtype == 1 && D == 512) AVSIAM_MLP(bf16, 512);
-  if (dtype == 0 && D == 768) AVSIAM_MLP(float, 768);
-  if (dtype == 0 && D == 512) AVSIAM_MLP(float, 512);
-#undef AVSIAM_MLP
-  return (int)cudaErrorInvalidValue;
 }
 
 // cuTensorMapEncodeTiled, looked up at run time (no link to libcuda)
@@ -670,21 +593,72 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// the TMA map of a row-major bf16 [rows, cols] matrix in boxes of DW_BK rows
-// by L::BOX columns, swizzled as L lays them out
-template <typename L>
-bool dw_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
+// the TMA map of a row-major bf16 [rows, cols] matrix in boxes of box_rows
+// rows by box_cols columns, swizzled by `sw` bytes (64 or 128); reads past
+// the matrix give zeros
+bool tma_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_cols, int box_rows,
+             int sw) {
   const EncodeTiledFn fn = encode_tiled();
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)L::BOX, (cuuint32_t)DW_BK};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   return fn != nullptr &&
          fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
             steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            L::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;  // rows past the end: zeros
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K9's map: boxes of DW_BK rows by L::BOX columns, swizzled as L lays them out
+template <typename L>
+bool dw_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  return tma_map(map, ptr, rows, cols, L::BOX, DW_BK, L::SW);
+}
+
+template <typename T>
+int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, const void* do16,
+              void* gh, void* act, void* gh16, void* colsum, void* db1, int rows, int D, int H,
+              cudaStream_t stream) {
+  using SM = GhSmem;
+  CUtensorMap xmap, dmap, w1map, w2map;
+  if (!tma_map(&xmap, x16, rows, D, SM::BK, GH_BM, 128) ||
+      !tma_map(&dmap, do16, rows, D, SM::BK, GH_BM, 128) ||
+      !tma_map(&w1map, w1, H, D, SM::BK, GH_BH, 128) ||
+      !tma_map(&w2map, w2, D, H, SM::LW2::BOX, SM::BK, SM::LW2::SW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_gh_kernel<T>, SM::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (rows + GH_BM - 1) / GH_BM;
+  mlp_gh_kernel<T><<<dim3((H + GH_BH - 1) / GH_BH, tiles), GH_THREADS, SM::BYTES, stream>>>(
+      xmap, dmap, w1map, w2map, static_cast<const float*>(b1), static_cast<T*>(gh),
+      static_cast<T*>(act), static_cast<bf16*>(gh16), static_cast<float*>(colsum), rows, D, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || colsum == nullptr) return (int)err;
+  colsum_fold_kernel<<<(H + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(colsum),
+                                                          static_cast<float*>(db1), tiles, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dx(const void* gh16, const void* w1, void* dx, void* partial, int rows, int D, int H,
+              int splits, cudaStream_t stream) {
+  using SM = DxSmem;
+  CUtensorMap gmap, wmap;
+  if (!tma_map(&gmap, gh16, rows, H, SM::BK, DX_BM, 128) ||
+      !tma_map(&wmap, w1, H, D, SM::LB::BOX, SM::BK, SM::LB::SW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_dx_kernel<T>, SM::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(D / DX_BN, (rows + DX_BM - 1) / DX_BM, splits);
+  mlp_dx_kernel<T><<<grid, DX_THREADS, SM::BYTES, stream>>>(
+      gmap, wmap, static_cast<T*>(dx), splits > 1 ? static_cast<float*>(partial) : nullptr,
+      rows, D, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)launch_epilogue<T, false, false>(nullptr, partial, nullptr, dx, rows, rows, D,
+                                               splits, stream);
 }
 
 template <int BM, int BN>
@@ -699,6 +673,67 @@ int launch_dw_tc(const void* a, const void* g, void* dw, void* db, int rows, int
   mlp_dw_tc_kernel<BM, BN><<<dim3(m / BN, n / BM), SM::THREADS, SM::BYTES, stream>>>(
       gmap, amap, static_cast<float*>(dw), static_cast<float*>(db), rows, m, n);
   return (int)cudaGetLastError();
+}
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, out, hpre, dx, gh, act, a, g). Each
+// returns cudaGetLastError().
+
+// K4: out [rows, D]; hpre [rows, H] or null. D a multiple of 128 cut into
+// `groups` fc2 column groups of 128 YC columns, 1 <= YC <= 6; H a multiple
+// of 64, 1 <= splits <= H / 64. partial: f32 scratch [splits, ceil(rows /
+// 32) * 32, D].
+extern "C" int avsiam_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                              const void* b2, void* out, void* hpre, void* partial, int rows,
+                              int D, int H, int splits, int groups, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % HC != 0 || rows <= 0 || splits < 1 || splits > H / HC || !mlp_groups_ok(D, groups))
+    return (int)cudaErrorInvalidValue;
+  const int yc = D / 128 / groups;
+#define AVSIAM_MLP(TYPE, YC) \
+  if (yc == YC)              \
+  return launch_fwd<TYPE, YC>(x, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits, s)
+#define AVSIAM_MLP_ALL(TYPE)                                                \
+  AVSIAM_MLP(TYPE, 1); AVSIAM_MLP(TYPE, 2); AVSIAM_MLP(TYPE, 3); \
+  AVSIAM_MLP(TYPE, 4); AVSIAM_MLP(TYPE, 5); AVSIAM_MLP(TYPE, 6)
+  if (dtype == 1) { AVSIAM_MLP_ALL(bf16); }
+  if (dtype == 0) { AVSIAM_MLP_ALL(float); }
+#undef AVSIAM_MLP_ALL
+#undef AVSIAM_MLP
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gh pass of K7 and K8. x16, do16 [rows, D] bf16; w1 [H, D], w2 [D, H]
+// bf16; b1 [H] f32; D and H multiples of 64. gh, act [rows, H] in dtype;
+// gh16 [rows, H] bf16 (gh itself for bfloat16). For K7's db1: colsum, f32
+// scratch [ceil(rows / 128), H], and db1 [H] f32; for K8 both null.
+extern "C" int avsiam_mlp_bwd_gh(const void* x16, const void* w1, const void* b1, const void* w2,
+                                 const void* do16, void* gh, void* act, void* gh16, void* colsum,
+                                 void* db1, int rows, int D, int H, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || D <= 0 || H <= 0 || D % GhSmem::BK != 0 || H % 64 != 0 ||
+      (colsum == nullptr) != (db1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch_gh<bf16>(x16, w1, b1, w2, do16, gh, act, gh, colsum, db1, rows, D, H, s);
+  if (dtype == 0)
+    return launch_gh<float>(x16, w1, b1, w2, do16, gh, act, gh16, colsum, db1, rows, D, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dx pass of K7 and K8: dx [rows, D] in dtype = gh16 [rows, H] (bf16)
+// w1 [H, D] (bf16), f32 accumulation. D a multiple of 128, H of 64; 1 <=
+// splits <= H / 64 ranges of H; partial: f32 scratch [splits, rows, D]
+// where splits > 1 (else unused).
+extern "C" int avsiam_mlp_bwd_dx(const void* gh16, const void* w1, void* dx, void* partial,
+                                 int rows, int D, int H, int splits, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || D <= 0 || H <= 0 || D % DX_BN != 0 || H % DxSmem::BK != 0 || splits < 1 ||
+      splits > H / DxSmem::BK || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return launch_dx<bf16>(gh16, w1, dx, partial, rows, D, H, splits, s);
+  if (dtype == 0) return launch_dx<float>(gh16, w1, dx, partial, rows, D, H, splits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K9: a [rows, m], g [rows, n] -> dw [n, m] = g^T a, db [n] = column sums of

@@ -3,10 +3,18 @@
 // A block holds a 32-row tile of the MLP input in shared memory (bf16, the
 // caller fills it: LN(x) for K3, x for K4) and walks its share of the hidden
 // dimension in chunks of 64 columns: fc1 chunk -> + b1 (pre-GELU hidden out,
-// optionally) -> f32 GELU -> fc2 partial product into a [32, D] f32
-// accumulator held in registers (wmma fragments). Each block then writes its
-// partial fc2 sum to a workspace [splits, rows, D]; `mlp_epilogue_kernel`
-// adds the partials in a fixed order (deterministic, no atomics).
+// optionally) -> f32 GELU -> fc2 partial product into a [32, 128 YC] f32
+// accumulator held in registers (wmma fragments, YC a warp per 16-row tile).
+// Each block then writes its partial fc2 sum to a workspace [splits, rows,
+// D]; `mlp_epilogue_kernel` adds the partials in a fixed order
+// (deterministic, no atomics).
+//
+// D is a run-time width (any multiple of 128). fc2's D output columns are
+// cut into D / (128 YC) column groups, one block each (the grid's z): YC =
+// D / 128 up to D = 768 (one group), so no block holds more than 6
+// fragments a warp per row tile (96 registers; D = 1280 whole would take
+// 160). A group past the first recomputes the fc1 chunks, and only the
+// first writes the pre-GELU hidden.
 //
 // Weights use nn.Linear's layout: w1 [H, D] (fc1.weight), w2 [D, H]
 // (fc2.weight); biases are f32.
@@ -36,14 +44,22 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
 
-template <int D>
+// shared memory of a row tile of width D: bf16 rows, the f32 fc1 chunk and
+// its bf16 activation
 struct MlpSmem {
-  static constexpr int LDN = D + 8;
-  static constexpr int NS = 0;
-  static constexpr int HS = align128(NS + BM * LDN * 2);
-  static constexpr int GS = align128(HS + BM * LDH * 4);
-  static constexpr int BYTES = GS + BM * LDG * 2;
+  int ldn, ns, hs, gs, bytes;
+  __host__ __device__ explicit MlpSmem(int D)
+      : ldn(D + 8), ns(0), hs(align128(BM * (D + 8) * 2)),
+        gs(align128(hs + BM * LDH * 4)), bytes(gs + BM * LDG * 2) {}
 };
+constexpr int MAX_YC = 6;  // fc2 fragments a warp per 16-row tile
+
+// D's fc2 columns cut into `groups` column groups of 128 YC columns, YC <=
+// MAX_YC, with the row tile within a block's shared memory
+inline bool mlp_groups_ok(int D, int groups) {
+  return D > 0 && D % 128 == 0 && groups >= 1 && (D / 128) % groups == 0 &&
+         D / 128 / groups <= MAX_YC && MlpSmem(D).bytes <= 227 * 1024;
+}
 
 // erf(z) by Abramowitz & Stegun 7.1.26, and the exp(-z^2) it takes
 __device__ __forceinline__ float erf_ans(float z, float& eexp) {
@@ -86,19 +102,18 @@ __device__ __forceinline__ void store_bf16(bf16* p, const uint4& v, float) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// Rows [r0, r0 + ROWS) of COLS columns, row r at src + r * ld, into a bf16
-// tile with row stride LD; zeros past `rows`. 16-byte loads, NT threads, each
-// issuing its loads in groups of 8 so that their latencies overlap. Rows
-// must start 16-byte aligned.
-template <typename T, int ROWS, int COLS, int LD, int NT>
+// Rows [r0, r0 + ROWS) of `cols` columns (ROWS * cols a multiple of NT 16-byte
+// loads), row r at src + r * ld, into a bf16 tile with row stride `ldd`;
+// zeros past `rows`. 16-byte loads, NT threads, each issuing its loads in
+// groups of 8 so that their latencies overlap. Rows must start 16-byte
+// aligned.
+template <typename T, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t ld, bf16* dst,
-                                          int r0, int rows) {
+                                          int ldd, int cols, int r0, int rows) {
   constexpr int V = 16 / sizeof(T);  // values per load
-  constexpr int PER_ROW = COLS / V;
-  constexpr int N = ROWS * PER_ROW / NT;  // loads per thread
   constexpr int G = 8;
-  static_assert(COLS % V == 0 && ROWS * PER_ROW % NT == 0, "whole loads per thread");
-#pragma unroll
+  const int PER_ROW = cols / V;
+  const int N = ROWS * PER_ROW / NT;  // loads per thread
   for (int k0 = 0; k0 < N; k0 += G) {
     uint4 v[G];
 #pragma unroll
@@ -110,32 +125,32 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t ld, 
 #pragma unroll
     for (int k = 0; k < G && k0 + k < N; ++k) {
       const int i = threadIdx.x + (k0 + k) * NT;
-      store_bf16(dst + (i / PER_ROW) * LD + (i % PER_ROW) * V, v[k], T());
+      store_bf16(dst + (i / PER_ROW) * ldd + (i % PER_ROW) * V, v[k], T());
     }
   }
 }
 
-template <int D>
-__device__ __forceinline__ void zero_rows_acc(FragC (&y)[2][D / 128]) {
+template <int YC>
+__device__ __forceinline__ void zero_rows_acc(FragC (&y)[2][YC]) {
 #pragma unroll
   for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
-    for (int j = 0; j < D / 128; ++j) wmma::fill_fragment(y[rt][j], 0.f);
+    for (int j = 0; j < YC; ++j) wmma::fill_fragment(y[rt][j], 0.f);
 }
 
-// Chunks [c_begin, c_end) of the hidden dimension for the row tile in Ns:
-// y += gelu(Ns . w1[chunk]^T + b1) . w2[:, chunk]^T on this warp's output
-// columns; the pre-GELU hidden goes to hpre (rows < `rows`) unless it is null.
-// Starts and ends with every warp past a __syncthreads.
-template <typename T, int D>
+// Chunks [c_begin, c_end) of the hidden dimension for the row tile in Ns
+// (width D, row stride LDN): y += gelu(Ns . w1[chunk]^T + b1) . w2[c0 +
+// this warp's output columns, chunk]^T, the block's columns starting at c0;
+// the pre-GELU hidden goes to hpre (rows < `rows`) unless it is null. Starts
+// and ends with every warp past a __syncthreads.
+template <typename T, int YC>
 __device__ __forceinline__ void fwd_chunks(const bf16* Ns, float* Hs, bf16* Gs,
                                            const bf16* __restrict__ w1,
                                            const float* __restrict__ b1,
                                            const bf16* __restrict__ w2, T* __restrict__ hpre,
-                                           int r0, int rows, int H, int c_begin, int c_end,
-                                           FragC (&y)[2][D / 128]) {
-  constexpr int LDN = MlpSmem<D>::LDN;
-  constexpr int YC = D / 128;  // output column fragments per warp (x 2 row tiles)
+                                           int r0, int rows, int D, int H, int c0, int c_begin,
+                                           int c_end, FragC (&y)[2][YC]) {
+  const int LDN = D + 8;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int frt = warp >> 2, fct = warp & 3;  // this warp's fc1 fragment
   for (int h0 = c_begin * HC; h0 < c_end * HC; h0 += HC) {
@@ -172,7 +187,7 @@ __device__ __forceinline__ void fwd_chunks(const bf16* Ns, float* Hs, bf16* Gs,
 #pragma unroll
       for (int j = 0; j < YC; ++j) {
         FragBc fb;
-        wmma::load_matrix_sync(fb, w2 + (size_t)((warp * YC + j) * 16) * H + h0 + kk, H);
+        wmma::load_matrix_sync(fb, w2 + (size_t)(c0 + (warp * YC + j) * 16) * H + h0 + kk, H);
         wmma::mma_sync(y[0][j], fa0, fb, y[0][j]);
         wmma::mma_sync(y[1][j], fa1, fb, y[1][j]);
       }
@@ -180,12 +195,12 @@ __device__ __forceinline__ void fwd_chunks(const bf16* Ns, float* Hs, bf16* Gs,
   }
 }
 
-// This block's [32, D] partial sum goes to partial[blockIdx.y] (rows padded
-// to the row tiles, so whole fragments are stored)
-template <int D>
-__device__ __forceinline__ void store_partial(float* __restrict__ partial,
-                                              FragC (&y)[2][D / 128], int r0) {
-  constexpr int YC = D / 128;
+// This block's [32, 128 YC] partial sum goes to columns c0.. of
+// partial[blockIdx.y] (rows padded to the row tiles, so whole fragments are
+// stored; row stride D)
+template <int YC>
+__device__ __forceinline__ void store_partial(float* __restrict__ partial, FragC (&y)[2][YC],
+                                              int r0, int c0, int D) {
   const int warp = threadIdx.x >> 5;
   const int rows_pad = gridDim.x * BM;
   float* part = partial + ((size_t)blockIdx.y * rows_pad + r0) * D;
@@ -193,8 +208,8 @@ __device__ __forceinline__ void store_partial(float* __restrict__ partial,
   for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
     for (int j = 0; j < YC; ++j)
-      wmma::store_matrix_sync(part + (size_t)rt * 16 * D + (warp * YC + j) * 16, y[rt][j], D,
-                              wmma::mem_row_major);
+      wmma::store_matrix_sync(part + (size_t)rt * 16 * D + c0 + (warp * YC + j) * 16, y[rt][j],
+                              D, wmma::mem_row_major);
 }
 
 // out = [x +] T(sum_s partial[s] [+ b2]): the partials in order s = 0, 1, ...,

@@ -3,6 +3,9 @@
 // cp.async (K6); wgmma m64nNk16 with operands in swizzled shared memory, fed
 // by TMA loads that complete on mbarriers (K9).
 //
+// K-major wgmma operands (GmmaKLayout) serve the MLP backward's gh and dx
+// passes (K7, K8), whose x, do and gh rows are reduction-contiguous.
+//
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A 16 x 16, four 32-bit registers of two bf16 each: a0 = (g, 2t..2t+1),
 //     a1 = (g + 8, 2t..), a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..);
@@ -135,6 +138,27 @@ struct GmmaLayout {
   }
 };
 
+// K-major (not transposed) wgmma operand: ROWS rows (M or N) of 64
+// reduction values, 128 bytes a row, in the 128-byte swizzle: each 8-row
+// atom of 1 KB stores chunk c of row r at chunk c XOR (r % 8). One TMA box
+// of 64 columns by ROWS rows with CU_TENSOR_MAP_SWIZZLE_128B writes exactly
+// this. The descriptor's stride byte offset steps 8 rows (1 KB); its
+// leading byte offset is unused for a swizzled K-major operand; a 16-deep
+// step k starts 32 k bytes into the row (the swizzle follows the address
+// bits, so the region starts on a 1 KB boundary).
+template <int ROWS>
+struct GmmaKLayout {
+  static_assert(ROWS % 8 == 0, "K-major wgmma operand layout");
+  static constexpr int BK = 64;  // reduction values per row
+  static constexpr int BYTES = ROWS * BK * 2;
+  // the descriptor of rows r0 .. (a multiple of 8), 16-deep step k
+  static __device__ __forceinline__ uint64_t desc(const void* base, int r0, int k) {
+    const uint32_t a = smem_u32(base) + r0 * 128 + k * 32;
+    return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+           ((uint64_t)1 << 62);
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -221,8 +245,10 @@ __device__ __forceinline__ void wgmma_m64n96(float (&d)[48], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d += A B, m64n128k16: A [64 x 16] and B [16 x 128] from shared memory, both
-// MN-major (stored K-row by K-row, so both transposed), d f32 [64 x 128]
+// d += A B, m64n128k16: A [64 x 16] and B [16 x 128] from shared memory, d
+// f32 [64 x 128]; TA, TB = 1 where the operand is MN-major (stored K-row by
+// K-row, so transposed), 0 where it is K-major (GmmaKLayout)
+template <int TA = 1, int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -235,7 +261,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -252,7 +278,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 }  // namespace

@@ -53,20 +53,19 @@ _SIGNATURES = {
     "avsiam_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P),
     # x, ln_g, ln_b, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits,
-    # dtype, eps, stream
+    # column groups, dtype, eps, stream
     "avsiam_ln_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _F, _P),
+                          _I, _I, _I, _F, _P),
     # x, w1, b1, w2, b2, out, hpre (or None), partial, rows, D, H, splits,
-    # dtype, stream
-    "avsiam_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, w1, b1, w2, dout, dx, dw1, db1, dw2, db2, partial, rows, D, H,
-    # splits, dtype, stream
-    "avsiam_mlp_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _P),
-    # x, w1, b1, w2, dout, dx, gh, act, partial, rows, D, H, splits, dtype,
-    # stream
-    "avsiam_mlp_bwd_dx": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # column groups, dtype, stream
+    "avsiam_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P),
+    # x16, w1, b1, w2, do16, gh, act, gh16, colsum (or None), db1 (or
+    # None), rows, D, H, dtype, stream
+    "avsiam_mlp_bwd_gh": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P),
+    # gh16, w1, dx, partial (or None), rows, D, H, splits, dtype, stream
+    "avsiam_mlp_bwd_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, g, dw, db, rows, m, n, tile rows, tile columns, dtype, stream
     "avsiam_mlp_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, dy, scale, dx, dgamma, dbeta, stats, rows, C, rows per warp,

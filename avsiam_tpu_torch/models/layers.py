@@ -31,8 +31,8 @@ from avsiam_tpu_torch.configs import ViTConfig
 from avsiam_tpu_torch.ops.attention import ATTN_IMPLS, attention_qkv
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
 from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_fp32
-from avsiam_tpu_torch.ops.mlp import (FUSED_IMPLS, HIDDEN_CHUNK, KERNEL_DIMS,
-                                      fused_ln_mlp, fused_mlp)
+from avsiam_tpu_torch.ops.mlp import (FUSED_IMPLS, fused_ln_mlp, fused_mlp,
+                                      kernel_takes)
 from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
 
 MLP_IMPLS = ("dense", "remat_g", "remat_all", "fused", "fbwd", "fres", "auto",
@@ -41,17 +41,15 @@ MLP_IMPLS = ("dense", "remat_g", "remat_all", "fused", "fbwd", "fres", "auto",
 
 def mlp_route(impl: str, dim: int, hidden: int) -> str:
     """The form ``impl`` takes for an MLP of width ``dim`` and hidden width
-    ``hidden``: 'auto' is 'lnfres' where the MLP kernels take the width (D
-    in ``ops.mlp.KERNEL_DIMS``, H a multiple of ``HIDDEN_CHUNK``) and the
-    unfused 'dense' elsewhere, as the JAX 'auto' folds the LN only where its
-    kernels take the width (``avsiam_tpu/models/layers.py:339-343``); every
-    other impl is itself. An explicit kernel impl at a width the kernels do
-    not take raises at the kernel call on the card."""
+    ``hidden``: 'auto' is 'lnfres' wherever D and H are multiples of 128
+    (``ops.mlp.kernel_takes``, the JAX accelerator branch's condition,
+    ``avsiam_tpu/models/layers.py:339-343``: ViT-B, -L and -H alike) and the
+    unfused 'dense' elsewhere; every other impl is itself. An explicit
+    kernel impl at a width the kernels do not take raises at the kernel call
+    on the card."""
     if impl != "auto":
         return impl
-    if dim in KERNEL_DIMS and hidden % HIDDEN_CHUNK == 0:
-        return "lnfres"
-    return "dense"
+    return "lnfres" if kernel_takes(dim, hidden) else "dense"
 
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled

@@ -10,8 +10,11 @@ the CUDA kernels of ``csrc/ln_mlp.cu`` and ``csrc/mlp.cu``:
 - K4 ``mlp_fwd_kernel`` (``_fwd_call``): fc1 -> GELU -> fc2, optionally
   emitting the pre-GELU hidden;
 - K7 ``mlp_bwd_kernel`` (``_bwd_call``): the backward recomputing the hidden,
-  dx plus float32 dw1, db1, dw2, db2;
-- K8 ``mlp_bwd_dx_kernel`` (``_bwd_call_split``): dx, stashing gh and act;
+  dx plus float32 dw1, db1, dw2, db2: the gh pass (``mlp_gh_kernel``, with
+  the per-row-tile float32 column sums of gh folded into db1), the dx pass
+  (``mlp_dx_kernel``) and K9 twice;
+- K8 ``mlp_bwd_dx_kernel`` (``_bwd_call_split``): dx, stashing gh and act:
+  the gh pass and the dx pass;
 - K9 ``weight_grads_kernel`` (``weight_grads``): a weight gradient g^T a and
   its bias gradient, the column sums of g.
 
@@ -28,9 +31,11 @@ pre-GELU hidden saved in the activation dtype. K7's db1 sums the float32
 gh; 'fres' and K9 sum gh after its cast to the activation dtype.
 
 Weights use nn.Linear's layout: w1 [H, D] (fc1.weight), w2 [D, H]
-(fc2.weight), and so do their gradients. On a CPU tensor each kernel's
-wrapper takes its plain version; on a CUDA tensor it launches the kernel or
-raises.
+(fc2.weight), and so do their gradients. The kernels take every D that is a
+multiple of 128 and every H that is a multiple of 64 (K7 of 128, K9's
+tiles), as the Pallas kernels take multiples of 128
+(``avsiam_tpu/ops/mlp.py:533,580``). On a CPU tensor each kernel's wrapper
+takes its plain version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -46,27 +51,69 @@ from avsiam_tpu_torch.ops.gelu import gelu_act_grad_f32, gelu_f32, kernel_impl
 from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_vjp
 
 FUSED_IMPLS = ("fused", "fbwd", "fres")
-KERNEL_DIMS = (512, 768)
-HIDDEN_CHUNK = 64  # hidden columns per step of the kernel's loop
-ROW_TILE = 32      # rows per block
+DIM_ALIGN = 128    # the kernels take D a multiple of it
+HIDDEN_CHUNK = 64  # hidden columns per step of the kernels' loops
+ROW_TILE = 32      # rows per block of K3 and K4
+MAX_COL_FRAGS = 6  # K3/K4: fc2 columns a block holds, in 128-column units
 MAX_SPLITS = 16    # bounds the f32 partial sums at 16 x [T, D]
 WEIGHT_GRAD_TILE = 128  # K9 takes dw [n, m] with m and n multiples of it
 WEIGHT_GRAD_TILES = ((192, 96), (128, 128))  # K9's bf16 dw tiles (rows, cols)
+GH_TILE = 128      # the gh pass: rows and hidden columns per block
+DX_TILE = 128      # the dx pass: rows and columns of dx per block
+# the dx pass's split cost: bytes of f32 partial sums written and read back
+# that take about as long as one block's 128 x 128 x 64 product step
+PARTIAL_BYTES_PER_STEP = 1 << 20
 
 
-def hidden_splits(rows: int, hidden: int, num_sms: int) -> int:
-    """Into how many ranges K3, K4 and the dx pass of K7/K8 split the hidden
-    dimension. One block (row tile, range) fits on an SM at a time and takes
-    time in proportion to its chunks, so the call takes about waves * chunks
-    per block; the smallest split count (the least f32 partial traffic)
-    that minimises that."""
-    tiles = -(-rows // ROW_TILE)
+def kernel_takes(dim: int, hidden: int) -> bool:
+    """Whether the MLP kernels take an MLP of width ``dim`` and hidden width
+    ``hidden``: the Pallas kernels' rule, D and H multiples of 128
+    (``avsiam_tpu/ops/mlp.py:533,580``; the forward kernels and K8 also take
+    H a multiple of 64)."""
+    return (dim > 0 and dim % DIM_ALIGN == 0 and hidden > 0
+            and hidden % DIM_ALIGN == 0)
+
+
+def fwd_column_groups(dim: int) -> int:
+    """Into how many fc2 column groups (one block each) K3 and K4 cut D: the
+    fewest that leave a block at most ``MAX_COL_FRAGS`` x 128 columns, each
+    group the same width. One group up to D = 768; two at ViT-L's 1024 and
+    ViT-H's 1280 (512 and 640 columns)."""
+    units = dim // DIM_ALIGN
+    return next(g for g in range(1, units + 1)
+                if units % g == 0 and units // g <= MAX_COL_FRAGS)
+
+
+def hidden_splits(rows: int, hidden: int, num_sms: int,
+                  groups: int = 1) -> int:
+    """Into how many ranges K3 and K4 split the hidden dimension. One block
+    (row tile, range, column group) fits on an SM at a time and takes time
+    in proportion to its chunks, so the call takes about waves * chunks per
+    block; the smallest split count (the least f32 partial traffic) that
+    minimises that."""
+    tiles = -(-rows // ROW_TILE) * groups
     chunks = hidden // HIDDEN_CHUNK
 
     def cost(s):
         return -(-tiles * s // num_sms) * -(-chunks // s)
 
     return min(range(1, min(chunks, MAX_SPLITS) + 1), key=cost)
+
+
+def dx_splits(rows: int, dim: int, hidden: int, num_sms: int) -> int:
+    """Into how many ranges the dx pass of K7/K8 splits its reduction over
+    H. A block owns a 128 x 128 tile of dx and takes time in proportion to
+    its 64-wide slabs of H; a split adds its f32 partial sums ([rows, D]
+    written and read back once more each). The split count with the least
+    waves * slabs per block plus that traffic, the smallest on a tie."""
+    tiles = -(-rows // DX_TILE) * (dim // DX_TILE)
+    slabs = hidden // HIDDEN_CHUNK
+
+    def cost(s):
+        extra = s * rows * dim * 8 / PARTIAL_BYTES_PER_STEP if s > 1 else 0
+        return -(-tiles * s // num_sms) * -(-slabs // s) + extra
+
+    return min(range(1, min(slabs, MAX_SPLITS) + 1), key=cost)
 
 
 def weight_grad_tile(m: int, n: int, num_sms: int):
@@ -97,18 +144,19 @@ def ln_mlp_reference(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
 
 
 def _rows_geometry(name: str, x2: torch.Tensor, w1: torch.Tensor):
-    """(T, D, H) of a kernel call on [T, D] rows, or ValueError."""
-    if x2.device.type != "cuda":
-        raise ValueError(f"{name} kernel needs a CUDA tensor, got {x2.device}")
+    """(T, D, H) of a kernel call on [T, D] rows, or ValueError: the width
+    rule first, then the device."""
     if x2.dtype not in kernels.DTYPE_CODES or x2.dim() != 2:
         raise ValueError(f"{name}: rows must be [T, D] float32 or bfloat16, "
                          f"got {tuple(x2.shape)} {x2.dtype}")
     T, D = x2.shape
     H = w1.shape[0]
-    if D not in KERNEL_DIMS or H % HIDDEN_CHUNK != 0 or T == 0:
-        raise ValueError(f"{name} kernel takes D in {KERNEL_DIMS}, H a "
-                         f"multiple of {HIDDEN_CHUNK} and T > 0; got T={T}, "
-                         f"D={D}, H={H}")
+    if D % DIM_ALIGN or H % HIDDEN_CHUNK or T == 0 or D == 0 or H == 0:
+        raise ValueError(f"{name} kernel takes D a multiple of {DIM_ALIGN}, "
+                         f"H a multiple of {HIDDEN_CHUNK} and T > 0; got "
+                         f"T={T}, D={D}, H={H}")
+    if x2.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs a CUDA tensor, got {x2.device}")
     if not x2.is_contiguous():
         raise ValueError(f"{name}: rows must be contiguous")
     return T, D, H
@@ -140,9 +188,9 @@ def _weight_specs(w1, b1, w2, D, H, b2=None):
     return specs
 
 
-def _splits(splits, T: int, H: int, device) -> int:
+def _splits(splits, T: int, H: int, groups: int, device) -> int:
     if splits is None:
-        splits = hidden_splits(T, H, kernels.num_sms(device))
+        splits = hidden_splits(T, H, kernels.num_sms(device), groups)
     if not 1 <= splits <= H // HIDDEN_CHUNK:
         raise ValueError(f"splits must be in [1, {H // HIDDEN_CHUNK}], got "
                          f"{splits}")
@@ -176,14 +224,15 @@ def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
                     ("ln_scale", ln_scale, (D,), f32),
                     ("ln_bias", ln_bias, (D,), f32))
     lib = kernels.library()
-    splits = _splits(splits, T, H, x2.device)
+    groups = fwd_column_groups(D)
+    splits = _splits(splits, T, H, groups, x2.device)
     out = torch.empty_like(x2)
     hpre = torch.empty((T, H), dtype=x2.dtype, device=x2.device)
     partial = _partial(splits, T, D, x2.device)
     err = lib.avsiam_ln_mlp_fwd(
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        hpre.data_ptr(), partial.data_ptr(), T, D, H, splits,
+        hpre.data_ptr(), partial.data_ptr(), T, D, H, splits, groups,
         kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
     kernels.check(err, "LN-MLP forward")
     kernels.LAUNCHES["ln_mlp_fwd"] += 1
@@ -283,7 +332,8 @@ def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False):
     _check_operands("MLP forward", x2.device,
                     *_weight_specs(w1, b1, w2, D, H, b2))
     lib = kernels.library()
-    splits = hidden_splits(T, H, kernels.num_sms(x2.device))
+    groups = fwd_column_groups(D)
+    splits = hidden_splits(T, H, kernels.num_sms(x2.device), groups)
     out = torch.empty_like(x2)
     hpre = (torch.empty((T, H), dtype=x2.dtype, device=x2.device)
             if save_hpre else None)
@@ -292,7 +342,8 @@ def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False):
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(),
         None if hpre is None else hpre.data_ptr(), partial.data_ptr(), T, D,
-        H, splits, kernels.DTYPE_CODES[x2.dtype], kernels.stream_handle(x2))
+        H, splits, groups, kernels.DTYPE_CODES[x2.dtype],
+        kernels.stream_handle(x2))
     kernels.check(err, "MLP forward")
     kernels.LAUNCHES["mlp_fwd"] += 1
     return (out, hpre) if save_hpre else out
@@ -317,27 +368,56 @@ def _recompute_gh(x2, w1, b1, w2, do, gelu: str):
     return act, (do.to(f32) @ w2.to(f32)) * grad
 
 
-def mlp_bwd_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
-    """Plain version of K7 (``_bwd_fused_kernel``): dx in x2's dtype; dw1
-    [H, D], db1 [H], dw2 [D, H], db2 [D] in float32. dx and dw1 take gh in
-    x2's dtype; db1 sums the float32 gh."""
+def row_tile_sums(g: torch.Tensor, tile: int = GH_TILE) -> torch.Tensor:
+    """The float32 column sums of each ``tile``-row tile of g [T, H]:
+    [ceil(T / tile), H], rows past T counting as zeros."""
+    T, H = g.shape
+    pad = -T % tile
+    gp = F.pad(g.to(torch.float32), (0, 0, 0, pad))
+    return gp.view(-1, tile, H).sum(dim=1)
+
+
+def fold_rows(parts: torch.Tensor) -> torch.Tensor:
+    """The rows of ``parts`` added in row order, from zero (the gh pass's
+    db1 fold)."""
+    out = torch.zeros_like(parts[0])
+    for p in parts:
+        out = out + p
+    return out
+
+
+def mlp_gh_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
+    """Plain version of the gh pass of K7 and K8: (gh, act) in x2's dtype
+    and the float32 column sums of the float32 gh per ``GH_TILE``-row tile
+    ([ceil(T / GH_TILE), H]; K7 folds them into db1 with ``fold_rows``)."""
     dt = x2.dtype
-    f32 = torch.float32
     act, gh = _recompute_gh(x2, w1, b1, w2, do, gelu)
-    ghb = gh.to(dt).to(f32)
-    dof = do.to(f32)
-    return ((ghb @ w1.to(f32)).to(dt), ghb.T @ x2.to(f32), gh.sum(dim=0),
-            dof.T @ act.to(dt).to(f32), dof.sum(dim=0))
+    return gh.to(dt), act.to(dt), row_tile_sums(gh)
+
+
+def mlp_dx_reference(gh, w1):
+    """Plain version of the dx pass: gh [T, H] @ w1 [H, D] in float32 from
+    the given values, in gh's dtype."""
+    f32 = torch.float32
+    return (gh.to(f32) @ w1.to(f32)).to(gh.dtype)
+
+
+def mlp_bwd_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
+    """Plain version of K7 (``_bwd_fused_kernel``), composed as the kernels
+    compose it: dx in x2's dtype; dw1 [H, D], db1 [H], dw2 [D, H], db2 [D]
+    in float32. dx and dw1 take gh in x2's dtype; db1 is the fold of the
+    float32 gh's row-tile sums; dw2 and db2 are K9's on (act, do)."""
+    gh, act, parts = mlp_gh_reference(x2, w1, b1, w2, do, gelu)
+    dw1, _ = weight_grads_reference(x2, gh)
+    dw2, db2 = weight_grads_reference(act, do)
+    return mlp_dx_reference(gh, w1), dw1, fold_rows(parts), dw2, db2
 
 
 def mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
     """Plain version of K8 (``_bwd_dx_kernel``): (dx, gh, act), all in x2's
     dtype."""
-    dt = x2.dtype
-    act, gh = _recompute_gh(x2, w1, b1, w2, do, gelu)
-    ghb = gh.to(dt)
-    dx = (ghb.to(torch.float32) @ w1.to(torch.float32)).to(dt)
-    return dx, ghb, act.to(dt)
+    gh, act, _ = mlp_gh_reference(x2, w1, b1, w2, do, gelu)
+    return mlp_dx_reference(gh, w1), gh, act
 
 
 def weight_grads_reference(a, g):
@@ -358,46 +438,75 @@ def _bwd_operands(name, x2, w1, b1, w2, do):
     return T, D, H
 
 
+def _gh_pass(x2, w1, b1, w2, do, with_db1: bool):
+    """The gh pass on the card: (gh, act in x2's dtype, gh in bf16 for the
+    dx pass, K7's db1 or None). An f32 call feeds the kernel x and do cast
+    to bf16 (the operands it multiplies in either storage)."""
+    T, D = x2.shape
+    H = w1.shape[0]
+    dev, bf16, f32 = x2.device, torch.bfloat16, torch.float32
+    x16, do16 = x2.to(bf16), do.to(bf16)
+    gh = torch.empty((T, H), dtype=x2.dtype, device=dev)
+    act = torch.empty_like(gh)
+    gh16 = gh if x2.dtype == bf16 else torch.empty((T, H), dtype=bf16,
+                                                   device=dev)
+    colsum = db1 = None
+    if with_db1:
+        colsum = torch.empty((-(-T // GH_TILE), H), dtype=f32, device=dev)
+        db1 = torch.empty((H,), dtype=f32, device=dev)
+    err = kernels.library().avsiam_mlp_bwd_gh(
+        x16.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        do16.data_ptr(), gh.data_ptr(), act.data_ptr(), gh16.data_ptr(),
+        None if colsum is None else colsum.data_ptr(),
+        None if db1 is None else db1.data_ptr(), T, D, H,
+        kernels.DTYPE_CODES[x2.dtype], kernels.stream_handle(x2))
+    kernels.check(err, "MLP backward gh pass")
+    return gh, act, gh16, db1
+
+
+def _dx_pass(gh16, w1, dtype):
+    """The dx pass on the card: gh16 [T, H] (bf16) @ w1 [H, D] in
+    ``dtype``."""
+    T, H = gh16.shape
+    D = w1.shape[1]
+    dev = gh16.device
+    splits = dx_splits(T, D, H, kernels.num_sms(dev))
+    dx = torch.empty((T, D), dtype=dtype, device=dev)
+    partial = (torch.empty((splits, T, D), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    err = kernels.library().avsiam_mlp_bwd_dx(
+        gh16.data_ptr(), w1.data_ptr(), dx.data_ptr(),
+        None if partial is None else partial.data_ptr(), T, D, H, splits,
+        kernels.DTYPE_CODES[dtype], kernels.stream_handle(gh16))
+    kernels.check(err, "MLP backward dx pass")
+    return dx
+
+
 def mlp_bwd_kernel(x2, w1, b1, w2, do):
     """K7 on [T, D] rows x2 and their cotangent do (float32 or bfloat16,
-    alike): (dx in x2's dtype; dw1 [H, D], db1 [H], dw2 [D, H], db2 [D] in
-    float32). Weights bf16, b1 f32."""
+    alike; H a multiple of 128): (dx in x2's dtype; dw1 [H, D], db1 [H],
+    dw2 [D, H], db2 [D] in float32). Weights bf16, b1 f32. The gh pass (db1
+    from the f32 gh), the dx pass, then K9 on (x, gh) and (act, do); K9's
+    db1, from the stored gh, is not K7's and is dropped."""
     T, D, H = _bwd_operands("MLP backward", x2, w1, b1, w2, do)
-    lib = kernels.library()
-    splits = hidden_splits(T, H, kernels.num_sms(x2.device))
-    dev, f32 = x2.device, torch.float32
-    dx = torch.empty_like(x2)
-    dw1 = torch.empty((H, D), dtype=f32, device=dev)
-    db1 = torch.empty((H,), dtype=f32, device=dev)
-    dw2 = torch.empty((D, H), dtype=f32, device=dev)
-    db2 = torch.empty((D,), dtype=f32, device=dev)
-    partial = _partial(splits, T, D, dev)
-    err = lib.avsiam_mlp_bwd(
-        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), partial.data_ptr(), T, D, H, splits,
-        kernels.DTYPE_CODES[x2.dtype], kernels.stream_handle(x2))
-    kernels.check(err, "MLP backward")
+    if H % WEIGHT_GRAD_TILE:
+        raise ValueError(f"MLP backward takes H a multiple of "
+                         f"{WEIGHT_GRAD_TILE} (K9's tiles), got H={H}")
+    gh, act, gh16, db1 = _gh_pass(x2, w1, b1, w2, do, with_db1=True)
+    dx = _dx_pass(gh16, w1, x2.dtype)
     kernels.LAUNCHES["mlp_bwd"] += 1
+    dw1, _ = weight_grads_kernel(x2, gh)
+    dw2, db2 = weight_grads_kernel(act, do)
     return dx, dw1, db1, dw2, db2
 
 
 def mlp_bwd_dx_kernel(x2, w1, b1, w2, do):
     """K8 on [T, D] rows x2 and their cotangent do: (dx [T, D], gh [T, H],
-    act [T, H]), all in x2's dtype. Weights bf16, b1 f32."""
-    T, D, H = _bwd_operands("MLP backward dx", x2, w1, b1, w2, do)
-    lib = kernels.library()
-    splits = hidden_splits(T, H, kernels.num_sms(x2.device))
-    dx = torch.empty_like(x2)
-    gh = torch.empty((T, H), dtype=x2.dtype, device=x2.device)
-    act = torch.empty_like(gh)
-    partial = _partial(splits, T, D, x2.device)
-    err = lib.avsiam_mlp_bwd_dx(
-        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        do.data_ptr(), dx.data_ptr(), gh.data_ptr(), act.data_ptr(),
-        partial.data_ptr(), T, D, H, splits, kernels.DTYPE_CODES[x2.dtype],
-        kernels.stream_handle(x2))
-    kernels.check(err, "MLP backward dx")
+    act [T, H]), all in x2's dtype. Weights bf16, b1 f32. The gh pass, then
+    the dx pass."""
+    _bwd_operands("MLP backward dx", x2, w1, b1, w2, do)
+    gh, act, gh16, _ = _gh_pass(x2, w1, b1, w2, do, with_db1=False)
+    dx = _dx_pass(gh16, w1, x2.dtype)
     kernels.LAUNCHES["mlp_bwd_dx"] += 1
     return dx, gh, act
 

@@ -11,17 +11,21 @@ Phases (any failure raises and the script exits non-zero):
 2. kernels: builds the CUDA kernels from ``avsiam_tpu_torch/csrc`` with nvcc,
    then holds each kernel against its plain PyTorch version at every shape
    the step phases give it (bf16 inputs; the plain version runs in float32
-   on the same values) and times kernel, plain version and, where one
-   PyTorch call computes the same function (``F.scaled_dot_product_attention``
-   for attention, ``torch.mm`` with a float32 output for the weight gradient,
+   on the same values), the MLP kernels also at ViT-L's and ViT-H's widths,
+   and times kernel, plain version and, where one PyTorch call computes the
+   same function (``F.scaled_dot_product_attention`` for attention,
+   ``torch.mm`` with a float32 output for the weight gradient,
    ``native_layer_norm_backward`` for the LN backward), that call as a
-   yardstick the port never calls; each time is device time per call, from
-   torch.profiler.
+   yardstick the port never calls; for K3, K4, K7 and K8, which no one call
+   computes, the 'dense' form's cuBLAS GEMMs and elementwise ops on the same
+   operands (a composite yardstick). Each time is device time per call,
+   from torch.profiler. A kernel that spills registers fails the run.
 3. steps: full-width two-pass pretrain steps (bf16 compute, batch 8) from
    the port's own seeded init, in five configurations:
    A. ViT-B/16 (depth 12, decoder depth 8), ``mlp_impl='lnfres'`` (the
       bench configuration: K1, K2, K3);
-   B. ViT-B, ``mlp_impl='fused'`` (K1, K2, K4 forward, K7 backward);
+   B. ViT-B, ``mlp_impl='fused'`` (K1, K2, K4 forward, K7 backward, which
+      runs K9 twice);
    C. ViT-B, ``mlp_impl='fbwd'``, ``dec_mlp_impl='fres'`` and
       ``AVSIAM_MLP_BWD=split`` (K1, K2; K8 and K9 in the encoders' backward,
       K4 with the saved hidden in the decoder);
@@ -29,7 +33,8 @@ Phases (any failure raises and the script exits non-zero):
       and K10 in every LayerNormFP32 backward);
    E. ViT-H/16 (``pretrain_config('cav-mae-huge')``: dim 1280, depth 32,
       16 heads of 80; decoder 512/8/16), ``attn_impl='pallas'``,
-      ``mlp_impl='dense'`` (K5, K6 in the encoders, K1, K2 in the decoder).
+      ``mlp_impl='fused'`` (K5, K6 in the encoders, K1, K2 in the decoder;
+      K4 and K7, with K9, at D 1280 and in the decoder).
    Five steps each in A-D, three in E. Every loss must be finite, and each
    kernel's launch count, reset just before the phase and read just after,
    must equal what the step's shapes imply. Then one more step of each
@@ -140,8 +145,9 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
 
 # ------------------------------------------------------------------ build
 # kernels whose design keeps its tiles or rows in registers, a spill would
-# undo it: every attention kernel (K1, K2, K5, K6) and K10's two
-NO_SPILL = ("attn_", "ln_bwd_")
+# undo it: every attention kernel (K1, K2, K5, K6), K10's two and every MLP
+# kernel (K3, K4, the gh and dx passes of K7/K8, K9, their epilogues)
+NO_SPILL = ("attn_", "ln_bwd_", "ln_mlp_", "mlp_", "colsum_fold")
 
 
 def kernel_resources(build_log: str):
@@ -227,14 +233,14 @@ def mlp_call_launches(impl: str, split: bool) -> dict:
     """Kernel launches of one MLP sub-block call, forward and backward, in
     a block's ``mlp_impl`` as ``mlp_route`` resolves it ('lnfres' folds the
     LN into K3 on the card; 'fres' and 'dense' have backwards of PyTorch
-    ops)."""
+    ops). K7 and the split backward (K8) each run K9 twice."""
     out = {}
     if impl == "lnfres":
         out["ln_mlp_fwd"] = 1
     elif impl in ("fused", "fres"):
         out["mlp_fwd"] = 1
     if impl in ("fused", "fbwd"):
-        out.update({"mlp_bwd_dx": 1, "mlp_dw": 2} if split else {"mlp_bwd": 1})
+        out.update({"mlp_bwd_dx" if split else "mlp_bwd": 1, "mlp_dw": 2})
     return out
 
 
@@ -364,7 +370,22 @@ def check_attention(shapes, extra, gen):
     return rows
 
 
+def dense_ln_mlp(x, g, bl, w1, b1, w2, b2, eps: float):
+    """K3's composite yardstick, the 'dense' form on the same bf16 operands:
+    the LN in float32, two cuBLAS GEMMs with the float32 GELU between them,
+    the residual add in bf16."""
+    import torch.nn.functional as F
+    from avsiam_tpu_torch.ops.gelu import gelu_f32
+    from avsiam_tpu_torch.ops.layernorm import layer_norm
+    n = layer_norm(x, g, bl, eps)
+    act = gelu_f32(F.linear(n, w1, b1.bfloat16()).float(), "ans").bfloat16()
+    return x + F.linear(act, w2, b2.bfloat16())
+
+
 def check_ln_mlp(shapes, gen, eps: float = 1e-5):
+    """K3 at each (rows, D, H) of ``shapes`` ({(rows, D, H, impl): calls
+    per step}) against its plain version; times of kernel, plain version and
+    the composite 'dense' yardstick (not one call)."""
     from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
     rows = []
     for (t, d, h, _), calls in shapes.items():
@@ -396,14 +417,19 @@ def check_ln_mlp(shapes, gen, eps: float = 1e-5):
                                                      eps, splits=1))
         plain = time_ms(lambda: ln_mlp_reference(x.float(), g, bl, w1.float(),
                                                  b1, w2.float(), b2, eps))
+        composite = time_ms(lambda: dense_ln_mlp(x, g, bl, w1, b1, w2, b2,
+                                                 eps))
         bd = bound_ms(4 * t * d * h, 2 * (2 * t * d + 2 * d * h + t * h))
         rows.append(dict(T=t, D=d, H=h, calls=calls, out_err=oerr,
                          out_rel=orel, hpre_err=herr, hpre_rel=hrel, ms=ms,
-                         ms_whole=ms_whole, plain_ms=plain, bound=bd))
+                         ms_whole=ms_whole, plain_ms=plain,
+                         composite_ms=composite, bound=bd))
         log(f"  ln_mlp T={t:5d} D={d} H={h} x{calls:3d}/step  err out "
             f"{oerr:.2e} (rel {orel:.1e} <= {MLP_TOL}) hidden {herr:.2e} "
             f"(rel {hrel:.1e})  {ms:.4f} ms (hidden unsplit {ms_whole:.4f})"
-            f" plain {plain:.4f} bound {bd[0]:.4f}")
+            f" plain {plain:.4f} composite {composite:.4f} "
+            f"({ms / composite:.2f}x) bound {bd[0]:.4f} "
+            f"({100 * bd[0] / ms:.1f}%)")
     return rows
 
 
@@ -421,15 +447,45 @@ def mlp_operands(gen, t: int, d: int, h: int):
                 b2=rnd(d, scale=0.02).to(bf).float(), do=rnd(t, d).to(bf))
 
 
-def check_mlp_family(calls_b, calls_c, gen):
+def dense_mlp_fwd(x, w1, b1, w2, b2):
+    """K4's composite yardstick: two cuBLAS GEMMs with the float32 GELU
+    between them, on the same bf16 operands."""
+    import torch.nn.functional as F
+    from avsiam_tpu_torch.ops.gelu import gelu_f32
+    act = gelu_f32(F.linear(x, w1, b1.bfloat16()).float(), "ans").bfloat16()
+    return F.linear(act, w2, b2.bfloat16())
+
+
+def dense_mlp_bwd(x, w1, b1, w2, do, weights: bool):
+    """K8's (``weights`` False) and K7's composite yardstick: the dense
+    backward's GEMMs (float32 outputs where the kernels keep float32) and
+    elementwise ops on the same bf16 operands."""
+    from avsiam_tpu_torch.ops.gelu import gelu_act_grad_f32
+    f32 = torch.float32
+    hpre = torch.mm(x, w1.t(), out_dtype=f32) + b1
+    act, grad = gelu_act_grad_f32(hpre, "ans")
+    gh32 = torch.mm(do, w2, out_dtype=f32) * grad
+    gh, act = gh32.bfloat16(), act.bfloat16()
+    dx = gh @ w1
+    if not weights:
+        return dx, gh, act
+    return (dx, torch.mm(gh.t(), x, out_dtype=f32), gh32.sum(dim=0),
+            torch.mm(do.t(), act, out_dtype=f32), do.float().sum(dim=0))
+
+
+def check_mlp_family(phase_calls, extra, gen):
     """K4 (with and without the pre-GELU hidden), K7, K8 and K9 at every
-    (rows, D, H) of phases B and C, against their plain versions in float32
-    on the same values; times of kernel, plain version, and for K9
-    ``torch.mm`` (float32 and bf16 output). ``calls_b`` and ``calls_c`` are
-    ``mlp_shape_launches`` of phases B and C."""
+    (rows, D, H) of phases B, C and E and at ``extra`` shapes (no calls),
+    against their plain versions in float32 on the same values (K7's db1
+    against the plain f32-gh fold); times of kernel, plain version, the
+    composite 'dense' yardstick (not one call) and, for K9, ``torch.mm``
+    (float32 and bf16 output). ``phase_calls`` maps B, C and E to their
+    ``mlp_shape_launches``."""
     from avsiam_tpu_torch.ops import mlp as pm
+    calls_b, calls_c, calls_e = (phase_calls[p] for p in "BCE")
     rows = []
-    for t, d, h in sorted(set(calls_b) | set(calls_c), key=lambda k: -k[0]):
+    for t, d, h in sorted(set(calls_b) | set(calls_c) | set(calls_e)
+                          | set(extra), key=lambda k: (k[1], -k[0])):
         o = mlp_operands(gen, t, d, h)
         x, w1, b1, w2, b2, do = (o[k] for k in ("x", "w1", "b1", "w2", "b2",
                                                 "do"))
@@ -459,14 +515,21 @@ def check_mlp_family(calls_b, calls_c, gen):
         if errs[worst][1] > MLP_TOL:
             raise AssertionError(f"mlp T={t} D={d} H={h}: {worst} rel err "
                                  f"{errs[worst][1]:.3e} > {MLP_TOL}")
+        bwd_parts = time_ms(lambda: pm.mlp_bwd_kernel(x, w1, b1, w2, do),
+                            by_kernel=True)
         ms = dict(
             fwd=time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2)),
             fwd_hpre=time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2,
                                                        True)),
-            bwd=time_ms(lambda: pm.mlp_bwd_kernel(x, w1, b1, w2, do)),
+            bwd=sum(bwd_parts.values()),
             bwd_dx=time_ms(lambda: pm.mlp_bwd_dx_kernel(x, w1, b1, w2, do)),
             dw=time_ms(lambda: pm.weight_grads_kernel(x, gh))
             + time_ms(lambda: pm.weight_grads_kernel(act, do)))
+        # K7's gh pass (with the db1 fold), dx pass and K9 apart
+        split = {k: sum(v for n, v in bwd_parts.items() if any(
+            s in n for s in keys)) for k, keys in (
+                ("gh", ("mlp_gh", "colsum_fold")),
+                ("dx", ("mlp_dx", "mlp_epilogue")), ("k9", ("mlp_dw",)))}
         plain = dict(
             fwd=time_ms(lambda: pm.mlp_fwd_reference(f["x"], f["w1"], b1,
                                                      f["w2"], b2)),
@@ -479,6 +542,11 @@ def check_mlp_family(calls_b, calls_c, gen):
             dw=time_ms(lambda: pm.weight_grads_reference(f["x"], gh.float()))
             + time_ms(lambda: pm.weight_grads_reference(act.float(),
                                                         f["do"])))
+        fwd_c = time_ms(lambda: dense_mlp_fwd(x, w1, b1, w2, b2))
+        composite = dict(
+            fwd=fwd_c, fwd_hpre=fwd_c,
+            bwd=time_ms(lambda: dense_mlp_bwd(x, w1, b1, w2, do, True)),
+            bwd_dx=time_ms(lambda: dense_mlp_bwd(x, w1, b1, w2, do, False)))
         # the f32-output product is K9's function without db; the bf16-output
         # one, the earlier yardstick, is logged beside it
         library = dict(dw=time_ms(lambda: torch.mm(gh.t(), x,
@@ -501,21 +569,39 @@ def check_mlp_family(calls_b, calls_c, gen):
                             bb * (3 * t * d + 2 * d * h + 2 * t * h) + fb * h),
             dw=bound_ms(4 * t * d * h + t * (h + d),
                         bb * 2 * (t * d + t * h) + fb * (2 * d * h + h + d)))
-        cb, cc = calls_b.get((t, d, h), {}), calls_c.get((t, d, h), {})
+        cb, cc, ce = (c.get((t, d, h), {}) for c in (calls_b, calls_c,
+                                                       calls_e))
         calls = dict(fwd=cb.get("mlp_fwd", 0), fwd_hpre=cc.get("mlp_fwd", 0),
                      bwd=cb.get("mlp_bwd", 0), bwd_dx=cc.get("mlp_bwd_dx", 0),
                      dw=cc.get("mlp_dw", 0) // 2)
-        rows.append(dict(T=t, D=d, H=h, calls=calls, errs=errs, ms=ms,
-                         plain_ms=plain, library_ms=library,
-                         mm_bf16_ms=mm_bf16, bound=bounds))
+        row_e = dict(fwd=ce.get("mlp_fwd", 0), bwd=ce.get("mlp_bwd", 0))
+        rows.append(dict(T=t, D=d, H=h, calls=calls, calls_e=row_e,
+                         errs=errs, ms=ms, bwd_split_ms=split,
+                         plain_ms=plain, composite_ms=composite,
+                         library_ms=library, mm_bf16_ms=mm_bf16,
+                         bound=bounds))
         log(f"  mlp T={t:5d} D={d} H={h} calls/step B {calls['fwd']} "
-            f"C {calls['bwd_dx']}+{calls['fwd_hpre']}  worst rel err "
-            f"{errs[worst][1]:.1e} ({worst}) <= {MLP_TOL}")
+            f"C {calls['bwd_dx']}+{calls['fwd_hpre']} E {row_e['bwd']}  "
+            f"worst rel err {errs[worst][1]:.1e} ({worst}) <= {MLP_TOL}")
         for k in ms:
-            extra = (f" mm f32 {library[k]:.4f} (bf16 out {mm_bf16:.4f})"
-                     if k in library else "")
-            log(f"    {k:8s} {ms[k]:.4f} ms plain {plain[k]:.4f}{extra} bound "
-                f"{bounds[k][0]:.4f}")
+            extra_s = (f" mm f32 {library[k]:.4f} (bf16 out {mm_bf16:.4f})"
+                       if k in library else
+                       f" composite {composite[k]:.4f} "
+                       f"({ms[k] / composite[k]:.2f}x)")
+            if k == "bwd":
+                extra_s += (f" [gh {split['gh']:.4f} dx {split['dx']:.4f} "
+                            f"K9 {split['k9']:.4f}]")
+            log(f"    {k:8s} {ms[k]:.4f} ms plain {plain[k]:.4f}{extra_s} "
+                f"bound {bounds[k][0]:.4f} ({100 * bounds[k][0] / ms[k]:.1f}%)")
+    for label, key, field in (("B", "bwd", "calls"), ("C", "bwd_dx", "calls"),
+                              ("E", "bwd", "calls_e"), ("B", "fwd", "calls"),
+                              ("E", "fwd", "calls_e")):
+        tot = {n: sum(r[n][key] * r[field][key] for r in rows)
+               for n in ("ms", "composite_ms", "plain_ms")}
+        bnd = sum(r["bound"][key][0] * r[field][key] for r in rows)
+        log(f"  mlp {key} per phase-{label} step: {tot['ms']:.3f} ms, "
+            f"composite {tot['composite_ms']:.3f}, plain {tot['plain_ms']:.3f},"
+            f" bound {bnd:.3f}")
     return rows
 
 
@@ -702,7 +788,7 @@ def check_float32(gen, eps: float = 1e-5):
         errs[f"ln_mlp T={t} D={d}"] = (rel_err(out, ref)[1],
                                        rel_err(hpre, href)[1])
     from avsiam_tpu_torch.ops import mlp as pm
-    for t, d in ((392, 768), (708, 512)):
+    for t, d in ((392, 768), (708, 512), (156, 1280)):
         o = mlp_operands(gen, t, d, 4 * d)
         x, do = o["x"].float(), o["do"].float()
         w1, b1, w2, b2 = o["w1"], o["b1"], o["w2"], o["b2"]
@@ -776,7 +862,8 @@ def family_entry(name, key, phase, rows, launches, errs, library):
                         if e.split("[")[0] in errs),
         ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=bound(0),
         bound_by="operations" if bound(1) >= bound(2) else "bytes",
-        library_ms=total("library_ms") if library else None, passed=True)
+        library_ms=total("library_ms") if library else None,
+        composite_ms=None if library else total("composite_ms"), passed=True)
 
 
 def row_entry(name, source, replaces, phase, rows, key, launches):
@@ -804,7 +891,10 @@ def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
     """The ``kernels`` line. ``passed`` is true for every entry: each check
     above raises on a failure, so a failed kernel never reaches the line.
     ``launches`` maps each step phase to its counts; an entry's times are
-    per step of the phase it names."""
+    per step of the phase it names. ``library_ms`` is one PyTorch call's
+    time where one computes the same function; K3, K4, K7 and K8 have none,
+    and carry ``composite_ms``, the 'dense' form's GEMMs and elementwise ops
+    on the same operands (not one call)."""
     def total(rows, key):
         return sum(r[key] * r["calls"] for r in rows)
 
@@ -835,7 +925,8 @@ def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
              max_abs_err=max(r["out_err"] for r in mlp_rows),
              ms=total(mlp_rows, "ms"), plain_ms=total(mlp_rows, "plain_ms"),
              bound_ms=mlp_bound, bound_by=bound_by(mlp_rows, "bound"),
-             library_ms=None, passed=True),
+             library_ms=None, composite_ms=total(mlp_rows, "composite_ms"),
+             passed=True),
         family_entry("mlp_fwd", "fwd", "B", fam_rows, launches,
                      ("fwd", "fwd_hpre"), library=False),
         family_entry("mlp_bwd", "bwd", "B", fam_rows, launches, ("bwd",),
@@ -864,7 +955,7 @@ PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5),
           ("C", dict(mlp_impl="fbwd", dec_mlp_impl="fres"), True, False, 5),
           ("D", dict(mlp_impl="lnfres"), False, True, 5),
           ("E", dict(model="cav-mae-huge", attn_impl="pallas",
-                     mlp_impl="dense"), False, False, 3))
+                     mlp_impl="fused"), False, False, 3))
 
 
 def bench_config(depth: int = 12, dec_depth: int = 8, **impls):
@@ -960,10 +1051,15 @@ def main(argv=None) -> int:
     extra = [((2, 102, 12, 64), False), ((2, 39, 12, 64), False),
              ((2, 177, 12, 64), True), ((2, 708, 16, 32), True)]
     attn_rows = check_attention(attn_shapes, extra, gen)
-    mlp_rows = check_ln_mlp(mlp_shapes, gen)
+    # K3 also at ViT-L's (D 1024, H 4096) and ViT-H's (1280, 5120) encoder
+    # shapes, which no step phase runs under 'lnfres'; the MLP family at
+    # ViT-L's beside phase E's ViT-H shapes
+    wide = [(t, d, 4 * d) for d in (1024, 1280) for t in (156, 1024, 1416)]
+    mlp_rows = check_ln_mlp({**mlp_shapes, **{
+        (t, d, h, "lnfres"): 0 for t, d, h in wide}}, gen)
     fam_rows = check_mlp_family(
-        *(mlp_shape_launches(phases[p]["shapes"][1], phases[p]["split"])
-          for p in ("B", "C")), gen)
+        {p: mlp_shape_launches(phases[p]["shapes"][1], phases[p]["split"])
+         for p in "BCE"}, [k for k in wide if k[1] == 1024], gen)
     # K10 at phase D's LN shapes and at ViT-H's width (phase E's encoder
     # LN shapes, which run the torch-ops backward there)
     ln_shapes = dict(phases["D"]["shapes"][2])
@@ -1073,8 +1169,8 @@ KERNEL_GROUPS = (
     ("K10 ln bwd", ("ln_bwd_rows_kernel", "ln_bwd_cols_kernel")),
     ("K3 ln_mlp fwd", ("ln_mlp_fwd",)),
     ("K4 mlp fwd", ("mlp_fwd_kernel",)),
-    ("K7/K8 mlp bwd dx", ("mlp_bwd_dx_kernel",)),
-    ("K7 mlp bwd dw", ("mlp_bwd_dw_kernel",)),
+    ("K7/K8 gh pass", ("mlp_gh_kernel", "colsum_fold")),
+    ("K7/K8 dx pass", ("mlp_dx_kernel",)),
     ("K9 mlp dw", ("mlp_dw_",)),
     ("K3/K4/K7/K8 partial-sum epilogue", ("mlp_epilogue",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),

@@ -167,11 +167,11 @@ def test_two_pass_step_on_the_card(gen):
 
 
 def test_fused_step_on_the_card(gen):
-    """``mlp_impl='fused'`` everywhere: K4 and K7 once per MLP call, K3
-    never."""
+    """``mlp_impl='fused'`` everywhere: K4 and K7 once per MLP call (K7
+    running K9 twice), K3 never."""
     launches = _depth1_step(gen, mlp_impl="fused")
     assert launches == dict(_NO_LAUNCHES, attention_fwd=9, attention_bwd=9,
-                            mlp_fwd=9, mlp_bwd=9)
+                            mlp_fwd=9, mlp_bwd=9, mlp_dw=18)
 
 
 def test_vit_h_shaped_step_on_the_card(gen):
@@ -189,13 +189,40 @@ def test_vit_h_shaped_step_on_the_card(gen):
 def test_wide_variants_step_under_auto(gen, model, attention):
     """ViT-L (dim 1024, 16 heads of 64) and ViT-H (dim 1280, 16 heads of 80)
     in the default impls, 'auto' for attention and the MLP: the MLP kernels
-    do not take their widths, so their blocks take the dense MLP
-    (``mlp_route``) and only the decoder's block (dim 512) folds its LN into
-    K3. ViT-L's attention (D=64) is K1/K2 at every call; ViT-H's (D=80) is
-    the XLA form, K1/K2 only in the decoder."""
+    take their widths, so every block, the decoder's (dim 512) too, folds
+    its LN into K3 (``mlp_route``), as the JAX accelerator branch does.
+    ViT-L's attention (D=64) is K1/K2 at every call; ViT-H's (D=80) is the
+    XLA form, K1/K2 only in the decoder."""
     launches = _depth1_step(gen, model=model)
     assert launches == dict(_NO_LAUNCHES, attention_fwd=attention,
-                            attention_bwd=attention, ln_mlp_fwd=1)
+                            attention_bwd=attention, ln_mlp_fwd=9)
+
+
+# each MLP impl's launches over the 9 MLP calls of a depth-1 step
+_WIDE_MLP_LAUNCHES = {
+    "lnfres": dict(ln_mlp_fwd=9),
+    "fused": dict(mlp_fwd=9, mlp_bwd=9, mlp_dw=18),
+    "fres": dict(mlp_fwd=9),
+    "fbwd-split": dict(mlp_bwd_dx=9, mlp_dw=18),
+    "auto": dict(ln_mlp_fwd=9),
+}
+
+
+@pytest.mark.parametrize("impl", list(_WIDE_MLP_LAUNCHES))
+@pytest.mark.parametrize("model,attention", [
+    ("cav-mae-large", 9), ("cav-mae-huge", 1)], ids=["vit_l", "vit_h"])
+def test_wide_variants_step_under_every_mlp_kernel(gen, monkeypatch, model,
+                                                   attention, impl):
+    """Depth-1 ViT-L and ViT-H steps (encoder D 1024 and 1280, decoder 512)
+    under each MLP kernel impl, 'fbwd' with ``AVSIAM_MLP_BWD=split``: every
+    MLP call launches its kernels at these widths, exactly as often as the
+    step's 9 MLP calls imply, and the step's metrics are finite."""
+    if impl == "fbwd-split":
+        monkeypatch.setenv("AVSIAM_MLP_BWD", "split")
+    launches = _depth1_step(gen, model=model, mlp_impl=impl.split("-")[0])
+    assert launches == dict(_NO_LAUNCHES, attention_fwd=attention,
+                            attention_bwd=attention,
+                            **_WIDE_MLP_LAUNCHES[impl])
 
 
 def test_ln_pallas_step_on_the_card(gen, monkeypatch):
@@ -481,6 +508,9 @@ def _mlp_operands(gen, T, Dm, dtype):
 
 
 MLP_SHAPES = [(1024, 768), (37, 768), (5664, 512)]
+# ViT-L's and ViT-H's encoder widths (H = 4 D), at a phase-E row count and
+# at one that fills no tile
+WIDE_MLP_SHAPES = [(392, 1024), (37, 1024), (1416, 1280), (130, 1280)]
 
 
 @pytest.mark.parametrize("save_hpre", [False, True], ids=["out", "hpre"])
@@ -522,6 +552,52 @@ def test_mlp_bwd_kernels_match_plain_versions(gen, T, Dm, dtype):
         dw, db = pmlp.weight_grads_kernel(a, g)
         wdw, wdb = pmlp.weight_grads_reference(f(a), f(g))
         assert _rel(dw, wdw) <= TOL and _rel(db, wdb) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("T,Dm", WIDE_MLP_SHAPES)
+def test_mlp_kernels_at_wide_widths(gen, T, Dm, dtype):
+    """K3, K4 (with the hidden), K7 and K8 at D 1024 and 1280, each against
+    its plain version on the same values; each launched once."""
+    x, w1, b1, w2, b2, do = _mlp_operands(gen, T, Dm, dtype)
+    f = lambda t: t.float()  # noqa: E731
+    lg = 1.0 + 0.1 * torch.randn(Dm, generator=gen, device="cuda")
+    lb = 0.1 * torch.randn(Dm, generator=gen, device="cuda")
+    kernels.reset_launches()
+    pairs = [
+        (pmlp.ln_mlp_fwd_kernel(x, lg, lb, w1, b1, w2, b2, 1e-5),
+         pmlp.ln_mlp_reference(f(x), lg, lb, f(w1), b1, f(w2), b2, 1e-5)),
+        (pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2, True),
+         pmlp.mlp_fwd_reference(f(x), f(w1), b1, f(w2), b2, save_hpre=True)),
+        (pmlp.mlp_bwd_kernel(x, w1, b1, w2, do),
+         pmlp.mlp_bwd_reference(f(x), f(w1), b1, f(w2), f(do))),
+        (pmlp.mlp_bwd_dx_kernel(x, w1, b1, w2, do),
+         pmlp.mlp_bwd_dx_reference(f(x), f(w1), b1, f(w2), f(do)))]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict(_NO_LAUNCHES, ln_mlp_fwd=1, mlp_fwd=1,
+                                    mlp_bwd=1, mlp_bwd_dx=1, mlp_dw=2)
+    for i, (got, want) in enumerate(pairs):
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert bool(torch.isfinite(g).all()), (i, j)
+            assert _rel(g, w) <= TOL, (i, j)
+
+
+@pytest.mark.parametrize("T,Dm", [(1416, 768), (156, 768), (392, 1280),
+                                  (5664, 512)])
+def test_mlp_backward_passes_give_the_same_bits_every_call(gen, T, Dm):
+    """K8 (the gh and dx passes) and K7 (with K7's db1 fold), called 100
+    times on the same bf16 inputs, give bit-identical outputs: every output
+    element has one owner that sums in a fixed order, the dx pass's split
+    partials too."""
+    x, w1, b1, w2, _, do = _mlp_operands(gen, T, Dm, torch.bfloat16)
+
+    def call():
+        return (*pmlp.mlp_bwd_dx_kernel(x, w1, b1, w2, do),
+                *pmlp.mlp_bwd_kernel(x, w1, b1, w2, do))
+    first = call()
+    for _ in range(100):
+        assert all(torch.equal(a, b) for a, b in zip(call(), first))
 
 
 @pytest.mark.parametrize("T,Dm", MLP_SHAPES)

@@ -364,14 +364,16 @@ def test_weight_grad_tile_takes_the_fewest_waves(m, n, sms, want):
     assert n % tile[0] == 0 and m % tile[1] == 0
 
 
-@pytest.mark.parametrize("dim,folds", [(768, True), (1024, False),
-                                       (1280, False)],
-                         ids=["vit_b", "vit_l", "vit_h"])
+@pytest.mark.parametrize("dim,folds", [(768, True), (1024, True),
+                                       (1280, True), (192, False)],
+                         ids=["vit_b", "vit_l", "vit_h", "unaligned"])
 def test_auto_mlp_route_takes_the_kernels_where_they_take_the_width(
         monkeypatch, dim, folds):
-    """``mlp_route``: 'auto' folds the LN into K3 ('lnfres') at ViT-B's
-    width, which the MLP kernels take, and runs the unfused 'dense' form at
-    ViT-L's and ViT-H's, which they do not take yet; an explicit impl is
+    """``mlp_route``: 'auto' folds the LN into K3 ('lnfres') wherever D and
+    H are multiples of 128, the JAX accelerator branch's condition
+    (``avsiam_tpu/models/layers.py:339-343``): at ViT-B's, ViT-L's and
+    ViT-H's widths, which the MLP kernels take; at a width that is no
+    multiple of 128 it runs the unfused 'dense' form. An explicit impl is
     itself. A block in 'auto' at each width runs its MLP sub-block by that
     route (on the CPU: the plain version of K3, or the dense ops)."""
     hidden = 4 * dim
