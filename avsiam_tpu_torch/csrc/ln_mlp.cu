@@ -1,146 +1,125 @@
-// Fused LayerNorm -> fc1 -> GELU -> fc2 -> residual forward (K3), sm_90a.
+// Fused LayerNorm -> fc1 -> GELU -> fc2 -> residual forward (K3), sm_90a:
+// the LayerNorm rows kernel here, then K4's fc1 and fc2 passes (mlp.cu).
 //
 // Replaces the TPU kernel avsiam_tpu/ops/mlp.py:_lnfwd_call (_lnfwd_kernel),
 // the transformer block's whole MLP sub-block x + fc2(gelu(fc1(LN(x)))):
 //   - LN statistics in f32 with flax's formula (mean-of-squares variance,
-//     clamped at 0; multiplier rstd * scale), normalised rows kept in bf16;
+//     clamped at 0; multiplier rstd * scale), normalised rows in bf16;
 //   - fc1 with bf16 operands and f32 accumulation, plus b1; the pre-GELU
 //     hidden is also written out (the backward's saved residual);
 //   - GELU in f32 in the A&S 'ans' form the Pallas kernel uses for 'erf';
 //   - fc2 with bf16 operands and f32 accumulation; then x + T(y + b2), the
 //     residual add in the activation type T.
 //
-// What bounds it on the H100: its FLOPs (4 T D H) at T of thousands of rows;
-// its bytes are x and out ([T, D]) plus the hidden it must emit ([T, H]).
-// The design keeps LN(x), the f32 hidden and the activation of a 32-row tile
-// on chip: a block normalises its rows into shared memory, then walks its
-// share of the hidden dimension in chunks of 64 columns (fc1 chunk -> bias,
-// hidden out, GELU -> fc2 partial product), holding the [32, D] f32 output
-// accumulator in registers (wmma fragments) across its chunks. Products run
-// on the tensor cores through nvcuda::wmma; weight fragments are read from
-// device memory (L2-resident across blocks).
+// What bounds it on the H100: its FLOPs (4 T D H) at T of hundreds to
+// thousands of rows; its bytes are x and out ([T, D]), the weights and the
+// hidden it must emit ([T, H]). The TPU kernel keeps a row block's LN(x),
+// hidden and activation in VMEM; here the products are K4's two passes on
+// TMA and wgmma (mlp.cu: the fc1 pass, 128-row tiles over 64-wide D slabs;
+// the fc2 pass, 128 x 128 tiles of out over H's slabs, with b2 and the
+// residual in its epilogue), whose A operand comes from device memory by
+// TMA. So LN(x) goes there first: ln_mlp_rows_kernel, a warp a row, writes
+// n = LN(x) in bf16 [T, D] (2.2 MB at T 1416, D 768; the fc1 pass reads it
+// D / 64 slabs at a time, from L2). Its own bound is those bytes, x read
+// and n written.
 //
-// The chunk loop, the partial store and the epilogue are shared with K4
-// (mlp_tile.cuh). D is a run-time width (any multiple of 128); past D =
-// 768 fc2's output columns are cut into column groups across the grid's z,
-// so the f32 accumulator stays at most [32, 768] a block (mlp_tile.cuh). One block per SM fits (its registers), and a block's time
-// grows with the chunks it walks, so the pass-1 calls (T of 156 to 1024
-// rows, 5 to 32 row tiles) would leave most SMs idle. The hidden dimension
-// is therefore split
-// into `splits` contiguous ranges, one block per (row tile, range); each
-// block writes its f32 partial fc2 sum to a workspace [splits, rows, D], and
-// a second kernel adds the partials in a fixed order (deterministic, no
-// atomics), then b2 and the residual. An f32 call stores f32 but multiplies
-// bf16 operands. wgmma, TMA-fed weight tiles and larger row tiles are later
-// work.
-//
-// Weights use nn.Linear's layout: w1 [H, D] (fc1.weight), w2 [D, H]
-// (fc2.weight); biases and LN parameters are f32.
+// LN parameters are f32.
 
-#include "mlp_tile.cuh"
+#include "common.cuh"
 
 namespace {
 
-template <typename T, int YC>
-__global__ void __launch_bounds__(THREADS, 1)
-ln_mlp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
-                  const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  T* __restrict__ hpre, float* __restrict__ partial, int rows,
-                  int D, int H, int splits, float eps) {
-  const MlpSmem sm(D);
-  const int LDN = sm.ldn;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ns = reinterpret_cast<bf16*>(smem + sm.ns);
-  float* Hs = reinterpret_cast<float*>(smem + sm.hs);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + sm.gs);
+constexpr int LN_ROWS_WARPS = 8;  // rows per block, a warp each
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = blockIdx.x * BM;
-  const int chunks = H / HC;  // this block walks chunks [c_begin, c_end)
-  const int c_begin = (int)((long long)blockIdx.y * chunks / splits);
-  const int c_end = (int)((long long)(blockIdx.y + 1) * chunks / splits);
-
-  // 1. LayerNorm of the row tile, f32 statistics -> bf16 rows in Ns
-  for (int r = warp; r < BM; r += WARPS) {
-    const int n = r0 + r;
-    bf16* nrow = Ns + r * LDN;
-    if (n >= rows) {
-      for (int c = lane; c < D; c += 32) nrow[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const T* xr = x + (size_t)n * D;
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = to_f32(xr[c]);
-      s += v;
-      ss += v * v;
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / D;
-    const float var = fmaxf(0.f, ss / D - mu * mu);
-    const float rstd = rsqrtf(var + eps);
-    for (int c = lane; c < D; c += 32)
-      nrow[c] = __float2bfloat16((to_f32(xr[c]) - mu) * (rstd * ln_g[c]) + ln_b[c]);
+// 16 bytes of T as f32 values (8 of bf16, 4 of f32)
+__device__ __forceinline__ void load16(const bf16* p, float (&v)[8]) {
+  union {
+    uint4 u;
+    __nv_bfloat162 h[4];
+  } q;
+  q.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(q.h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
-
-  FragC y[2][YC];
-  zero_rows_acc<YC>(y);
-  __syncthreads();
-  // 2.-4. fc1 -> + b1, hidden out (column group 0) -> GELU -> fc2 on this
-  // block's columns over its chunks
-  const int c0 = blockIdx.z * 128 * YC;
-  fwd_chunks<T, YC>(Ns, Hs, Gs, w1, b1, w2, blockIdx.z == 0 ? hpre : nullptr, r0, rows, D, H,
-                    c0, c_begin, c_end, y);
-  // 5. the partial sum over those chunks
-  store_partial<YC>(partial, y, r0, c0, D);
+}
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
 }
 
-template <typename T, int YC>
-int launch(const void* x, const void* ln_g, const void* ln_b, const void* w1,
-           const void* b1, const void* w2, const void* b2, void* out, void* hpre,
-           void* partial, int rows, int D, int H, int splits, float eps, cudaStream_t stream) {
-  const int smem = MlpSmem(D).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_fwd_kernel<T, YC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (rows + BM - 1) / BM;
-  ln_mlp_fwd_kernel<T, YC><<<dim3(tiles, splits, D / (128 * YC)), THREADS, smem, stream>>>(
+// n [rows, D] bf16 = LN(x) with f32 statistics; D a multiple of 128, rows
+// of x 16-byte aligned. Each lane takes 16-byte runs of its row, so a warp
+// reads 512 contiguous bytes at a time; x is read twice (the second time
+// from L1/L2).
+template <typename T>
+__global__ void __launch_bounds__(LN_ROWS_WARPS * 32)
+ln_mlp_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                   const float* __restrict__ ln_b, bf16* __restrict__ n, int rows, int D,
+                   float eps) {
+  constexpr int V = 16 / sizeof(T);  // values per 16-byte run
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * LN_ROWS_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * D;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane * V; c < D; c += 32 * V) {
+    float v[V];
+    load16(xr + c, v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      s += v[i];
+      ss += v[i] * v[i];
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = s / D;
+  const float var = fmaxf(0.f, ss / D - mu * mu);
+  const float rstd = rsqrtf(var + eps);
+  bf16* nr = n + (size_t)row * D;
+  for (int c = lane * V; c < D; c += 32 * V) {
+    float v[V];
+    load16(xr + c, v);
+    unsigned packed[V / 2];
+#pragma unroll
+    for (int i = 0; i < V; i += 2) {
+      const float n0 = (v[i] - mu) * (rstd * ln_g[c + i]) + ln_b[c + i];
+      const float n1 = (v[i + 1] - mu) * (rstd * ln_g[c + i + 1]) + ln_b[c + i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(n0, n1);
+      packed[i / 2] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(nr + c) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    else
+      *reinterpret_cast<uint2*>(nr + c) = make_uint2(packed[0], packed[1]);
+  }
+}
+
+template <typename T>
+int launch_rows(const void* x, const void* ln_g, const void* ln_b, void* n, int rows, int D,
+                float eps, cudaStream_t stream) {
+  const int blocks = (rows + LN_ROWS_WARPS - 1) / LN_ROWS_WARPS;
+  ln_mlp_rows_kernel<T><<<blocks, LN_ROWS_WARPS * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln_g),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<T*>(hpre),
-      static_cast<float*>(partial), rows, D, H, splits, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_epilogue<T, true, true>(x, partial, b2, out, rows, tiles * BM, D, splits,
-                                             stream);
+      static_cast<const float*>(ln_b), static_cast<bf16*>(n), rows, D, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, out, hpre). D a multiple of 128 cut
-// into `groups` fc2 column groups of 128 YC columns, 1 <= YC <= 6; H a
-// multiple of 64, 1 <= splits <= H / 64. out [rows, D], hpre [rows, H];
-// partial: f32 scratch [splits, ceil(rows / 32) * 32, D].
-extern "C" int avsiam_ln_mlp_fwd(const void* x, const void* ln_g, const void* ln_b,
-                                 const void* w1, const void* b1, const void* w2,
-                                 const void* b2, void* out, void* hpre, void* partial,
-                                 int rows, int D, int H, int splits, int groups, int dtype,
-                                 float eps, void* stream) {
+// K3's LayerNorm: n [rows, D] bf16 = LN(x [rows, D]) with f32 ln_g, ln_b
+// [D]. dtype: 0 = float32, 1 = bfloat16 (x). D a multiple of 128.
+extern "C" int avsiam_ln_mlp_rows(const void* x, const void* ln_g, const void* ln_b, void* n,
+                                  int rows, int D, int dtype, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % HC != 0 || rows <= 0 || splits < 1 || splits > H / HC || !mlp_groups_ok(D, groups))
-    return (int)cudaErrorInvalidValue;
-  const int yc = D / 128 / groups;
-#define AVSIAM_LN_MLP(TYPE, YC) \
-  if (yc == YC)                 \
-  return launch<TYPE, YC>(x, ln_g, ln_b, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits, eps, s)
-#define AVSIAM_LN_MLP_ALL(TYPE)                                                          \
-  AVSIAM_LN_MLP(TYPE, 1); AVSIAM_LN_MLP(TYPE, 2); AVSIAM_LN_MLP(TYPE, 3); \
-  AVSIAM_LN_MLP(TYPE, 4); AVSIAM_LN_MLP(TYPE, 5); AVSIAM_LN_MLP(TYPE, 6)
-  if (dtype == 1) { AVSIAM_LN_MLP_ALL(bf16); }
-  if (dtype == 0) { AVSIAM_LN_MLP_ALL(float); }
-#undef AVSIAM_LN_MLP_ALL
-#undef AVSIAM_LN_MLP
+  if (rows <= 0 || D <= 0 || D % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return launch_rows<bf16>(x, ln_g, ln_b, n, rows, D, eps, s);
+  if (dtype == 0) return launch_rows<float>(x, ln_g, ln_b, n, rows, D, eps, s);
   return (int)cudaErrorInvalidValue;
 }

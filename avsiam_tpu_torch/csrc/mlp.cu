@@ -1,26 +1,47 @@
 // The transformer MLP fc2(gelu(fc1(x))) and its backward (K4, K7, K8, K9),
 // sm_90a. Replaces the TPU kernels of avsiam_tpu/ops/mlp.py:
-//   K4 _fwd_call (_fwd_kernel)            -> mlp_fwd_kernel + epilogue
+//   K4 _fwd_call (_fwd_kernel)            -> mlp_fc1_kernel + mlp_fc2_kernel (+ epilogue)
 //   K7 _bwd_call (_bwd_fused_kernel)      -> mlp_gh_kernel (+ db1 fold) + mlp_dx_kernel + K9 twice
 //   K8 _bwd_call_split (_bwd_dx_kernel)   -> mlp_gh_kernel + mlp_dx_kernel
 //   K9 weight_grads (_dw_kernel)          -> mlp_dw_tc_kernel (bf16), mlp_dw_kernel (f32)
+// K3 (ln_mlp.cu) runs its LayerNorm rows kernel, then K4's two passes.
 //
 // Numerics, as the Pallas kernels have them: bf16 operands with f32
 // accumulation (an f32 call stores f32 but multiplies bf16 operands), the
 // pre-GELU hidden hpre = x w1^T + b1 in f32, GELU and GELU' in f32 in the
-// A&S 'ans' form, gh = (do w2) * gelu'(hpre) in f32. dx and dw1 take gh in
-// bf16; K7's db1 sums the f32 gh, K9's sums the stored gh.
+// A&S 'ans' form, the activation act = gelu(hpre) in bf16, gh = (do w2) *
+// gelu'(hpre) in f32. dx and dw1 take gh in bf16; K7's db1 sums the f32 gh,
+// K9's sums the stored gh.
 //
 // What bounds them on the H100: their FLOPs (4 T D H forward, 10 T D H
-// backward) at T of hundreds to thousands of rows. K4 keeps the [T, H]
-// hidden out of device memory (mlp_tile.cuh, as K3).
+// backward) at T of hundreds to thousands of rows.
 //
-// The backward (redesigned; K7 and K8 share it). The TPU kernels recompute
-// hpre tile by tile and keep gh and act in VMEM; K7 also accumulates dw/db
-// over its sequential grid of row blocks. Blocks on the H100 run in
-// parallel, and a [rows, D] f32 accumulator in registers (the first form
-// here) does not fit past D = 768. So the backward is two passes on wgmma
-// with TMA-fed, swizzled operands (mma.cuh), each owning its output tiles:
+// The passes, each block owning its output tiles. The forward's two and the
+// dx pass share one product loop (slab_product): a 128-row block walks
+// 64-wide slabs of its reduction, fed by one thread's TMA loads into a ring
+// of mbarrier-tracked stages, and multiplies them on wgmma from swizzled
+// shared memory (the layouts in mma.cuh); the gh pass runs the same ring
+// with two products a slab.
+//   - the forward (K3, K4). The TPU kernels keep a row block's hidden in
+//     VMEM between fc1 and fc2; on this card that needs a [128, D] f32
+//     accumulator a block (384 KB at D 768, above an SM's registers). So
+//     the forward is two passes, and act ([T, H] bf16, transient) goes
+//     through device memory, as K7's gh and act do: a design choice for
+//     this card, not a change of function:
+//       the fc1 pass, mlp_fc1_kernel: a block owns a 128-row by 64-hidden
+//       tile of hpre, walks D's slabs (a 3-stage ring of 72 KB, three
+//       blocks an SM, so that one's epilogue overlaps another's products),
+//       adds b1 and writes hpre in the storage type where asked and act in
+//       bf16. 128-wide hidden tiles (two blocks an SM) were timed beside
+//       them at the step shapes: slower at ViT-B's, faster at the
+//       decoder's and some of ViT-H's (PERF.md §6); one width serves;
+//       the fc2 pass, mlp_fc2_kernel: the dx pass with a K-major B, a block
+//       per 128 x 128 tile of out walking H's slabs of act and w2; b2 (and
+//       K3's residual) in registers, or, where H is split across blocks,
+//       in the partial-sum epilogue.
+//   - the backward (K7 and K8 share it). The TPU kernels recompute hpre
+//     tile by tile and keep gh and act in VMEM; K7 also accumulates dw/db
+//     over its sequential grid of row blocks. Here three parts:
 //   - the gh pass, mlp_gh_kernel: a block owns a 128-row by 128-hidden tile,
 //     walks D in 64-wide slabs (TMA into a 3-stage mbarrier ring) and
 //     accumulates x w1^T and do w2 in registers (two 64 x 128 f32 products
@@ -76,51 +97,218 @@
 // (fc2.weight); biases are f32. Gradients likewise: dw1 [H, D], dw2 [D, H].
 
 #include <cuda.h>
+#include <mma.h>
+
+#include <type_traits>
 
 #include "mlp_tile.cuh"
 #include "mma.cuh"
 
 namespace {
 
-// ------------------------------------------------------------------ K4
-template <typename T, int YC>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_fwd_kernel(const T* __restrict__ x, const bf16* __restrict__ w1,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               T* __restrict__ hpre, float* __restrict__ partial, int rows, int D, int H,
-               int splits) {
-  const MlpSmem sm(D);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ns = reinterpret_cast<bf16*>(smem + sm.ns);
-  float* Hs = reinterpret_cast<float*>(smem + sm.hs);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + sm.gs);
+using namespace nvcuda;
 
-  const int r0 = blockIdx.x * BM;
-  const int chunks = H / HC;
-  const int c_begin = (int)((long long)blockIdx.y * chunks / splits);
-  const int c_end = (int)((long long)(blockIdx.y + 1) * chunks / splits);
-  const int c0 = blockIdx.z * 128 * YC;  // this block's fc2 column group
-  load_tile<T, BM, THREADS>(x, D, Ns, sm.ldn, D, r0, rows);  // the row tile in bf16
-  FragC y[2][YC];
-  zero_rows_acc<YC>(y);
-  __syncthreads();
-  fwd_chunks<T, YC>(Ns, Hs, Gs, w1, b1, w2, blockIdx.z == 0 ? hpre : nullptr, r0, rows, D, H,
-                    c0, c_begin, c_end, y);
-  store_partial<YC>(partial, y, r0, c0, D);
+// ------------------------------------ the slab product (K3, K4, K7, K8)
+constexpr int SLAB_BM = 128;  // rows per block, 64 a warpgroup
+constexpr int SLAB_THREADS = SLAB_BM / 64 * 128;
+
+// The B operand of a slab product, BN columns by 64 reduction values:
+// K-major, a [BN, 64] slab of a matrix whose rows are BN's (one TMA box of
+// 64 columns by BN rows), or MN-major, a [64, BN] slab of one whose rows are
+// the reduction's (BN / BOX boxes of BOX columns by 64 rows)
+template <int BN, bool KMAJOR> struct SlabB;
+template <int BN> struct SlabB<BN, true> {
+  using L = GmmaKLayout<BN>;
+  static constexpr int BYTES = L::BYTES, TRANS = 0;
+  static __device__ __forceinline__ void load(unsigned char* dst, const CUtensorMap* map, int n0,
+                                              int k0, uint64_t* bar) {
+    tma_load_2d(dst, map, k0, n0, bar);
+  }
+  static __device__ __forceinline__ uint64_t desc(const unsigned char* p, int kk) {
+    return L::desc(p, 0, kk);
+  }
+};
+template <int BN> struct SlabB<BN, false> {
+  using L = GmmaLayout<BN, 64>;
+  static constexpr int BYTES = L::BYTES, TRANS = 1;
+  static __device__ __forceinline__ void load(unsigned char* dst, const CUtensorMap* map, int n0,
+                                              int k0, uint64_t* bar) {
+#pragma unroll
+    for (int c = 0; c < BN / L::BOX; ++c)
+      tma_load_2d(dst + c * L::LBO, map, n0 + c * L::BOX, k0, bar);
+  }
+  static __device__ __forceinline__ uint64_t desc(const unsigned char* p, int kk) {
+    return L::desc(p + kk * L::KSTEP);
+  }
+};
+
+// a ring of STAGES slabs: A [SLAB_BM, 64] (K-major) and B, then the mbarriers
+template <int BN, bool KB, int STAGES>
+struct SlabSmem {
+  using LA = GmmaKLayout<SLAB_BM>;
+  using B = SlabB<BN, KB>;
+  static constexpr int BK = LA::BK;                    // reduction values per slab
+  static constexpr int STAGE = LA::BYTES + B::BYTES;   // a multiple of 1 KB
+  static constexpr int BAR = STAGES * STAGE;
+  static constexpr int BYTES = BAR + 8 * STAGES + 1024;  // + room to align to 1 KB
+};
+
+// dynamic shared memory rounded up to a 1 KB boundary (the swizzle follows
+// address bits)
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// acc = this warpgroup's 64 rows (of the block's SLAB_BM from r0) of A
+// times B's BN columns from n0, over the slabs [s0, s0 + n) of 64 reduction
+// values. amap: A [rows, K] in boxes of 64 columns by SLAB_BM rows; bmap as
+// SlabB loads it; bf16 with the 128-byte swizzle. One thread issues TMA
+// loads AHEAD slabs ahead into the ring; each warpgroup keeps STAGES - 1 -
+// AHEAD (0 or 1) wgmma groups in flight while it issues the next, so a stage
+// is reloaded only after every product that read it.
+template <int BN, bool KB, int STAGES, int AHEAD>
+__device__ __forceinline__ void slab_product(unsigned char* smem, const CUtensorMap* amap,
+                                             const CUtensorMap* bmap, int r0, int n0, int s0,
+                                             int n, float (&acc)[BN / 2]) {
+  using SM = SlabSmem<BN, KB, STAGES>;
+  using LA = typename SM::LA;
+  using B = typename SM::B;
+  constexpr int IN_FLIGHT = STAGES - 1 - AHEAD;
+  static_assert(IN_FLIGHT == 0 || IN_FLIGHT == 1, "slab ring depth");
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  auto issue = [&](int i) {  // slab s0 + i into its ring stage
+    unsigned char* st = smem + (i % STAGES) * SM::STAGE;
+    uint64_t* bar = bars + i % STAGES;
+    const int k0 = (s0 + i) * SM::BK;
+    mbar_expect_tx(bar, SM::STAGE);
+    tma_load_2d(st, amap, k0, r0, bar);
+    B::load(st + LA::BYTES, bmap, n0, k0, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    for (int i = 0; i < AHEAD && i < n; ++i) issue(i);
+  }
+  __syncthreads();  // the barriers are initialised
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(bars + i % STAGES, (i / STAGES) & 1);  // slab i has landed
+    __syncthreads();  // and every warpgroup is done with the stage slab i + AHEAD takes
+    if (tid == 0 && i + AHEAD < n) {
+      fence_proxy_async();
+      issue(i + AHEAD);
+    }
+    const unsigned char* st = smem + (i % STAGES) * SM::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SM::BK / 16; ++kk)
+      Wgmma<BN, 0, B::TRANS>::run(acc, LA::desc(st, wg * 64, kk), B::desc(st + LA::BYTES, kk));
+    wgmma_commit();
+    wgmma_wait<IN_FLIGHT>();
+  }
+  wgmma_wait<0>();
+}
+
+// f(row, col, v0, v1) for each pair of neighbouring columns this thread
+// holds of its warpgroup's 64 x BN accumulator, the block's rows from r0
+// and columns from c0: rows ra and ra + 8, columns 8 j + 2 t (+ 1)
+template <int BN, typename F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[BN / 2], int r0, int c0, F&& f) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ra = r0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int cb = c0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      f(ra + 8 * half, cb + 8 * j, acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+}
+
+// the slab range [s0, s0 + n) of this block's part (the grid's z) of `slabs`
+__device__ __forceinline__ void split_range(int slabs, int& s0, int& n) {
+  s0 = (int)((long long)blockIdx.z * slabs / gridDim.z);
+  n = (int)((long long)(blockIdx.z + 1) * slabs / gridDim.z) - s0;
+}
+
+// ------------------------------------------------- the fc1 pass (K3, K4)
+constexpr int FC1_BH = 64;  // hidden columns per block (rows: SLAB_BM)
+constexpr int FC1_STAGES = 3;
+
+// xmap: the bf16 rows [rows, D] (x, or K3's LN(x)); wmap: w1 [H, D] in
+// boxes of 64 columns by FC1_BH rows. hpre [rows, H] in T, or null; act
+// [rows, H] bf16. H is a multiple of FC1_BH, so every column tile is whole.
+template <typename T>
+__global__ void __launch_bounds__(SLAB_THREADS, 3)
+mlp_fc1_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               const float* __restrict__ b1, T* __restrict__ hpre, bf16* __restrict__ act,
+               int rows, int D, int H) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_1k(smem_raw);
+  const int h0 = blockIdx.x * FC1_BH, r0 = blockIdx.y * SLAB_BM;
+  float acc[FC1_BH / 2];
+  slab_product<FC1_BH, true, FC1_STAGES, FC1_STAGES - 1>(smem, &xmap, &wmap, r0, h0, 0, D / 64,
+                                                         acc);
+  for_pairs<FC1_BH>(acc, r0, h0, [&](int row, int col, float v0, float v1) {
+    if (row >= rows) return;
+    const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
+    const float a0 = v0 + bb.x, a1 = v1 + bb.y;
+    const size_t o = (size_t)row * H + col;
+    if (hpre != nullptr) store_pair(hpre + o, a0, a1);
+    store_pair(act + o, gelu_ans(a0), gelu_ans(a1));
+  });
+}
+
+// ------------------------------------------------- the fc2 pass (K3, K4)
+constexpr int FC2_BN = 128;  // out columns per block
+constexpr int FC2_STAGES = 4;
+
+// amap: act [rows, H] bf16 in boxes of 64 columns by SLAB_BM rows; wmap: w2
+// [D, H] in boxes of 64 by FC2_BN. With one range of H (the grid's z) the
+// block writes out = T(act w2^T + b2), for K3 (RESID) x + that in T, else
+// its f32 partial product to partial[z] ([rows, D] each).
+template <typename T, bool RESID>
+__global__ void __launch_bounds__(SLAB_THREADS, 1)
+mlp_fc2_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+               const float* __restrict__ b2, const T* __restrict__ x, T* __restrict__ out,
+               float* __restrict__ partial, int rows, int D, int H) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_1k(smem_raw);
+  const int n0 = blockIdx.x * FC2_BN, r0 = blockIdx.y * SLAB_BM;
+  int s0, n;
+  split_range(H / 64, s0, n);
+  float acc[FC2_BN / 2];
+  slab_product<FC2_BN, true, FC2_STAGES, FC2_STAGES - 2>(smem, &amap, &wmap, r0, n0, s0, n, acc);
+  float* part = partial == nullptr ? nullptr : partial + (size_t)blockIdx.z * rows * D;
+  for_pairs<FC2_BN>(acc, r0, n0, [&](int row, int col, float v0, float v1) {
+    if (row >= rows) return;
+    const size_t o = (size_t)row * D + col;
+    if (part != nullptr) {
+      store_pair(part + o, v0, v1);
+      return;
+    }
+    const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+    float y0 = v0 + bb.x, y1 = v1 + bb.y;
+    if (RESID) {  // x + T(y + b2) in T, as mlp_epilogue_kernel adds it
+      const float2 xv = load_pair(x + o);
+      y0 = xv.x + to_f32(from_f32<T>(y0));
+      y1 = xv.y + to_f32(from_f32<T>(y1));
+    }
+    store_pair(out + o, y0, y1);
+  });
 }
 
 // ------------------------------------------------- the gh pass (K7, K8)
-constexpr int GH_BM = 128;  // rows per block, 64 a warpgroup
-constexpr int GH_BH = 128;  // hidden columns per block
+constexpr int GH_BH = 128;  // hidden columns per block (rows: SLAB_BM)
 constexpr int GH_STAGES = 3;
-constexpr int GH_THREADS = GH_BM / 64 * 128;  // a warpgroup per 64 rows
-constexpr int GH_WARPS = GH_THREADS / 32;
+constexpr int GH_WARPS = SLAB_THREADS / 32;
 
 struct GhSmem {
-  using LX = GmmaKLayout<GH_BM>;            // x and do slabs [BM, 64]: A, K-major
-  using LW1 = GmmaKLayout<GH_BH>;           // w1 slab [BH, 64]: B of hpre, K-major
-  using LW2 = GmmaLayout<GH_BH, LX::BK>;    // w2 slab [64, BH]: B of dh, MN-major
-  static constexpr int BK = LX::BK;         // D values per slab
+  using LX = GmmaKLayout<SLAB_BM>;        // x and do slabs [BM, 64]: A, K-major
+  using LW1 = GmmaKLayout<GH_BH>;         // w1 slab [BH, 64]: B of hpre, K-major
+  using LW2 = GmmaLayout<GH_BH, LX::BK>;  // w2 slab [64, BH]: B of dh, MN-major
+  static constexpr int BK = LX::BK;       // D values per slab
   static constexpr int X = 0;
   static constexpr int DO = X + LX::BYTES;
   static constexpr int W1 = DO + LX::BYTES;
@@ -148,13 +336,13 @@ __device__ __forceinline__ void gh_issue_slab(unsigned char* st, uint64_t* bar,
     tma_load_2d(st + SM::W2 + c * LW2::LBO, w2map, h0 + c * LW2::BOX, d0, bar);
 }
 
-// xmap, dmap: x and do [rows, D] in boxes of 64 columns by GH_BM rows; w1map:
+// xmap, dmap: x and do [rows, D] in boxes of 64 columns by SLAB_BM rows; w1map:
 // w1 [H, D] in boxes of 64 by GH_BH; w2map: w2 [D, H] in boxes of 64 by 64;
 // all bf16 with the 128-byte swizzle. gh, act [rows, H] in T; gh16 the bf16
 // gh for the dx pass (written only where T is not bf16); colsum, when not
 // null, [row tiles, H] f32 column sums of each row tile's f32 gh.
 template <typename T>
-__global__ void __launch_bounds__(GH_THREADS, 1)
+__global__ void __launch_bounds__(SLAB_THREADS, 1)
 mlp_gh_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dmap,
               const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
               const float* __restrict__ b1, T* __restrict__ gh, T* __restrict__ act,
@@ -164,10 +352,10 @@ mlp_gh_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
   using LW1 = SM::LW1;
   using LW2 = SM::LW2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = smem_1k(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
-  const int h0 = blockIdx.x * GH_BH, r0 = blockIdx.y * GH_BM;
+  const int h0 = blockIdx.x * GH_BH, r0 = blockIdx.y * SLAB_BM;
   const int slabs = D / SM::BK;
 
   if (tid == 0) {
@@ -264,100 +452,34 @@ __global__ void colsum_fold_kernel(const float* __restrict__ parts, float* __res
 }
 
 // ------------------------------------------------- the dx pass (K7, K8)
-constexpr int DX_BM = 128;  // rows per block, 64 a warpgroup
 constexpr int DX_BN = 128;  // dx columns per block
 constexpr int DX_STAGES = 4;
-constexpr int DX_THREADS = 256;
+using DxSmem = SlabSmem<DX_BN, false, DX_STAGES>;
 
-struct DxSmem {
-  using LA = GmmaKLayout<DX_BM>;          // gh slab [BM, 64 hidden]: A, K-major
-  using LB = GmmaLayout<DX_BN, LA::BK>;   // w1 slab [64 hidden, BN]: B, MN-major
-  static constexpr int BK = LA::BK;       // hidden values per slab
-  static constexpr int STAGE = LA::BYTES + LB::BYTES;  // 32 KB
-  static constexpr int BAR = DX_STAGES * STAGE;
-  static constexpr int BYTES = BAR + 8 * DX_STAGES + 1024;
-};
-
-// slab s (hidden s * 64 ..) of gh and w1 into a ring stage, by TMA
-__device__ __forceinline__ void dx_issue_slab(unsigned char* st, uint64_t* bar,
-                                              const CUtensorMap* gmap, const CUtensorMap* wmap,
-                                              int r0, int n0, int s) {
-  using SM = DxSmem;
-  using LB = SM::LB;
-  const int k0 = s * SM::BK;
-  mbar_expect_tx(bar, SM::STAGE);
-  tma_load_2d(st, gmap, k0, r0, bar);
-#pragma unroll
-  for (int c = 0; c < DX_BN / LB::BOX; ++c)
-    tma_load_2d(st + SM::LA::BYTES + c * LB::LBO, wmap, n0 + c * LB::BOX, k0, bar);
-}
-
-// gmap: gh16 [rows, H] in boxes of 64 columns by DX_BM rows; wmap: w1 [H,
+// gmap: gh16 [rows, H] in boxes of 64 columns by SLAB_BM rows; wmap: w1 [H,
 // D] in boxes of 64 by 64; both bf16 with the 128-byte swizzle. The grid's
 // z cuts H's slabs into contiguous ranges: with one range the block writes
 // dx in T, else its f32 partial product to partial[z] ([rows, D] each).
 template <typename T>
-__global__ void __launch_bounds__(DX_THREADS, 1)
+__global__ void __launch_bounds__(SLAB_THREADS, 1)
 mlp_dx_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap wmap,
               T* __restrict__ dx, float* __restrict__ partial, int rows, int D, int H) {
-  using SM = DxSmem;
-  using LA = SM::LA;
-  using LB = SM::LB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
-  const int n0 = blockIdx.x * DX_BN, r0 = blockIdx.y * DX_BM;
-  const int slabs = H / SM::BK, ranges = gridDim.z;
-  const int s0 = (int)((long long)blockIdx.z * slabs / ranges);
-  const int n = (int)((long long)(blockIdx.z + 1) * slabs / ranges) - s0;
-
-  if (tid == 0) {
-    for (int i = 0; i < DX_STAGES; ++i) mbar_init(bars + i, 1);
-    mbar_init_fence();
-    for (int i = 0; i < DX_STAGES - 2 && i < n; ++i)
-      dx_issue_slab(smem + i * SM::STAGE, bars + i, &gmap, &wmap, r0, n0, s0 + i);
-  }
-  __syncthreads();  // the barriers are initialised
-
-  float acc[DX_BN / 2];  // the warpgroup's 64 x BN accumulator
-#pragma unroll
-  for (int i = 0; i < DX_BN / 2; ++i) acc[i] = 0.f;
-
-  for (int i = 0; i < n; ++i) {
-    mbar_wait(bars + i % DX_STAGES, (i / DX_STAGES) & 1);  // slab i has landed
-    __syncthreads();  // and every warpgroup is done with slab i - 2
-    const int next = i + DX_STAGES - 2;  // into the stage slab i - 2 held
-    if (tid == 0 && next < n) {
-      fence_proxy_async();
-      dx_issue_slab(smem + (next % DX_STAGES) * SM::STAGE, bars + next % DX_STAGES, &gmap,
-                    &wmap, r0, n0, s0 + next);
-    }
-    const unsigned char* st = smem + (i % DX_STAGES) * SM::STAGE;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < SM::BK / 16; ++kk)
-      wgmma_m64n128<0, 1>(acc, LA::desc(st, wg * 64, kk),
-                          LB::desc(st + LA::BYTES + kk * LB::KSTEP));
-    wgmma_commit();
-    wgmma_wait<1>();  // slab i - 1's products are done
-  }
-  wgmma_wait<0>();
-
-  const int ra = r0 + wg * 64 + (warp & 3) * 16 + (lane >> 2), col = n0 + 2 * (lane & 3);
+  unsigned char* smem = smem_1k(smem_raw);
+  const int n0 = blockIdx.x * DX_BN, r0 = blockIdx.y * SLAB_BM;
+  int s0, n;
+  split_range(H / 64, s0, n);
+  float acc[DX_BN / 2];
+  slab_product<DX_BN, false, DX_STAGES, DX_STAGES - 2>(smem, &gmap, &wmap, r0, n0, s0, n, acc);
   float* part = partial == nullptr ? nullptr : partial + (size_t)blockIdx.z * rows * D;
-#pragma unroll
-  for (int j = 0; j < DX_BN / 8; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = ra + 8 * half, i = 4 * j + 2 * half;
-      if (row >= rows) continue;
-      const size_t o = (size_t)row * D + col + 8 * j;
-      if (part != nullptr)
-        store_pair(part + o, acc[i], acc[i + 1]);
-      else
-        store_pair(dx + o, acc[i], acc[i + 1]);
-    }
+  for_pairs<DX_BN>(acc, r0, n0, [&](int row, int col, float v0, float v1) {
+    if (row >= rows) return;
+    const size_t o = (size_t)row * D + col;
+    if (part != nullptr)
+      store_pair(part + o, v0, v1);
+    else
+      store_pair(dx + o, v0, v1);
+  });
 }
 
 // ------------------------------------------------------------------ K9
@@ -406,18 +528,6 @@ __device__ __forceinline__ void dw_issue_slab(unsigned char* stage, uint64_t* ba
     tma_load_2d(stage + LA::BYTES + c * LB::LBO, amap, m0 + c * LB::BOX, s * DW_BK, bar);
 }
 
-template <int N> struct Wgmma;
-template <> struct Wgmma<96> {
-  static __device__ __forceinline__ void run(float (&d)[48], uint64_t a, uint64_t b) {
-    wgmma_m64n96(d, a, b);
-  }
-};
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
-    wgmma_m64n128(d, a, b);
-  }
-};
-
 // gmap, amap: TMA maps of g [rows, n] and a [rows, m] with boxes of DW_BK
 // rows by GmmaLayout's BOX columns and its swizzle
 template <int BM, int BN>
@@ -429,7 +539,7 @@ mlp_dw_tc_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant
   using LB = typename SM::LB;
   constexpr int PAIRS = BM / 2;  // db column pairs, one per thread of each quarter
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = smem_1k(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SM::BAR);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
   const int n0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
@@ -500,6 +610,51 @@ mlp_dw_tc_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant
 // float32 storage (off the step path): the first form, a block of 4 warps per
 // 64 x 64 tile of dw walking all rows in order through wmma; db sums the
 // unrounded f32 g
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
+
+// 16 bytes of T values stored as bf16 at p (16 bytes from bf16, 8 from f32)
+__device__ __forceinline__ void store_bf16(bf16* p, const uint4& v, bf16) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+__device__ __forceinline__ void store_bf16(bf16* p, const uint4& v, float) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(__uint_as_float(v.x), __uint_as_float(v.y));
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(__uint_as_float(v.z), __uint_as_float(v.w));
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Rows [r0, r0 + ROWS) of `cols` columns (ROWS * cols a multiple of NT 16-byte
+// loads), row r at src + r * ld, into a bf16 tile with row stride `ldd`;
+// zeros past `rows`. 16-byte loads, NT threads, each issuing its loads in
+// groups of 8 so that their latencies overlap. Rows must start 16-byte
+// aligned.
+template <typename T, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t ld, bf16* dst,
+                                          int ldd, int cols, int r0, int rows) {
+  constexpr int V = 16 / sizeof(T);  // values per load
+  constexpr int G = 8;
+  const int PER_ROW = cols / V;
+  const int N = ROWS * PER_ROW / NT;  // loads per thread
+  for (int k0 = 0; k0 < N; k0 += G) {
+    uint4 v[G];
+#pragma unroll
+    for (int k = 0; k < G && k0 + k < N; ++k) {
+      const int i = threadIdx.x + (k0 + k) * NT, n = r0 + i / PER_ROW;
+      v[k] = n < rows ? reinterpret_cast<const uint4*>(src + (size_t)n * ld)[i % PER_ROW]
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < G && k0 + k < N; ++k) {
+      const int i = threadIdx.x + (k0 + k) * NT;
+      store_bf16(dst + (i / PER_ROW) * ldd + (i % PER_ROW) * V, v[k], T());
+    }
+  }
+}
+
 constexpr int DW_TILE = 64;   // dw tile edge
 constexpr int DW_ROWS = 32;   // rows per step
 constexpr int DW_THREADS = 128;
@@ -556,24 +711,6 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int YC>
-int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-               void* out, void* hpre, void* partial, int rows, int D, int H, int splits,
-               cudaStream_t stream) {
-  const int smem = MlpSmem(D).bytes;
-  cudaError_t err = allow_smem(mlp_fwd_kernel<T, YC>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (rows + BM - 1) / BM;
-  mlp_fwd_kernel<T, YC><<<dim3(tiles, splits, D / (128 * YC)), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<T*>(hpre), static_cast<float*>(partial), rows,
-      D, H, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_epilogue<T, true, false>(nullptr, partial, b2, out, rows, tiles * BM, D,
-                                              splits, stream);
-}
-
 // cuTensorMapEncodeTiled, looked up at run time (no link to libcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -623,15 +760,15 @@ int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, c
               cudaStream_t stream) {
   using SM = GhSmem;
   CUtensorMap xmap, dmap, w1map, w2map;
-  if (!tma_map(&xmap, x16, rows, D, SM::BK, GH_BM, 128) ||
-      !tma_map(&dmap, do16, rows, D, SM::BK, GH_BM, 128) ||
+  if (!tma_map(&xmap, x16, rows, D, SM::BK, SLAB_BM, 128) ||
+      !tma_map(&dmap, do16, rows, D, SM::BK, SLAB_BM, 128) ||
       !tma_map(&w1map, w1, H, D, SM::BK, GH_BH, 128) ||
       !tma_map(&w2map, w2, D, H, SM::LW2::BOX, SM::BK, SM::LW2::SW))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(mlp_gh_kernel<T>, SM::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (rows + GH_BM - 1) / GH_BM;
-  mlp_gh_kernel<T><<<dim3((H + GH_BH - 1) / GH_BH, tiles), GH_THREADS, SM::BYTES, stream>>>(
+  const int tiles = (rows + SLAB_BM - 1) / SLAB_BM;
+  mlp_gh_kernel<T><<<dim3((H + GH_BH - 1) / GH_BH, tiles), SLAB_THREADS, SM::BYTES, stream>>>(
       xmap, dmap, w1map, w2map, static_cast<const float*>(b1), static_cast<T*>(gh),
       static_cast<T*>(act), static_cast<bf16*>(gh16), static_cast<float*>(colsum), rows, D, H);
   err = cudaGetLastError();
@@ -642,23 +779,59 @@ int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, c
 }
 
 template <typename T>
+int launch_fc1(const void* x16, const void* w1, const void* b1, void* hpre, void* act, int rows,
+               int D, int H, cudaStream_t stream) {
+  using SM = SlabSmem<FC1_BH, true, FC1_STAGES>;
+  CUtensorMap xmap, wmap;
+  if (!tma_map(&xmap, x16, rows, D, SM::BK, SLAB_BM, 128) ||
+      !tma_map(&wmap, w1, H, D, SM::BK, FC1_BH, 128))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_fc1_kernel<T>, SM::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H / FC1_BH, (rows + SLAB_BM - 1) / SLAB_BM);
+  mlp_fc1_kernel<T><<<grid, SLAB_THREADS, SM::BYTES, stream>>>(
+      xmap, wmap, static_cast<const float*>(b1), static_cast<T*>(hpre), static_cast<bf16*>(act),
+      rows, D, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool RESID>
+int launch_fc2(const void* act, const void* w2, const void* b2, const void* x, void* out,
+               void* partial, int rows, int D, int H, int splits, cudaStream_t stream) {
+  using SM = SlabSmem<FC2_BN, true, FC2_STAGES>;
+  CUtensorMap amap, wmap;
+  if (!tma_map(&amap, act, rows, H, SM::BK, SLAB_BM, 128) ||
+      !tma_map(&wmap, w2, D, H, SM::BK, FC2_BN, 128))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(mlp_fc2_kernel<T, RESID>, SM::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(D / FC2_BN, (rows + SLAB_BM - 1) / SLAB_BM, splits);
+  mlp_fc2_kernel<T, RESID><<<grid, SLAB_THREADS, SM::BYTES, stream>>>(
+      amap, wmap, static_cast<const float*>(b2), static_cast<const T*>(x), static_cast<T*>(out),
+      splits > 1 ? static_cast<float*>(partial) : nullptr, rows, D, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)launch_epilogue<T, true, RESID>(x, partial, b2, out, rows, D, splits, stream);
+}
+
+template <typename T>
 int launch_dx(const void* gh16, const void* w1, void* dx, void* partial, int rows, int D, int H,
               int splits, cudaStream_t stream) {
   using SM = DxSmem;
   CUtensorMap gmap, wmap;
-  if (!tma_map(&gmap, gh16, rows, H, SM::BK, DX_BM, 128) ||
-      !tma_map(&wmap, w1, H, D, SM::LB::BOX, SM::BK, SM::LB::SW))
+  if (!tma_map(&gmap, gh16, rows, H, SM::BK, SLAB_BM, 128) ||
+      !tma_map(&wmap, w1, H, D, SM::B::L::BOX, SM::BK, SM::B::L::SW))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(mlp_dx_kernel<T>, SM::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(D / DX_BN, (rows + DX_BM - 1) / DX_BM, splits);
-  mlp_dx_kernel<T><<<grid, DX_THREADS, SM::BYTES, stream>>>(
+  const dim3 grid(D / DX_BN, (rows + SLAB_BM - 1) / SLAB_BM, splits);
+  mlp_dx_kernel<T><<<grid, SLAB_THREADS, SM::BYTES, stream>>>(
       gmap, wmap, static_cast<T*>(dx), splits > 1 ? static_cast<float*>(partial) : nullptr,
       rows, D, H);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)launch_epilogue<T, false, false>(nullptr, partial, nullptr, dx, rows, rows, D,
-                                               splits, stream);
+  return (int)launch_epilogue<T, false, false>(nullptr, partial, nullptr, dx, rows, D, splits,
+                                               stream);
 }
 
 template <int BM, int BN>
@@ -679,27 +852,38 @@ int launch_dw_tc(const void* a, const void* g, void* dw, void* db, int rows, int
 // dtype: 0 = float32, 1 = bfloat16 (x, out, hpre, dx, gh, act, a, g). Each
 // returns cudaGetLastError().
 
-// K4: out [rows, D]; hpre [rows, H] or null. D a multiple of 128 cut into
-// `groups` fc2 column groups of 128 YC columns, 1 <= YC <= 6; H a multiple
-// of 64, 1 <= splits <= H / 64. partial: f32 scratch [splits, ceil(rows /
-// 32) * 32, D].
-extern "C" int avsiam_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* out, void* hpre, void* partial, int rows,
-                              int D, int H, int splits, int groups, int dtype, void* stream) {
+// The fc1 pass of K3 and K4: x16 [rows, D] bf16 (D a multiple of 64), w1
+// [H, D] bf16, b1 [H] f32 (H a multiple of 64); hpre [rows, H] in dtype
+// (or null), act [rows, H] bf16.
+extern "C" int avsiam_mlp_fc1(const void* x16, const void* w1, const void* b1, void* hpre,
+                              void* act, int rows, int D, int H, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % HC != 0 || rows <= 0 || splits < 1 || splits > H / HC || !mlp_groups_ok(D, groups))
+  if (rows <= 0 || D <= 0 || H <= 0 || D % 64 != 0 || H % FC1_BH != 0)
     return (int)cudaErrorInvalidValue;
-  const int yc = D / 128 / groups;
-#define AVSIAM_MLP(TYPE, YC) \
-  if (yc == YC)              \
-  return launch_fwd<TYPE, YC>(x, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits, s)
-#define AVSIAM_MLP_ALL(TYPE)                                                \
-  AVSIAM_MLP(TYPE, 1); AVSIAM_MLP(TYPE, 2); AVSIAM_MLP(TYPE, 3); \
-  AVSIAM_MLP(TYPE, 4); AVSIAM_MLP(TYPE, 5); AVSIAM_MLP(TYPE, 6)
-  if (dtype == 1) { AVSIAM_MLP_ALL(bf16); }
-  if (dtype == 0) { AVSIAM_MLP_ALL(float); }
-#undef AVSIAM_MLP_ALL
-#undef AVSIAM_MLP
+  if (dtype == 1) return launch_fc1<bf16>(x16, w1, b1, hpre, act, rows, D, H, s);
+  if (dtype == 0) return launch_fc1<float>(x16, w1, b1, hpre, act, rows, D, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fc2 pass of K3 and K4: out [rows, D] in dtype = act16 [rows, H]
+// (bf16) w2^T (w2 [D, H] bf16) + b2 ([D] f32), plus the residual x ([rows,
+// D] in dtype) where it is not null. D a multiple of 128, H of 64; 1 <=
+// splits <= H / 64 ranges of H; partial: f32 scratch [splits, rows, D]
+// where splits > 1 (else unused).
+extern "C" int avsiam_mlp_fc2(const void* act16, const void* w2, const void* b2, const void* x,
+                              void* out, void* partial, int rows, int D, int H, int splits,
+                              int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || D <= 0 || H <= 0 || D % FC2_BN != 0 || H % 64 != 0 || splits < 1 ||
+      splits > H / 64 || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define AVSIAM_FC2(TYPE)                                                                    \
+  return x != nullptr                                                                       \
+             ? launch_fc2<TYPE, true>(act16, w2, b2, x, out, partial, rows, D, H, splits, s) \
+             : launch_fc2<TYPE, false>(act16, w2, b2, x, out, partial, rows, D, H, splits, s)
+  if (dtype == 1) AVSIAM_FC2(bf16);
+  if (dtype == 0) AVSIAM_FC2(float);
+#undef AVSIAM_FC2
   return (int)cudaErrorInvalidValue;
 }
 
@@ -728,8 +912,8 @@ extern "C" int avsiam_mlp_bwd_gh(const void* x16, const void* w1, const void* b1
 extern "C" int avsiam_mlp_bwd_dx(const void* gh16, const void* w1, void* dx, void* partial,
                                  int rows, int D, int H, int splits, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || D <= 0 || H <= 0 || D % DX_BN != 0 || H % DxSmem::BK != 0 || splits < 1 ||
-      splits > H / DxSmem::BK || (splits > 1 && partial == nullptr))
+  if (rows <= 0 || D <= 0 || H <= 0 || D % DX_BN != 0 || H % 64 != 0 || splits < 1 ||
+      splits > H / 64 || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) return launch_dx<bf16>(gh16, w1, dx, partial, rows, D, H, splits, s);
   if (dtype == 0) return launch_dx<float>(gh16, w1, dx, partial, rows, D, H, splits, s);

@@ -3,8 +3,9 @@
 // cp.async (K6); wgmma m64nNk16 with operands in swizzled shared memory, fed
 // by TMA loads that complete on mbarriers (K9).
 //
-// K-major wgmma operands (GmmaKLayout) serve the MLP backward's gh and dx
-// passes (K7, K8), whose x, do and gh rows are reduction-contiguous.
+// K-major wgmma operands (GmmaKLayout) serve the MLP passes (K3, K4, K7,
+// K8), whose x, do, act and gh rows and w1 and w2 rows are
+// reduction-contiguous.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A 16 x 16, four 32-bit registers of two bf16 each: a0 = (g, 2t..2t+1),
@@ -280,5 +281,47 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
+
+// d += A B, m64n64k16: A [64 x 16] and B [16 x 64] from shared memory, d f32
+// [64 x 64]; TA, TB as for m64n128
+template <int TA = 1, int TB = 1>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A B with N columns (64, 96 or 128): a 64 x N f32 accumulator of N / 2
+// values a thread; TA, TB as above (m64n96 only MN-major)
+template <int N, int TA = 1, int TB = 1> struct Wgmma;
+template <int TA, int TB> struct Wgmma<64, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b) {
+    wgmma_m64n64<TA, TB>(d, a, b);
+  }
+};
+template <> struct Wgmma<96, 1, 1> {
+  static __device__ __forceinline__ void run(float (&d)[48], uint64_t a, uint64_t b) {
+    wgmma_m64n96(d, a, b);
+  }
+};
+template <int TA, int TB> struct Wgmma<128, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) {
+    wgmma_m64n128<TA, TB>(d, a, b);
+  }
+};
 
 }  // namespace

@@ -52,14 +52,13 @@ _SIGNATURES = {
     # scale, stream
     "avsiam_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P),
-    # x, ln_g, ln_b, w1, b1, w2, b2, out, hpre, partial, rows, D, H, splits,
-    # column groups, dtype, eps, stream
-    "avsiam_ln_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _F, _P),
-    # x, w1, b1, w2, b2, out, hpre (or None), partial, rows, D, H, splits,
-    # column groups, dtype, stream
-    "avsiam_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P),
+    # x, ln_g, ln_b, n16, rows, D, dtype, eps, stream
+    "avsiam_ln_mlp_rows": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x16, w1, b1, hpre (or None), act16, rows, D, H, dtype, stream
+    "avsiam_mlp_fc1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # act16, w2, b2, x (residual, or None), out, partial (or None), rows, D,
+    # H, splits, dtype, stream
+    "avsiam_mlp_fc2": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x16, w1, b1, w2, do16, gh, act, gh16, colsum (or None), db1 (or
     # None), rows, D, H, dtype, stream
     "avsiam_mlp_bwd_gh": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -6,9 +6,12 @@ path) and ``fused_mlp`` with its three custom VJPs. The Pallas kernels are
 the CUDA kernels of ``csrc/ln_mlp.cu`` and ``csrc/mlp.cu``:
 
 - K3 ``ln_mlp_fwd_kernel`` (``_lnfwd_call``): LN -> fc1 -> GELU -> fc2 ->
-  residual, emitting the pre-GELU hidden;
+  residual, emitting the pre-GELU hidden: the LN rows kernel
+  (``ln_mlp_rows_kernel``, LN(x) in bf16), then K4's two passes, the fc2
+  pass adding the residual;
 - K4 ``mlp_fwd_kernel`` (``_fwd_call``): fc1 -> GELU -> fc2, optionally
-  emitting the pre-GELU hidden;
+  emitting the pre-GELU hidden: the fc1 pass (``mlp_fc1_kernel``: hpre, and
+  act in bf16) and the fc2 pass (``mlp_fc2_kernel``: act w2^T + b2);
 - K7 ``mlp_bwd_kernel`` (``_bwd_call``): the backward recomputing the hidden,
   dx plus float32 dw1, db1, dw2, db2: the gh pass (``mlp_gh_kernel``, with
   the per-row-tile float32 column sums of gh folded into db1), the dx pass
@@ -53,13 +56,11 @@ from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_vjp
 FUSED_IMPLS = ("fused", "fbwd", "fres")
 DIM_ALIGN = 128    # the kernels take D a multiple of it
 HIDDEN_CHUNK = 64  # hidden columns per step of the kernels' loops
-ROW_TILE = 32      # rows per block of K3 and K4
-MAX_COL_FRAGS = 6  # K3/K4: fc2 columns a block holds, in 128-column units
 MAX_SPLITS = 16    # bounds the f32 partial sums at 16 x [T, D]
 WEIGHT_GRAD_TILE = 128  # K9 takes dw [n, m] with m and n multiples of it
 WEIGHT_GRAD_TILES = ((192, 96), (128, 128))  # K9's bf16 dw tiles (rows, cols)
 GH_TILE = 128      # the gh pass: rows and hidden columns per block
-DX_TILE = 128      # the dx pass: rows and columns of dx per block
+DX_TILE = 128      # the dx and fc2 passes: rows and columns of a block's tile
 # the dx pass's split cost: bytes of f32 partial sums written and read back
 # that take about as long as one block's 128 x 128 x 64 product step
 PARTIAL_BYTES_PER_STEP = 1 << 20
@@ -72,32 +73,6 @@ def kernel_takes(dim: int, hidden: int) -> bool:
     H a multiple of 64)."""
     return (dim > 0 and dim % DIM_ALIGN == 0 and hidden > 0
             and hidden % DIM_ALIGN == 0)
-
-
-def fwd_column_groups(dim: int) -> int:
-    """Into how many fc2 column groups (one block each) K3 and K4 cut D: the
-    fewest that leave a block at most ``MAX_COL_FRAGS`` x 128 columns, each
-    group the same width. One group up to D = 768; two at ViT-L's 1024 and
-    ViT-H's 1280 (512 and 640 columns)."""
-    units = dim // DIM_ALIGN
-    return next(g for g in range(1, units + 1)
-                if units % g == 0 and units // g <= MAX_COL_FRAGS)
-
-
-def hidden_splits(rows: int, hidden: int, num_sms: int,
-                  groups: int = 1) -> int:
-    """Into how many ranges K3 and K4 split the hidden dimension. One block
-    (row tile, range, column group) fits on an SM at a time and takes time
-    in proportion to its chunks, so the call takes about waves * chunks per
-    block; the smallest split count (the least f32 partial traffic) that
-    minimises that."""
-    tiles = -(-rows // ROW_TILE) * groups
-    chunks = hidden // HIDDEN_CHUNK
-
-    def cost(s):
-        return -(-tiles * s // num_sms) * -(-chunks // s)
-
-    return min(range(1, min(chunks, MAX_SPLITS) + 1), key=cost)
 
 
 def dx_splits(rows: int, dim: int, hidden: int, num_sms: int) -> int:
@@ -170,7 +145,7 @@ def _check_aligned(name: str, *tensors) -> None:
 
 def _check_operands(name: str, device, *specs) -> None:
     """Each (label, tensor, shape, dtype) must match and be a contiguous
-    32-byte-aligned tensor on ``device`` (wmma reads weights in place)."""
+    32-byte-aligned tensor on ``device`` (TMA reads weights in place)."""
     for label, t, shape, dtype in specs:
         if (t.shape != shape or t.dtype != dtype or t.device != device
                 or not t.is_contiguous() or t.data_ptr() % 32 != 0):
@@ -188,21 +163,6 @@ def _weight_specs(w1, b1, w2, D, H, b2=None):
     return specs
 
 
-def _splits(splits, T: int, H: int, groups: int, device) -> int:
-    if splits is None:
-        splits = hidden_splits(T, H, kernels.num_sms(device), groups)
-    if not 1 <= splits <= H // HIDDEN_CHUNK:
-        raise ValueError(f"splits must be in [1, {H // HIDDEN_CHUNK}], got "
-                         f"{splits}")
-    return splits
-
-
-def _partial(splits: int, T: int, D: int, device) -> torch.Tensor:
-    """f32 scratch for the per-range partial sums of a [T, D] output."""
-    return torch.empty((splits, -(-T // ROW_TILE) * ROW_TILE, D),
-                       dtype=torch.float32, device=device)
-
-
 def _kernel_weights(w1, b1, w2, b2=None):
     """Weights in bf16 and biases in f32, as the kernels take them."""
     bf16, f32 = torch.bfloat16, torch.float32
@@ -211,30 +171,88 @@ def _kernel_weights(w1, b1, w2, b2=None):
             None if b2 is None else b2.to(f32).contiguous())
 
 
-# --------------------------------------------------------- K3 (lnfres)
-def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
-                      splits=None):
+# ------------------------------------------------------ K3, K4 forward
+def mlp_fc1_reference(x2, w1, b1, gelu: str = "erf"):
+    """Plain version of the fc1 pass on [T, D] rows: (the pre-GELU hidden
+    in float32, act = gelu(hidden) rounded to x2's dtype, as the JAX kernels
+    round it before fc2); products in float32 from the given values."""
+    f32 = torch.float32
+    hpre = x2.to(f32) @ w1.to(f32).T + b1.to(f32)
+    return hpre, gelu_f32(hpre, kernel_impl(gelu)).to(x2.dtype)
+
+
+def mlp_fc2_reference(act, w2, b2, resid=None):
+    """Plain version of the fc2 pass: act @ w2^T + b2 in float32, rounded
+    to act's dtype, then ``resid +`` that in that dtype (K3) where given."""
+    f32 = torch.float32
+    y = (act.to(f32) @ w2.to(f32).T + b2.to(f32)).to(act.dtype)
+    return y if resid is None else resid + y
+
+
+def _fc1_pass(x16, w1, b1, dtype, save_hpre: bool):
+    """The fc1 pass on the card: (hpre [T, H] in ``dtype`` or None, act
+    [T, H] in bf16) from bf16 rows x16."""
+    T, D = x16.shape
+    H = w1.shape[0]
+    dev = x16.device
+    hpre = (torch.empty((T, H), dtype=dtype, device=dev) if save_hpre
+            else None)
+    act = torch.empty((T, H), dtype=torch.bfloat16, device=dev)
+    err = kernels.library().avsiam_mlp_fc1(
+        x16.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        None if hpre is None else hpre.data_ptr(), act.data_ptr(), T, D, H,
+        kernels.DTYPE_CODES[dtype], kernels.stream_handle(x16))
+    kernels.check(err, "MLP forward fc1 pass")
+    return hpre, act
+
+
+def _fc2_pass(act, w2, b2, dtype, splits: int, resid=None):
+    """The fc2 pass on the card: act [T, H] (bf16) @ w2^T + b2 in
+    ``dtype``, plus ``resid`` [T, D] where given (K3), H split into
+    ``splits`` ranges."""
+    T, H = act.shape
+    D = w2.shape[0]
+    dev = act.device
+    out = torch.empty((T, D), dtype=dtype, device=dev)
+    partial = (torch.empty((splits, T, D), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    err = kernels.library().avsiam_mlp_fc2(
+        act.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        None if resid is None else resid.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), T, D, H, splits,
+        kernels.DTYPE_CODES[dtype], kernels.stream_handle(act))
+    kernels.check(err, "MLP forward fc2 pass")
+    return out
+
+
+def _fwd_passes(x16, w1, b1, w2, b2, dtype, save_hpre: bool, resid=None):
+    """The fc1 and fc2 passes, the fc2 pass splitting H as the dx pass
+    does (``dx_splits``: the same [T, H] by [H, D] product): (out, hpre or
+    None) in ``dtype``."""
+    T, D = x16.shape
+    H = w1.shape[0]
+    hpre, act = _fc1_pass(x16, w1, b1, dtype, save_hpre)
+    splits = dx_splits(T, D, H, kernels.num_sms(x16.device))
+    return _fc2_pass(act, w2, b2, dtype, splits, resid), hpre
+
+
+def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     """K3 on [T, D] rows of float32 or bfloat16: returns (out, pre-GELU
-    hidden) in x2's dtype. Weights bf16, LN parameters and biases f32.
-    ``splits`` (default ``hidden_splits``) sets into how many ranges the
-    hidden dimension is cut across blocks."""
+    hidden) in x2's dtype. Weights bf16, LN parameters and biases f32. The
+    LN rows kernel writes LN(x) in bf16, the fc1 pass reads it, and the fc2
+    pass adds the residual x."""
     T, D, H = _rows_geometry("LN-MLP", x2, w1)
     f32 = torch.float32
+    _check_aligned("LN-MLP", x2)
     _check_operands("LN-MLP", x2.device, *_weight_specs(w1, b1, w2, D, H, b2),
                     ("ln_scale", ln_scale, (D,), f32),
                     ("ln_bias", ln_bias, (D,), f32))
-    lib = kernels.library()
-    groups = fwd_column_groups(D)
-    splits = _splits(splits, T, H, groups, x2.device)
-    out = torch.empty_like(x2)
-    hpre = torch.empty((T, H), dtype=x2.dtype, device=x2.device)
-    partial = _partial(splits, T, D, x2.device)
-    err = lib.avsiam_ln_mlp_fwd(
-        x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        hpre.data_ptr(), partial.data_ptr(), T, D, H, splits, groups,
-        kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
-    kernels.check(err, "LN-MLP forward")
+    n16 = torch.empty((T, D), dtype=torch.bfloat16, device=x2.device)
+    err = kernels.library().avsiam_ln_mlp_rows(
+        x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), n16.data_ptr(),
+        T, D, kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
+    kernels.check(err, "LN-MLP LayerNorm rows")
+    out, hpre = _fwd_passes(n16, w1, b1, w2, b2, x2.dtype, True, resid=x2)
     kernels.LAUNCHES["ln_mlp_fwd"] += 1
     return out, hpre
 
@@ -326,25 +344,15 @@ def mlp_fwd_reference(x2, w1, b1, w2, b2, gelu: str = "erf",
 
 def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False):
     """K4 on [T, D] rows of float32 or bfloat16: out, or (out, pre-GELU
-    hidden) with ``save_hpre``, in x2's dtype. Weights bf16, biases f32."""
+    hidden) with ``save_hpre``, in x2's dtype. Weights bf16, biases f32. An
+    f32 call feeds the fc1 pass x cast to bf16 (the operand it multiplies
+    in either storage)."""
     T, D, H = _rows_geometry("MLP forward", x2, w1)
     _check_aligned("MLP forward", x2)
     _check_operands("MLP forward", x2.device,
                     *_weight_specs(w1, b1, w2, D, H, b2))
-    lib = kernels.library()
-    groups = fwd_column_groups(D)
-    splits = hidden_splits(T, H, kernels.num_sms(x2.device), groups)
-    out = torch.empty_like(x2)
-    hpre = (torch.empty((T, H), dtype=x2.dtype, device=x2.device)
-            if save_hpre else None)
-    partial = _partial(splits, T, D, x2.device)
-    err = lib.avsiam_mlp_fwd(
-        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(),
-        None if hpre is None else hpre.data_ptr(), partial.data_ptr(), T, D,
-        H, splits, groups, kernels.DTYPE_CODES[x2.dtype],
-        kernels.stream_handle(x2))
-    kernels.check(err, "MLP forward")
+    out, hpre = _fwd_passes(x2.to(torch.bfloat16), w1, b1, w2, b2, x2.dtype,
+                            save_hpre)
     kernels.LAUNCHES["mlp_fwd"] += 1
     return (out, hpre) if save_hpre else out
 

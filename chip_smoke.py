@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
    yardstick the port never calls; for K3, K4, K7 and K8, which no one call
    computes, the 'dense' form's cuBLAS GEMMs and elementwise ops on the same
    operands (a composite yardstick). Each time is device time per call,
-   from torch.profiler. A kernel that spills registers fails the run.
+   from torch.profiler; K3's and K4's also by pass (LN rows, fc1, fc2,
+   partial-sum epilogue), K7's likewise, with per-step totals. A kernel
+   that spills registers fails the run.
 3. steps: full-width two-pass pretrain steps (bf16 compute, batch 8) from
    the port's own seeded init, in five configurations:
    A. ViT-B/16 (depth 12, decoder depth 8), ``mlp_impl='lnfres'`` (the
@@ -382,10 +384,27 @@ def dense_ln_mlp(x, g, bl, w1, b1, w2, b2, eps: float):
     return x + F.linear(act, w2, b2.bfloat16())
 
 
+# the forward's kernels (K3, K4) by name fragment: LN rows, the fc1 and fc2
+# passes, the partial-sum epilogue
+FWD_PASSES = (("ln", "ln_mlp_rows"), ("fc1", "mlp_fc1"), ("fc2", "mlp_fc2"),
+              ("epi", "mlp_epilogue"))
+
+
+def fwd_pass_ms(parts):
+    """{pass: ms} of a K3/K4 call from ``time_ms(..., by_kernel=True)``."""
+    return {k: sum(t for n, t in parts.items() if frag in n)
+            for k, frag in FWD_PASSES}
+
+
+def fmt_passes(split):
+    return " ".join(f"{k} {v:.4f}" for k, v in split.items() if v)
+
+
 def check_ln_mlp(shapes, gen, eps: float = 1e-5):
     """K3 at each (rows, D, H) of ``shapes`` ({(rows, D, H, impl): calls
-    per step}) against its plain version; times of kernel, plain version and
-    the composite 'dense' yardstick (not one call)."""
+    per step}) against its plain version; times of kernel (and of its
+    passes), plain version and the composite 'dense' yardstick (not one
+    call), and their sums over a phase-A step."""
     from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
     rows = []
     for (t, d, h, _), calls in shapes.items():
@@ -410,11 +429,9 @@ def check_ln_mlp(shapes, gen, eps: float = 1e-5):
         if orel > MLP_TOL or hrel > MLP_TOL:
             raise AssertionError(f"ln_mlp T={t} D={d}: out rel err {orel:.3e},"
                                  f" hidden rel err {hrel:.3e} > {MLP_TOL}")
-        ms = time_ms(lambda: ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2, eps))
-        # the same kernel with the hidden dimension left whole (one block per
-        # row tile): what splitting it across blocks gains
-        ms_whole = time_ms(lambda: ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2,
-                                                     eps, splits=1))
+        parts = time_ms(lambda: ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2,
+                                                  eps), by_kernel=True)
+        ms, split = sum(parts.values()), fwd_pass_ms(parts)
         plain = time_ms(lambda: ln_mlp_reference(x.float(), g, bl, w1.float(),
                                                  b1, w2.float(), b2, eps))
         composite = time_ms(lambda: dense_ln_mlp(x, g, bl, w1, b1, w2, b2,
@@ -422,14 +439,22 @@ def check_ln_mlp(shapes, gen, eps: float = 1e-5):
         bd = bound_ms(4 * t * d * h, 2 * (2 * t * d + 2 * d * h + t * h))
         rows.append(dict(T=t, D=d, H=h, calls=calls, out_err=oerr,
                          out_rel=orel, hpre_err=herr, hpre_rel=hrel, ms=ms,
-                         ms_whole=ms_whole, plain_ms=plain,
+                         pass_ms=split, plain_ms=plain,
                          composite_ms=composite, bound=bd))
         log(f"  ln_mlp T={t:5d} D={d} H={h} x{calls:3d}/step  err out "
             f"{oerr:.2e} (rel {orel:.1e} <= {MLP_TOL}) hidden {herr:.2e} "
-            f"(rel {hrel:.1e})  {ms:.4f} ms (hidden unsplit {ms_whole:.4f})"
+            f"(rel {hrel:.1e})  {ms:.4f} ms [{fmt_passes(split)}]"
             f" plain {plain:.4f} composite {composite:.4f} "
             f"({ms / composite:.2f}x) bound {bd[0]:.4f} "
             f"({100 * bd[0] / ms:.1f}%)")
+    tot = {k: sum(r[k] * r["calls"] for r in rows)
+           for k in ("ms", "composite_ms", "plain_ms")}
+    split = {k: sum(r["pass_ms"][k] * r["calls"] for r in rows)
+             for k, _ in FWD_PASSES}
+    log(f"  ln_mlp fwd per phase-A step: {tot['ms']:.3f} ms "
+        f"[{fmt_passes(split)}], composite {tot['composite_ms']:.3f}, plain "
+        f"{tot['plain_ms']:.3f}, bound "
+        f"{sum(r['bound'][0] * r['calls'] for r in rows):.3f}")
     return rows
 
 
@@ -477,10 +502,11 @@ def check_mlp_family(phase_calls, extra, gen):
     """K4 (with and without the pre-GELU hidden), K7, K8 and K9 at every
     (rows, D, H) of phases B, C and E and at ``extra`` shapes (no calls),
     against their plain versions in float32 on the same values (K7's db1
-    against the plain f32-gh fold); times of kernel, plain version, the
-    composite 'dense' yardstick (not one call) and, for K9, ``torch.mm``
-    (float32 and bf16 output). ``phase_calls`` maps B, C and E to their
-    ``mlp_shape_launches``."""
+    against the plain f32-gh fold); times of kernel (K4 and K7 also by
+    pass), plain
+    version, the composite 'dense' yardstick (not one call) and, for K9,
+    ``torch.mm`` (float32 and bf16 output). ``phase_calls`` maps B, C and E
+    to their ``mlp_shape_launches``."""
     from avsiam_tpu_torch.ops import mlp as pm
     calls_b, calls_c, calls_e = (phase_calls[p] for p in "BCE")
     rows = []
@@ -517,10 +543,13 @@ def check_mlp_family(phase_calls, extra, gen):
                                  f"{errs[worst][1]:.3e} > {MLP_TOL}")
         bwd_parts = time_ms(lambda: pm.mlp_bwd_kernel(x, w1, b1, w2, do),
                             by_kernel=True)
+        fwd_parts = {k: time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2,
+                                                          hp), by_kernel=True)
+                     for k, hp in (("fwd", False), ("fwd_hpre", True))}
+        fwd_split = {k: fwd_pass_ms(v) for k, v in fwd_parts.items()}
         ms = dict(
-            fwd=time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2)),
-            fwd_hpre=time_ms(lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2,
-                                                       True)),
+            fwd=sum(fwd_parts["fwd"].values()),
+            fwd_hpre=sum(fwd_parts["fwd_hpre"].values()),
             bwd=sum(bwd_parts.values()),
             bwd_dx=time_ms(lambda: pm.mlp_bwd_dx_kernel(x, w1, b1, w2, do)),
             dw=time_ms(lambda: pm.weight_grads_kernel(x, gh))
@@ -577,6 +606,7 @@ def check_mlp_family(phase_calls, extra, gen):
         row_e = dict(fwd=ce.get("mlp_fwd", 0), bwd=ce.get("mlp_bwd", 0))
         rows.append(dict(T=t, D=d, H=h, calls=calls, calls_e=row_e,
                          errs=errs, ms=ms, bwd_split_ms=split,
+                         fwd_split_ms=fwd_split,
                          plain_ms=plain, composite_ms=composite,
                          library_ms=library, mm_bf16_ms=mm_bf16,
                          bound=bounds))
@@ -591,15 +621,23 @@ def check_mlp_family(phase_calls, extra, gen):
             if k == "bwd":
                 extra_s += (f" [gh {split['gh']:.4f} dx {split['dx']:.4f} "
                             f"K9 {split['k9']:.4f}]")
+            if k in fwd_split:
+                extra_s += f" [{fmt_passes(fwd_split[k])}]"
             log(f"    {k:8s} {ms[k]:.4f} ms plain {plain[k]:.4f}{extra_s} "
                 f"bound {bounds[k][0]:.4f} ({100 * bounds[k][0] / ms[k]:.1f}%)")
     for label, key, field in (("B", "bwd", "calls"), ("C", "bwd_dx", "calls"),
                               ("E", "bwd", "calls_e"), ("B", "fwd", "calls"),
+                              ("C", "fwd_hpre", "calls"),
                               ("E", "fwd", "calls_e")):
         tot = {n: sum(r[n][key] * r[field][key] for r in rows)
                for n in ("ms", "composite_ms", "plain_ms")}
         bnd = sum(r["bound"][key][0] * r[field][key] for r in rows)
-        log(f"  mlp {key} per phase-{label} step: {tot['ms']:.3f} ms, "
+        passes = ""
+        if key in ("fwd", "fwd_hpre"):
+            passes = " [" + fmt_passes({k: sum(
+                r["fwd_split_ms"][key][k] * r[field][key] for r in rows)
+                for k, _ in FWD_PASSES}) + "]"
+        log(f"  mlp {key} per phase-{label} step: {tot['ms']:.3f} ms{passes}, "
             f"composite {tot['composite_ms']:.3f}, plain {tot['plain_ms']:.3f},"
             f" bound {bnd:.3f}")
     return rows
@@ -1167,8 +1205,9 @@ KERNEL_GROUPS = (
     ("K5 attention_hm fwd", ("attn_hm_fwd_kernel",)),
     ("K6 attention_hm bwd", ("attn_hm_bwd_",)),
     ("K10 ln bwd", ("ln_bwd_rows_kernel", "ln_bwd_cols_kernel")),
-    ("K3 ln_mlp fwd", ("ln_mlp_fwd",)),
-    ("K4 mlp fwd", ("mlp_fwd_kernel",)),
+    ("K3 LN rows", ("ln_mlp_rows_kernel",)),
+    ("K3/K4 fc1 pass", ("mlp_fc1_kernel",)),
+    ("K3/K4 fc2 pass", ("mlp_fc2_kernel",)),
     ("K7/K8 gh pass", ("mlp_gh_kernel", "colsum_fold")),
     ("K7/K8 dx pass", ("mlp_dx_kernel",)),
     ("K9 mlp dw", ("mlp_dw_",)),

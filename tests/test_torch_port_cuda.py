@@ -600,6 +600,58 @@ def test_mlp_backward_passes_give_the_same_bits_every_call(gen, T, Dm):
         assert all(torch.equal(a, b) for a, b in zip(call(), first))
 
 
+@pytest.mark.parametrize("T,Dm", [(156, 768), (1416, 1280)])
+def test_mlp_forward_kernels_give_the_same_bits_every_call(gen, T, Dm):
+    """K3 and K4 (with and without the hidden), called 100 times on the
+    same bf16 inputs, give bit-identical outputs: every output element has
+    one owner that sums in a fixed order, the fc2 pass's split partials too
+    (at (156, 768) the fc2 pass splits H)."""
+    x, w1, b1, w2, b2, _ = _mlp_operands(gen, T, Dm, torch.bfloat16)
+    lg = 1.0 + 0.1 * torch.randn(Dm, generator=gen, device="cuda")
+    lb = 0.1 * torch.randn(Dm, generator=gen, device="cuda")
+
+    def call():
+        return (*pmlp.ln_mlp_fwd_kernel(x, lg, lb, w1, b1, w2, b2, 1e-5),
+                pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2),
+                *pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2, True))
+    first = call()
+    for _ in range(100):
+        assert all(torch.equal(a, b) for a, b in zip(call(), first))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("T", [37, 3400])
+def test_mlp_forward_kernels_at_a_half_hidden_tile(gen, T, dtype):
+    """K3 and K4 (with the hidden) at D 256, H 576 (H % 128 == 64: an odd
+    count of the fc1 pass's 64-wide hidden tiles and of the fc2 pass's
+    slabs of H), and the fc1 pass alone, each against its plain version on
+    the same values."""
+    Dm, Hm = 256, 576
+
+    def r(*shape, k=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * k
+
+    x = r(T, Dm).to(dtype)
+    w1 = r(Hm, Dm, k=Dm ** -0.5).bfloat16()
+    w2 = r(Dm, Hm, k=Hm ** -0.5).bfloat16()
+    b1, b2 = r(Hm, k=0.02).bfloat16().float(), r(Dm, k=0.02).bfloat16().float()
+    lg, lb = 1.0 + r(Dm, k=0.1), r(Dm, k=0.1)
+    f = lambda t: t.float()  # noqa: E731
+    pairs = [
+        (pmlp.ln_mlp_fwd_kernel(x, lg, lb, w1, b1, w2, b2, 1e-5),
+         pmlp.ln_mlp_reference(f(x), lg, lb, f(w1), b1, f(w2), b2, 1e-5)),
+        (pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2, True),
+         pmlp.mlp_fwd_reference(f(x), f(w1), b1, f(w2), b2, save_hpre=True))]
+    pairs.append((pmlp._fc1_pass(x.bfloat16(), w1, b1, dtype, True),
+                  pmlp.mlp_fc1_reference(f(x.bfloat16()), f(w1), b1)))
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert bool(torch.isfinite(g).all()), (i, j)
+            assert _rel(g, w) <= TOL, (i, j)
+
+
 @pytest.mark.parametrize("T,Dm", MLP_SHAPES)
 def test_kernels_keep_their_db1_forms(gen, T, Dm):
     """In bfloat16 K7's db1 sums the float32 gh, and the split backward's

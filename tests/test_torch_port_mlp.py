@@ -93,22 +93,3 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     v = lambda n: torch.empty((n,), device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="CUDA"):
         pmlp.fused_ln_mlp(x, v(D), v(D), w1, v(H), w2, v(D))
-
-
-@pytest.mark.parametrize("rows,hidden", [(156, 3072), (1024, 3072),
-                                         (1416, 3072), (5664, 2048), (1, 64)])
-def test_hidden_splits_give_every_block_a_chunk(rows, hidden):
-    """K3's split of the hidden dimension (chosen on the host): every range
-    holds at least one 64-column chunk, and no split count runs the call in
-    fewer (waves x chunks per block) steps on a 132-SM card."""
-    chunks = hidden // pmlp.HIDDEN_CHUNK
-    tiles = -(-rows // pmlp.ROW_TILE)
-    s = pmlp.hidden_splits(rows, hidden, 132)
-    assert 1 <= s <= min(chunks, pmlp.MAX_SPLITS)
-
-    def steps(k):
-        return -(-tiles * k // 132) * -(-chunks // k)
-
-    assert steps(s) == min(steps(k) for k in range(1, chunks + 1)
-                           if k <= pmlp.MAX_SPLITS)
-    assert steps(s) <= steps(1)

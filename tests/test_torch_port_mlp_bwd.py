@@ -155,20 +155,19 @@ def test_row_tile_sums_fold_to_the_column_sums(rows):
                                  1152, 1280, 1536, 2048])
 def test_every_128_aligned_width_is_taken(dim):
     """The width rule: every D that is a multiple of 128 (H = 4 D) passes
-    the kernels' geometry check, which then wants a CUDA tensor; K3/K4 cut
-    it into equal fc2 column groups of at most 6 x 128 columns, one group
-    up to ViT-B's 768, two at ViT-L's 1024 and ViT-H's 1280."""
+    the kernels' geometry check, which then wants a CUDA tensor; K3/K4's
+    passes take it whole at any row count (fc2 tiles of 128 of D's columns,
+    D entering fc1 only as the reduction length), the fc2 pass splitting H
+    into 1 to 16 ranges."""
     assert pmlp.kernel_takes(dim, 4 * dim)
     x = torch.empty((5, dim), device="meta")
     w1 = torch.empty((4 * dim, dim), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         pmlp._rows_geometry("MLP", x, w1)
-    g = pmlp.fwd_column_groups(dim)
-    units = dim // 128
-    assert units % g == 0 and units // g <= pmlp.MAX_COL_FRAGS
-    assert all(units % k or units // k > pmlp.MAX_COL_FRAGS
-               for k in range(1, g))
-    assert g == {768: 1, 1024: 2, 1280: 2}.get(dim, g)
+    assert dim % pmlp.DX_TILE == 0
+    for rows in (1, 37, 156, 1416, 5664):
+        splits = pmlp.dx_splits(rows, dim, 4 * dim, 132)
+        assert 1 <= splits <= min(4 * dim // 64, pmlp.MAX_SPLITS)
 
 
 @pytest.mark.parametrize("dim,hidden", [(64, 256), (200, 800), (768, 96),
@@ -202,20 +201,3 @@ def test_dx_splits_take_the_least_modelled_time(rows, dim, hidden):
 
     assert cost(s) <= cost(1)
     assert cost(s) == min(cost(k) for k in range(1, min(slabs, 16) + 1))
-
-
-@pytest.mark.parametrize("rows,dim,hidden", [
-    (156, 1024, 4096), (1416, 1280, 5120), (5664, 512, 2048)])
-def test_hidden_splits_count_the_column_groups(rows, dim, hidden):
-    """K3/K4's hidden split at ViT-L/H widths counts each row tile once per
-    fc2 column group: the split it picks takes no more waves x chunks than
-    any other over tiles x groups blocks."""
-    groups = pmlp.fwd_column_groups(dim)
-    s = pmlp.hidden_splits(rows, hidden, 132, groups)
-    tiles = -(-rows // pmlp.ROW_TILE) * groups
-    chunks = hidden // pmlp.HIDDEN_CHUNK
-
-    def steps(k):
-        return -(-tiles * k // 132) * -(-chunks // k)
-
-    assert steps(s) == min(steps(k) for k in range(1, pmlp.MAX_SPLITS + 1))
