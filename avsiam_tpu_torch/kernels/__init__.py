@@ -10,7 +10,10 @@ every module of the port and have no ``nvcc``.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels.
+main path went through the kernels. A CUDA graph's replay runs no wrapper:
+the graphed pretrain step keeps the counts its capture added and adds them
+again at each later replay (``add_launches``), so a count still reads
+launches per step.
 """
 
 from __future__ import annotations
@@ -91,6 +94,13 @@ _build_error = None  # a failed build is not retried in the same process
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(delta: dict) -> None:
+    """Add ``delta`` ({kernel: launches}) to the counts: what a replayed
+    CUDA graph launched, as its capture counted it."""
+    for k, n in delta.items():
+        LAUNCHES[k] += n
 
 
 def _nvcc() -> str:

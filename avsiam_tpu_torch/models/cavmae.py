@@ -67,6 +67,42 @@ class MaskDraws:
                                  torch.Tensor]]] = None
     chunk_v: Optional[List[torch.Tensor]] = None
 
+    def map(self, fn) -> "MaskDraws":
+        """The draws with ``fn`` applied to every tensor."""
+        def opt(t):
+            return None if t is None else fn(t)
+
+        return MaskDraws(
+            noise_a=opt(self.noise_a), noise_v=opt(self.noise_v),
+            perm_a=opt(self.perm_a), perm_v=opt(self.perm_v),
+            chunk_a=None if self.chunk_a is None else [
+                tuple(fn(t) for t in c) for c in self.chunk_a],
+            chunk_v=None if self.chunk_v is None else [
+                fn(t) for t in self.chunk_v])
+
+    def tensors(self) -> List[Optional[torch.Tensor]]:
+        """The four single fields (None where not drawn), then every chunk
+        tensor in order."""
+        return [self.noise_a, self.noise_v, self.perm_a, self.perm_v,
+                *(t for c in self.chunk_a or () for t in c),
+                *(self.chunk_v or ())]
+
+    def copy_(self, src: "MaskDraws") -> "MaskDraws":
+        """Copy ``src``'s draws into these tensors in place (the static
+        buffers of a captured step). Raises, copying nothing, unless both
+        hold the same fields at the same shapes and dtypes."""
+        def layout(d):
+            return [None if t is None else (t.shape, t.dtype)
+                    for t in d.tensors()]
+
+        if layout(self) != layout(src):
+            raise ValueError("the draws differ from the buffers in their "
+                             "fields, chunks, shapes or dtypes")
+        for t, s in zip(self.tensors(), src.tensors()):
+            if t is not None:
+                t.copy_(s)
+        return self
+
 
 def draw_masks(cfg: CAVMAEConfig, batch: int, generator: torch.Generator,
                device, mae: bool = True, contrast: bool = True) -> MaskDraws:

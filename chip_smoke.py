@@ -21,9 +21,10 @@ Phases (any failure raises and the script exits non-zero):
    operands (a composite yardstick). Each time is device time per call,
    from torch.profiler; K3's and K4's also by pass (LN rows, fc1, fc2,
    partial-sum epilogue), K7's likewise, with per-step totals. A kernel
-   that spills registers fails the run.
+   that spills registers fails the run. K1/K2 and K3 are also held, untimed,
+   at the B=64 step's shapes (phase A64).
 3. steps: full-width two-pass pretrain steps (bf16 compute, batch 8) from
-   the port's own seeded init, in five configurations:
+   the port's own seeded init, in six configurations:
    A. ViT-B/16 (depth 12, decoder depth 8), ``mlp_impl='lnfres'`` (the
       bench configuration: K1, K2, K3);
    B. ViT-B, ``mlp_impl='fused'`` (K1, K2, K4 forward, K7 backward, which
@@ -36,20 +37,32 @@ Phases (any failure raises and the script exits non-zero):
    E. ViT-H/16 (``pretrain_config('cav-mae-huge')``: dim 1280, depth 32,
       16 heads of 80; decoder 512/8/16), ``attn_impl='pallas'``,
       ``mlp_impl='fused'`` (K5, K6 in the encoders, K1, K2 in the decoder;
-      K4 and K7, with K9, at D 1280 and in the decoder).
-   Five steps each in A-D, three in E. Every loss must be finite, and each
-   kernel's launch count, reset just before the phase and read just after,
-   must equal what the step's shapes imply. Then one more step of each
-   under torch.profiler: device time by kernel group and the device's busy
-   share of a step.
+      K4 and K7, with K9, at D 1280 and in the decoder);
+   A64. A at the JAX bench's batch of 64 (``bench.py:81-84``).
+   Each phase runs the eager step (``make_pretrain_step``: five steps in
+   A-D, three in E and A64) and then, on the same state, the step as one
+   CUDA graph (``make_graphed_pretrain_step``: a warm-up step, the
+   capture, which replays once, and as many timed replays). Every metric
+   must be finite. Each kernel's launch count, reset just before the eager
+   steps and read just after them, must equal what the step's shapes
+   imply, and so must the counts the capture added. After each run one
+   more step under torch.profiler: device time by kernel group, the
+   device's busy share of a step, and each kernel's calls; a profiled
+   replay must call every kernel of the port as often as the profiled
+   eager step does (a replay runs no wrapper, so this is what shows the
+   graph ran them). After phase A, two states from one seed take three eager and
+   three graphed steps: metrics, parameters and Adam moments must agree
+   within 1e-5 relative (the same bits are expected).
 4. reference: for each configuration, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
    from the same weights and draws: losses and gradients must agree within
    the stated tolerances.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. ``--report PATH`` also writes
+Before the last lines comes a JSON object of each step phase's eager and
+graphed steady step, busy share, kernels, Adam's device time and peak
+memory. The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``. ``--report PATH`` also writes
 the per-shape measurements as JSON.
 """
 
@@ -987,18 +1000,22 @@ def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
 
 # -------------------------------------------------------------------- main
 # the step phases: (label, configuration, AVSIAM_MLP_BWD=split,
-# AVSIAM_LN=pallas, steps); ``model`` names a variant, else ViT-B
-PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5),
-          ("B", dict(mlp_impl="fused"), False, False, 5),
-          ("C", dict(mlp_impl="fbwd", dec_mlp_impl="fres"), True, False, 5),
-          ("D", dict(mlp_impl="lnfres"), False, True, 5),
+# AVSIAM_LN=pallas, eager steps and graphed replays, batch); ``model`` names
+# a variant, else ViT-B
+PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5, 8),
+          ("B", dict(mlp_impl="fused"), False, False, 5, 8),
+          ("C", dict(mlp_impl="fbwd", dec_mlp_impl="fres"), True, False, 5,
+           8),
+          ("D", dict(mlp_impl="lnfres"), False, True, 5, 8),
           ("E", dict(model="cav-mae-huge", attn_impl="pallas",
-                     mlp_impl="fused"), False, False, 3))
+                     mlp_impl="fused"), False, False, 3, 8),
+          ("A64", dict(mlp_impl="lnfres"), False, False, 3, 64))
 
 
-def bench_config(depth: int = 12, dec_depth: int = 8, **impls):
-    """The JAX bench's configuration (``mlp_impl='lnfres'``) cut to B=8;
-    ``impls`` overrides the MLP impls."""
+def bench_config(depth: int = 12, dec_depth: int = 8, batch: int = 8,
+                 **impls):
+    """The JAX bench's configuration (``mlp_impl='lnfres'``), cut to B=8
+    unless ``batch`` says otherwise; ``impls`` overrides the MLP impls."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
                                           PretrainConfig, ViTConfig)
     impls = dict(dict(mlp_impl="lnfres"), **impls)
@@ -1006,11 +1023,11 @@ def bench_config(depth: int = 12, dec_depth: int = 8, **impls):
                          decoder=DecoderConfig(depth=dec_depth),
                          dtype=torch.bfloat16, mmixed_impl="exact",
                          attn_impl="auto", **impls)
-    return PretrainConfig(model=model, batch_size=8)
+    return PretrainConfig(model=model, batch_size=batch)
 
 
-def phase_config(impls, depth=None, dec_depth=None):
-    """A phase's configuration at B=8: ``bench_config`` with ``impls``, or
+def phase_config(impls, depth=None, dec_depth=None, batch: int = 8):
+    """A phase's configuration at ``batch``: ``bench_config`` with ``impls``, or
     with ``impls['model']`` that variant's ``pretrain_config`` (bf16,
     'exact') in the other impls; ``depth``/``dec_depth`` cut the depths."""
     from avsiam_tpu_torch.configs import PretrainConfig, replace
@@ -1025,7 +1042,7 @@ def phase_config(impls, depth=None, dec_depth=None):
     if depth is not None:
         m = replace(m, vit=replace(m.vit, depth=depth),
                     decoder=replace(m.decoder, depth=dec_depth))
-    return PretrainConfig(model=m, batch_size=8)
+    return PretrainConfig(model=m, batch_size=batch)
 
 
 @contextlib.contextmanager
@@ -1075,8 +1092,8 @@ def main(argv=None) -> int:
             f"B stack")
 
     phases = {}
-    for label, impls, split, ln, n_steps in PHASES:
-        cfg = phase_config(impls)
+    for label, impls, split, ln, n_steps, batch in PHASES:
+        cfg = phase_config(impls, batch=batch)
         phases[label] = dict(impls=impls, cfg=cfg, split=split, ln=ln,
                              n_steps=n_steps,
                              shapes=main_path_shapes(cfg, cfg.batch_size))
@@ -1111,17 +1128,22 @@ def main(argv=None) -> int:
          ((2, 177, 12, 64), True)], gen)
     report.update(attention=attn_rows, ln_mlp=mlp_rows, mlp_family=fam_rows,
                   ln_bwd=ln_rows, attention_hm=hm_rows,
-                  float32=check_float32(gen))
+                  float32=check_float32(gen),
+                  a64=check_at_shapes(phases["A64"]["shapes"], gen))
     launches = {}
     for label, p in phases.items():
         with env_flags(p["split"], p["ln"]):
             launches[label] = run_steps(
                 label, p["cfg"], expected_launches(
-                    p["cfg"], p["shapes"], p["split"], p["ln"],
-                    p["n_steps"]), args.seed, report, p["n_steps"])
+                    p["cfg"], p["shapes"], p["split"], p["ln"], 1),
+                args.seed, report, p["n_steps"])
+        if label == "A":
+            report["eager_vs_graphed"] = compare_eager_graphed(p["cfg"],
+                                                               args.seed)
     for label, p in phases.items():
-        with env_flags(p["split"], p["ln"]):
-            run_reference(label, p["impls"], args.seed, report)
+        if p["cfg"].batch_size == 8:  # A64's reference is A's
+            with env_flags(p["split"], p["ln"]):
+                run_reference(label, p["impls"], args.seed, report)
 
     if args.report:
         with open(args.report, "w") as f:
@@ -1130,6 +1152,10 @@ def main(argv=None) -> int:
                and any(k in r["name"] for k in NO_SPILL)]
     if spilled:
         raise AssertionError(f"kernels that must not spill do: {spilled}")
+    print(json.dumps({"steps": {
+        label: {k: r.get(k) for k in STEP_KEYS}
+        for label, r in report["steps"].items()},
+        "eager_vs_graphed_max_rel": report["eager_vs_graphed"]["max_rel"]}))
     log(card)
     print(json.dumps({"kernels": kernel_entries(
         attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows, launches)}))
@@ -1139,62 +1165,247 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_steps(label, cfg, expected, seed, report, n_steps: int = 5):
-    """Full-width two-pass steps, then one profiled step; returns the
-    kernels' launch counts (read before the profiled step), which must
-    equal ``expected``."""
+def step_batch(cfg, gen):
+    """A random (fbank, frames) batch of ``cfg``'s size on the card."""
+    v, B = cfg.model.vit, cfg.batch_size
+    return (torch.randn((B, v.audio_length, v.mel_bins), generator=gen,
+                        device="cuda"),
+            torch.randn((B, 3, v.img_size, v.img_size), generator=gen,
+                        device="cuda"))
+
+
+def timed_steps(label, step, state, batch, gen, lr, n_steps, first=0):
+    """``n_steps`` calls of ``step``, each timed on the host clock up to a
+    ``torch.cuda.synchronize()``; every metric must be finite. Returns
+    [metrics and ms per step]."""
+    steps = []
+    for i in range(first, first + n_steps):
+        t = time.time()
+        state, metrics = step(state, batch, gen, lr)
+        metrics = {k: float(x) for k, x in metrics.items()}
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3
+        if not all(math.isfinite(x) for x in metrics.values()):
+            raise AssertionError(f"{label} step {i}: non-finite metrics "
+                                 f"{metrics}")
+        steps.append(dict(metrics, ms=ms))
+        log(f"  {label} step {i}: " + " ".join(
+            f"{k} {x:.5f}" for k, x in metrics.items()) + f"  {ms:.1f} ms")
+    return steps
+
+
+def median_after_first(steps):
+    return sorted(s["ms"] for s in steps[1:])[(len(steps) - 1) // 2]
+
+
+def memory_gib():
+    return (torch.cuda.max_memory_allocated() / 2**30,
+            torch.cuda.max_memory_reserved() / 2**30)
+
+
+def check_launches(what, launches, per_step, n_steps):
+    expected = {k: n * n_steps for k, n in per_step.items()}
+    log(f"  {what} launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"{what}: kernel launches {launches} != "
+                             f"{expected}")
+
+
+# the numbers of each step phase in the ``steps`` line
+STEP_KEYS = ("batch", "eager_steady_ms", "graphed_steady_ms",
+             "eager_busy_share", "graphed_busy_share", "eager_kernels",
+             "graphed_kernels", "eager_adam_ms", "graphed_adam_ms",
+             "eager_peak_gib", "eager_reserved_gib", "graphed_peak_gib",
+             "graphed_reserved_gib", "capture_s")
+
+
+def run_steps(label, cfg, per_step, seed, report, n_steps: int = 5):
+    """Full-width two-pass steps, eager and then graphed. Eager:
+    ``n_steps`` steps and one profiled step. Graphed, on the same state: the
+    warm-up step, the capture (whose call replays once), ``n_steps`` timed
+    replays and one profiled replay. The eager steps' kernel launches,
+    counted from 0 just before them, must be ``per_step``
+    (``expected_launches`` of one step) times their steps, and the
+    capture's must be ``per_step``. The profiled replay must call each of
+    the port's kernels as often as the profiled eager step. Every metric
+    must be finite. Returns the eager run's launch counts."""
     from avsiam_tpu_torch import kernels
-    from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step,
+                                                 make_pretrain_step)
     m = cfg.model
     v, d = m.vit, m.decoder
-    log(f"phase step {label}: {n_steps} two-pass steps, ViT dim {v.dim} "
-        f"depth {v.depth} heads {v.num_heads}, decoder {d.dim}/{d.depth}/"
-        f"{d.num_heads}, {m.dtype}, batch {cfg.batch_size}, attn_impl "
-        f"{m.attn_impl}, mlp_impl {m.mlp_impl}, dec_mlp_impl "
-        f"{m.dec_mlp_impl}, AVSIAM_MLP_BWD="
+    log(f"phase step {label}: {n_steps} two-pass steps eager, then graphed, "
+        f"ViT dim {v.dim} depth {v.depth} heads {v.num_heads}, decoder "
+        f"{d.dim}/{d.depth}/{d.num_heads}, {m.dtype}, batch "
+        f"{cfg.batch_size}, attn_impl {m.attn_impl}, mlp_impl {m.mlp_impl}, "
+        f"dec_mlp_impl {m.dec_mlp_impl}, AVSIAM_MLP_BWD="
         f"{os.environ.get('AVSIAM_MLP_BWD')}, AVSIAM_LN="
         f"{os.environ.get('AVSIAM_LN')}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.time()
     state = init_state(cfg, gen, "cuda")
-    B = cfg.batch_size
-    audio = torch.randn((B, v.audio_length, v.mel_bins), generator=gen,
-                        device="cuda")
-    imgs = torch.randn((B, 3, v.img_size, v.img_size), generator=gen,
-                       device="cuda")
+    batch = step_batch(cfg, gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state.model.parameters())
     log(f"  init: {n_params} parameters in {time.time() - t0:.2f} s")
+    lr = cfg.opt.lr
     step = make_pretrain_step(cfg)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    steps = []
-    for i in range(n_steps):
-        t = time.time()
-        state, metrics = step(state, (audio, imgs), gen, cfg.opt.lr)
-        metrics = {k: float(x) for k, x in metrics.items()}
-        torch.cuda.synchronize()
-        ms = (time.time() - t) * 1e3
-        if not all(math.isfinite(x) for x in metrics.values()):
-            raise AssertionError(f"step {i}: non-finite metrics {metrics}")
-        steps.append(dict(metrics, ms=ms))
-        log(f"  step {i}: " + " ".join(f"{k} {x:.5f}" for k, x in
-                                        metrics.items()) + f"  {ms:.1f} ms")
+    steps = timed_steps("eager", step, state, batch, gen, lr, n_steps)
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  launches {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
-    steady = sorted(s["ms"] for s in steps[1:])[(len(steps) - 1) // 2]
-    log(f"  phase {label} steady step: {steady:.1f} ms (median of steps 1.."
-        f"{n_steps - 1}), peak memory {peak:.2f} GiB")
+    peak, reserved = memory_gib()
+    check_launches("eager", launches, per_step, n_steps)
+    steady = median_after_first(steps)
+    log(f"  phase {label} eager steady step: {steady:.1f} ms (median of "
+        f"steps 1..{n_steps - 1}), peak memory {peak:.2f} GiB allocated, "
+        f"{reserved:.2f} reserved")
+    prof = profile_step(step, state, batch, gen, lr, steady)
+    del step
+
+    graphed = make_graphed_pretrain_step(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    warm = timed_steps("graphed warm-up", graphed, state, batch, gen, lr, 1)
+    t1 = time.time()
+    warm += timed_steps("graphed capture", graphed, state, batch, gen, lr, 1,
+                        first=1)
+    capture_s = time.time() - t1
+    check_launches("graphed capture", graphed.launches, per_step, 1)
+    replays = timed_steps("graphed replay", graphed, state, batch, gen, lr,
+                          n_steps, first=2)
+    gpeak, greserved = memory_gib()
+    gsteady = median_after_first(replays)
+    log(f"  phase {label} graphed steady step: {gsteady:.1f} ms (median of "
+        f"replays 1..{n_steps - 1}; eager {steady:.1f}), warm-up "
+        f"{(t1 - t0):.1f} s, capture and first replay {capture_s:.1f} s, "
+        f"peak memory {gpeak:.2f} GiB allocated, {greserved:.2f} reserved")
+    gprof = profile_step(graphed, state, batch, gen, lr, gsteady)
+    check_replay_calls(prof, gprof)
+
+    def share(p):
+        return None if p is None else p["busy_ms"] / p["steady_ms"]
+
+    def adam(p):
+        return None if p is None else p["groups"].get("Adam", 0.0)
+
     report.setdefault("steps", {})[label] = dict(
-        steps=steps, launches=launches, steady_ms=steady, peak_gib=peak)
-    report["steps"][label]["profile"] = profile_step(
-        step, state, (audio, imgs), gen, cfg.opt.lr, steady)
-    del state, step
+        batch=cfg.batch_size, steps=steps, launches=launches,
+        eager_steady_ms=steady, eager_peak_gib=peak,
+        eager_reserved_gib=reserved, profile=prof,
+        eager_busy_share=share(prof),
+        eager_kernels=prof and prof["kernels"], eager_adam_ms=adam(prof),
+        graphed_steps=warm + replays, graphed_steady_ms=gsteady,
+        graphed_peak_gib=gpeak, graphed_reserved_gib=greserved,
+        graphed_profile=gprof, graphed_busy_share=share(gprof),
+        graphed_kernels=gprof and gprof["kernels"],
+        graphed_adam_ms=adam(gprof), capture_s=capture_s)
+    del graphed, state
     torch.cuda.empty_cache()
     return launches
+
+
+def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
+    """Two states from one seed: ``n_steps`` eager steps of one against as
+    many calls of the graphed step (warm-up, capture, replay) of the other,
+    with draws from generators of one seed and the learning rate halved
+    each step (so a replay must read the rate written before it). Each
+    step's metrics and, at the end, every parameter and both Adams' moments
+    must agree within ``tol`` relative (max |delta| / max |eager| per
+    tensor); identical bits are expected. Returns the largest difference
+    and where it was."""
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step,
+                                                 make_pretrain_step)
+    log(f"phase eager-vs-graphed: {n_steps} eager steps against {n_steps} "
+        f"graphed (warm-up, capture, replay), batch {cfg.batch_size}, "
+        f"tolerance {tol} relative")
+    runs = []
+    for graphed in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state = init_state(cfg, gen, "cuda")
+        batch = step_batch(cfg, gen)
+        step = (make_graphed_pretrain_step(cfg) if graphed
+                else make_pretrain_step(cfg))
+        metrics = []
+        for i in range(n_steps):
+            state, m = step(state, batch, gen, cfg.opt.lr * 0.5 ** i)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        runs.append((state, metrics))
+    (se, me), (sg, mg) = runs
+    diffs = {}
+
+    def hold(name, got, want):
+        got, want = got.detach().float(), want.detach().float()
+        scale = max(float(want.abs().max()), 1e-30)
+        diffs[name] = float((got - want).abs().max()) / scale
+
+    for i, (e, g) in enumerate(zip(me, mg)):
+        for k in e:
+            hold(f"step {i} {k}", g[k], e[k])
+    for (name, pe), pg in zip(se.model.named_parameters(),
+                              sg.model.parameters()):
+        hold(name, pg, pe)
+    for which, oe, og in (("adam1", se.opt1, sg.opt1),
+                          ("adam2", se.opt2, sg.opt2)):
+        names = {id(p): n for n, p in se.model.named_parameters()}
+        for (pe, ste), (_, stg) in zip(oe.state.items(), og.state.items()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                hold(f"{which} {key} {names[id(pe)]}", stg[key], ste[key])
+    worst = max(diffs, key=diffs.get)
+    n_equal = sum(d == 0.0 for d in diffs.values())
+    log(f"  {len(diffs)} tensors compared, {n_equal} equal bit for bit; "
+        f"largest relative difference {diffs[worst]:.3e} ({worst})")
+    if diffs[worst] > tol:
+        raise AssertionError(f"eager and graphed steps differ: {worst} "
+                             f"{diffs[worst]:.3e} > {tol}")
+    del runs, se, sg, me, mg, state, step
+    torch.cuda.empty_cache()
+    return dict(max_rel=diffs[worst], where=worst, tensors=len(diffs),
+                equal=n_equal)
+
+
+def check_at_shapes(shapes, gen):
+    """K1/K2 and K3 against their plain versions at the attention and MLP
+    shapes of ``shapes`` (``main_path_shapes``) that the kernels phase has
+    not timed: phase A64's, the B=64 step's. Untimed."""
+    from avsiam_tpu_torch.ops.attention import (attention_bwd_kernel,
+                                                attention_fwd_kernel,
+                                                attention_reference)
+    from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
+    attn_shapes, mlp_shapes, _ = shapes
+    errs = {}
+    for b, n, heads, hd in attn_shapes:
+        x = torch.randn((b, n, 3 * heads * hd), generator=gen,
+                        device="cuda").bfloat16()
+        do = torch.randn((b, n, heads * hd), generator=gen,
+                         device="cuda").bfloat16()
+        out, stats = attention_fwd_kernel(x, heads)
+        dx = attention_bwd_kernel(x, out, stats, do, heads)
+        xr = x.float().requires_grad_(True)
+        ref = attention_reference(xr, heads)
+        (gref,) = torch.autograd.grad(ref, xr, do.float())
+        errs[f"attention b={b} N={n} H={heads} D={hd}"] = max(
+            rel_err(out, ref)[1], rel_err(dx, gref)[1])
+        del ref, gref, xr
+    for t, d, h, _ in mlp_shapes:
+        o = mlp_operands(gen, t, d, h)
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        bl = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        out, hpre = ln_mlp_fwd_kernel(o["x"], g, bl, o["w1"], o["b1"],
+                                      o["w2"], o["b2"], 1e-5)
+        ref, href = ln_mlp_reference(o["x"].float(), g, bl, o["w1"].float(),
+                                     o["b1"], o["w2"].float(), o["b2"], 1e-5)
+        errs[f"ln_mlp T={t} D={d} H={h}"] = max(rel_err(out, ref)[1],
+                                                 rel_err(hpre, href)[1])
+    for name, e in errs.items():
+        log(f"  B=64 shape {name}: rel err {e:.1e} (<= {ATTN_TOL})")
+        if e > ATTN_TOL:
+            raise AssertionError(f"{name}: rel err {e:.3e} > {ATTN_TOL}")
+    return errs
 
 
 # kernel-name fragments -> the category a profiled step's device time is
@@ -1217,25 +1428,36 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_step(step, state, batch, gen, lr, steady_ms):
+def profile_step(step, state, batch, gen, lr, steady_ms, top: int = 8):
     """One more step under torch.profiler: device time by kernel group, the
-    device's busy share of the steady (unprofiled) step time, and the number
-    of kernels launched. Runs after the launch counts were read."""
+    device's busy share of the steady (unprofiled) step time, the number
+    of kernels launched, the calls of each of the port's kernels (the
+    groups K1-K10), and the ``top`` kernels by device time and then the
+    Adam group's others (name, calls, ms, group). A user annotation's
+    device range (the eager ``Optimizer.step#Adam.step``) spans kernels
+    counted on their own and is left out. Runs after the launch counts
+    were read."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(state, batch, gen, lr)
         torch.cuda.synchronize()
-    groups, kernels_run = {}, 0
+    groups, kernels_run, per_kernel = {}, 0, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
             continue
         name = e.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other (elementwise, "
                      "reductions, copies)")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+        ms = e.self_device_time_total / 1e3
+        groups[group] = groups.get(group, 0.0) + ms
         kernels_run += e.count
+        per_kernel.append((e.key, e.count, ms, group))
+    per_kernel.sort(key=lambda k: -k[2])
+    shown = per_kernel[:top] + [k for k in per_kernel[top:]
+                                if k[3] == "Adam"]
     busy = sum(groups.values())
     if busy == 0.0:
         log("  profile: the profiler recorded no device time (not measured)")
@@ -1245,8 +1467,34 @@ def profile_step(step, state, batch, gen, lr, steady_ms):
         f"{kernels_run} kernels")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:38s} {ms:8.2f} ms  {100 * ms / busy:5.1f}% of busy")
+    log(f"  its {top} largest kernels, then Adam's others:")
+    for name, calls, ms, group in shown:
+        log(f"    {ms:8.2f} ms {calls:6d} calls  [{group[:12]}] {name[:160]}")
+    calls = {}
+    for name, n, _, group in per_kernel:
+        if group.startswith("K"):
+            calls[name] = calls.get(name, 0) + n
     return dict(busy_ms=busy, steady_ms=steady_ms, kernels=kernels_run,
-                groups=groups)
+                groups=groups, top=shown, calls=calls)
+
+
+def check_replay_calls(eager, graphed):
+    """A replay runs no wrapper, so its launch counts are the capture's:
+    what shows that a replay ran the port's kernels is the profiler. Each
+    kernel's calls in the profiled replay must equal its calls in the
+    profiled eager step."""
+    if eager is None or graphed is None:
+        raise AssertionError("the profiler recorded no device time: the "
+                             "replay's kernel calls cannot be checked")
+    total = sum(graphed["calls"].values())
+    log(f"  profiled replay: {len(graphed['calls'])} kernels of the port, "
+        f"{total} calls (eager step {sum(eager['calls'].values())})")
+    if graphed["calls"] != eager["calls"] or total == 0:
+        diff = {k: (eager["calls"].get(k), graphed["calls"].get(k))
+                for k in set(eager["calls"]) | set(graphed["calls"])
+                if eager["calls"].get(k) != graphed["calls"].get(k)}
+        raise AssertionError(f"the replay's kernel calls differ from the "
+                             f"eager step's (eager, replay): {diff}")
 
 
 def run_reference(label, impls, seed, report, batch: int = 2):
@@ -1254,8 +1502,7 @@ def run_reference(label, impls, seed, report, batch: int = 2):
     the CPU: full width, depth 1, same weights and draws, in the MLP impls
     of step phase ``label``."""
     from avsiam_tpu_torch.configs import replace
-    from avsiam_tpu_torch.models.cavmae import (CAVMAEPretrain, MaskDraws,
-                                                draw_masks)
+    from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain, draw_masks
     loss_tol, cos_tol = 2e-2, 0.99
     cfg = phase_config(impls, depth=1, dec_depth=1).model
     log(f"phase reference {label}: depth 1, batch {batch}, {impls}, "
@@ -1272,11 +1519,7 @@ def run_reference(label, impls, seed, report, batch: int = 2):
     audio = torch.randn((batch, v.audio_length, v.mel_bins), generator=cgen)
     imgs = torch.randn((batch, 3, v.img_size, v.img_size), generator=cgen)
     draws = draw_masks(cfg, batch, cgen, "cpu")
-    draws_gpu = MaskDraws(
-        noise_a=draws.noise_a.cuda(), noise_v=draws.noise_v.cuda(),
-        perm_a=draws.perm_a.cuda(), perm_v=draws.perm_v.cuda(),
-        chunk_a=[tuple(t.cuda() for t in c) for c in draws.chunk_a],
-        chunk_v=[t.cuda() for t in draws.chunk_v])
+    draws_gpu = draws.map(lambda t: t.cuda())
     names = ("loss", "loss_mae", "loss_mae_a", "loss_mae_v", "loss_c")
     results = {}
     for part, mae_w, con_w in (("contrastive", 0.0, 1.0), ("mae", 1.0, 0.0)):

@@ -128,17 +128,13 @@ def test_fused_ln_mlp_backward_on_the_card(gen):
 _NO_LAUNCHES = {k: 0 for k in kernels.LAUNCHES}
 
 
-def _depth1_step(gen, vit=None, model=None, **impls):
-    """One depth-1 full-width bf16 step at batch 2 in the given impls (ViT-B
-    unless ``vit`` gives other ViTConfig fields, or ``model`` names a
-    variant's ``pretrain_config``): the launch counts. The step makes 9
-    attention and 9 MLP calls: two contrastive chunks x 2 modalities, then
-    1 + 1 + 2 + 1 (one decoder), and 16 LayerNormFP32 calls under 'lnfres'
-    (9 norm1s, 4 + 2 final norms, the decoder's)."""
+def _depth1_config(vit=None, model=None, **impls):
+    """A depth-1 full-width bf16 configuration at batch 2 in the given impls
+    (ViT-B unless ``vit`` gives other ViTConfig fields, or ``model`` names a
+    variant's ``pretrain_config``)."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
                                           PretrainConfig, ViTConfig, replace)
     from avsiam_tpu_torch.models.variants import pretrain_config
-    from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
     if model is None:
         m = CAVMAEConfig(vit=ViTConfig(**dict(vit or {}, depth=1)),
                          decoder=DecoderConfig(depth=1), dtype=torch.bfloat16,
@@ -148,10 +144,23 @@ def _depth1_step(gen, vit=None, model=None, **impls):
                             **impls)
         m = replace(m, vit=replace(m.vit, depth=1),
                     decoder=replace(m.decoder, depth=1))
-    cfg = PretrainConfig(model=m, batch_size=2)
+    return PretrainConfig(model=m, batch_size=2)
+
+
+def _depth1_batch(gen):
+    return (torch.randn((2, 1024, 128), generator=gen, device="cuda"),
+            torch.randn((2, 3, 224, 224), generator=gen, device="cuda"))
+
+
+def _depth1_step(gen, vit=None, model=None, **impls):
+    """One step of ``_depth1_config``: the launch counts. The step makes 9
+    attention and 9 MLP calls: two contrastive chunks x 2 modalities, then
+    1 + 1 + 2 + 1 (one decoder), and 16 LayerNormFP32 calls under 'lnfres'
+    (9 norm1s, 4 + 2 final norms, the decoder's)."""
+    from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
+    cfg = _depth1_config(vit, model, **impls)
     state = init_state(cfg, gen)
-    a = torch.randn((2, 1024, 128), generator=gen, device="cuda")
-    v = torch.randn((2, 3, 224, 224), generator=gen, device="cuda")
+    a, v = _depth1_batch(gen)
     kernels.reset_launches()
     state, metrics = make_pretrain_step(cfg)(state, (a, v), gen, 1e-4)
     assert all(math.isfinite(float(x)) for x in metrics.values()), metrics
@@ -232,6 +241,113 @@ def test_ln_pallas_step_on_the_card(gen, monkeypatch):
     launches = _depth1_step(gen)
     assert launches == dict(_NO_LAUNCHES, attention_fwd=9, attention_bwd=9,
                             ln_mlp_fwd=9, ln_bwd=16)
+
+
+# the step's routes as one CUDA graph: (impls, environment)
+_GRAPH_ROUTES = {
+    "lnfres": ({}, {}),
+    "fused": (dict(mlp_impl="fused"), {}),
+    "fbwd_fres_split": (dict(mlp_impl="fbwd", dec_mlp_impl="fres"),
+                        {"AVSIAM_MLP_BWD": "split"}),
+    "ln_pallas": ({}, {"AVSIAM_LN": "pallas"}),
+    "vit_h_pallas": (dict(vit=dict(dim=1280, num_heads=16),
+                          attn_impl="pallas", mlp_impl="fused"), {}),
+}
+
+
+# fragments of the port's kernel names (``csrc/*.cu``)
+_PORT_KERNELS = ("attn_", "ln_bwd_", "ln_mlp_", "mlp_", "colsum_fold")
+
+
+def _port_kernel_calls(fn):
+    """Run ``fn`` under torch.profiler: {kernel name: calls} of the port's
+    kernels on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(k in e.key for k in _PORT_KERNELS)}
+
+
+def _rel_or_zero(got, want):
+    """max |got - want| / max |want|, 0 where both are 0."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    return err / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("route", list(_GRAPH_ROUTES))
+def test_graphed_step_matches_the_eager_step(gen, monkeypatch, route):
+    """Depth-1 steps as one CUDA graph (warm-up, capture, two replays)
+    against the eager step from the same seed, the learning rate halved
+    each step: metrics per step and final parameters within 1e-5 relative
+    (the same bits are expected), each graphed call counting the launches
+    the eager step counts, the last replay, profiled, calling each kernel
+    of the port as often as the eager step does, and a batch of another
+    shape refused."""
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step,
+                                                 make_pretrain_step)
+    impls, env = _GRAPH_ROUTES[route]
+    for k, val in env.items():
+        monkeypatch.setenv(k, val)
+    cfg = _depth1_config(**impls)
+    runs = []
+    for graphed in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        state = init_state(cfg, g)
+        batch = _depth1_batch(g)
+        step = (make_graphed_pretrain_step(cfg) if graphed
+                else make_pretrain_step(cfg))
+        metrics, launches = [], []
+        for i in range(3):
+            kernels.reset_launches()
+            state, m = step(state, batch, g, 1e-4 * 0.5 ** i)
+            torch.cuda.synchronize()
+            metrics.append(m)
+            launches.append(dict(kernels.LAUNCHES))
+        out = {}
+        calls = _port_kernel_calls(lambda: out.update(
+            m=step(state, batch, g, 1e-4 * 0.5 ** 3)[1]))
+        metrics.append(out["m"])
+        runs.append((state, metrics, launches, calls))
+    (se, me, le, ce), (sg, mg, lg, cg) = runs
+    assert lg == le and sum(le[0].values()) > 0
+    assert cg == ce and sum(ce.values()) > 0
+    for e, g_ in zip(me, mg):
+        for k in e:
+            assert math.isfinite(float(g_[k]))
+            assert _rel_or_zero(g_[k], e[k]) <= 1e-5, k
+    for (name, pe), pg in zip(se.model.named_parameters(),
+                              sg.model.parameters()):
+        assert _rel_or_zero(pg, pe) <= 1e-5, name
+    a, v = batch
+    with pytest.raises(ValueError, match="captured for"):
+        step(sg, (a[:1], v[:1]), g, 1e-4)
+    with pytest.raises(ValueError, match="captured for"):
+        step(sg, (a.bfloat16(), v), g, 1e-4)
+
+
+def test_graphed_step_replays_keep_their_metrics(gen):
+    """Metrics come back as clones: step n's stay as they were after step
+    n + 1 replays into the same graph."""
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step)
+    cfg = _depth1_config()
+    state = init_state(cfg, gen)
+    batch = _depth1_batch(gen)
+    step = make_graphed_pretrain_step(cfg)
+    kept = []
+    for _ in range(4):
+        state, m = step(state, batch, gen, 1e-4)
+        kept.append((m, {k: t.clone() for k, t in m.items()}))
+    torch.cuda.synchronize()
+    for m, copy in kept:
+        assert all(torch.equal(m[k], copy[k]) for k in m)
+    assert kept[-1][0]["loss"] is not kept[-2][0]["loss"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -720,3 +836,54 @@ def test_weight_grads_kernel_gives_the_same_bits_every_call(gen, T):
         again = (*pmlp.weight_grads_kernel(x, h),
                  *pmlp.weight_grads_kernel(h, x))
         assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+_CAPTURE_ERROR = """
+import math, sys, torch
+sys.path.insert(0, {tests!r})
+from test_torch_port_cuda import _depth1_batch, _depth1_config
+from avsiam_tpu_torch.train import pretrain as ppre
+gen = torch.Generator(device="cuda").manual_seed(0)
+cfg = _depth1_config()
+state = ppre.init_state(cfg, gen)
+batch = _depth1_batch(gen)
+step = ppre.make_graphed_pretrain_step(cfg)
+state, _ = step(state, batch, gen, 1e-4)  # the warm-up, eager
+body = ppre.pretrain_step_body
+
+
+def syncing_body(*args):
+    metrics = body(*args)
+    float(metrics["loss"])  # a host sync, as a check might make
+    return metrics
+
+
+ppre.pretrain_step_body = syncing_body
+before = state.step
+for expected in ("capturing the pretrain step", "failed to capture"):
+    try:
+        step(state, batch, gen, 1e-4)
+    except RuntimeError as err:
+        assert expected in str(err), err
+    else:
+        raise AssertionError("no error: " + expected)
+assert state.step == before
+print("raised twice")
+"""
+
+
+def test_graphed_step_raises_on_a_capture_error(gen):
+    """A host sync inside the captured body (a ``float(tensor)``, as a check
+    might do) fails the capture: the call raises, and so does every later
+    one, without running the step eagerly. In a process of its own, since
+    the failed capture is left behind in it."""
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c", _CAPTURE_ERROR.format(tests=tests)],
+        cwd=os.path.dirname(tests), capture_output=True, text=True,
+        timeout=600)
+    assert run.returncode == 0 and "raised twice" in run.stdout, (
+        run.stdout[-2000:] + run.stderr[-4000:])
