@@ -5,18 +5,22 @@ DecoderConfig, CAVMAEConfig, AudioConfig, OptimizerConfig, MeshConfig,
 PretrainConfig), with torch dtypes in place of jnp ones. The port keeps its
 own copy so that it imports nothing of the JAX package.
 
-What the port runs so far (anything else raises where it is read):
-``CAVMAEConfig.mmixed_impl='exact'``, ``remat_blocks=False`` and
-``ViTConfig.gelu`` 'erf'/'ans'. ``attn_impl`` takes the JAX package's set:
+The port takes every value the JAX package takes, save ``ViTConfig.gelu``,
+which it takes as 'erf' or 'ans' (anything else raises where it is read).
+``CAVMAEConfig.mmixed_impl`` names the contrastive encoder's form: 'exact',
+'tconcat', 'bucketed', 'packed' or 'padded' (the default, as in JAX);
+``remat_blocks`` rematerialises the trunks' blocks in the backward
+(``torch.utils.checkpoint``). ``attn_impl`` takes the JAX package's set:
 'auto' (the token-major kernels K1/K2 where the shape allows, else the XLA
 form in torch ops), 'pallas' (K1/K2, else the head-major kernels K5/K6, as
 ViT-H's D=80 needs) and 'xla'. ``mlp_impl`` (encoder and ``mm_layer_1/2``)
 and ``dec_mlp_impl`` (decoder; None means ``mlp_impl``) take the JAX
 package's whole set: 'auto'/'lnfres' (the fused LN->MLP kernel K3), 'fused',
-'fbwd', 'fres' (the MLP kernels K4, K7, K8, K9; widths 512 and 768), 'dense',
-'remat_g' and 'remat_all'. The environment flag ``AVSIAM_LN=pallas``, read
-at each call, routes ``LayerNormFP32``'s backward to K10. The presets of
-``models/variants.py`` (ViT-B, -L, -H) fill ``vit``.
+'fbwd', 'fres' (the MLP kernels K4, K7, K8, K9; at every width that is a
+multiple of 128), 'dense', 'remat_g' and 'remat_all'. The environment
+flag ``AVSIAM_LN=pallas``, read at each call, routes ``LayerNormFP32``'s
+backward to K10. The presets of ``models/variants.py`` (ViT-B, -L, -H)
+fill ``vit``.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ the GPU); ``LayerNormFP32`` under ``AVSIAM_LN=pallas`` through
 ``mlp_impl`` 'lnfres' ('auto' where the MLP kernels take the width,
 ``mlp_route``) the MLP sub-block runs through ``ops.mlp.fused_ln_mlp``
 (kernel K3 on the GPU), and with 'fused', 'fbwd' or 'fres' the MLP through
-``ops.mlp.fused_mlp`` (kernels K4, K7, K8, K9).
+``ops.mlp.fused_mlp`` (kernels K4, K7, K8, K9). ``ModalityBlock`` also
+runs in the token-concat form (``call_tconcat``) and, with ``remat``,
+rematerialised in the backward.
 """
 
 from __future__ import annotations
@@ -186,26 +188,48 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, dtype, device, bias=qkv_bias)
         self.proj = Dense(dim, dim, dtype, device)
 
+    def attend(self, qkv, key_valid: Optional[torch.Tensor] = None):
+        """The attention core alone: the fused projection [B, N, 3C] ->
+        [B, N, C], before ``proj``."""
+        return attention_qkv(qkv, self.num_heads, key_valid, self.attn_impl)
+
+    def attend_rows(self, qkv, chunk_shapes):
+        """The attention core over the [T, 3C] rows of chunks [B_i, N_i]
+        (``chunk_shapes``, T = sum B_i N_i), each chunk attending within
+        itself on a contiguous row view of ``qkv``: [T, C]. The
+        token-concat and packed contrastive forms run it."""
+        outs, off = [], 0
+        for b, n in chunk_shapes:
+            o = self.attend(qkv[off:off + b * n].view(b, n, -1))
+            outs.append(o.reshape(b * n, -1))
+            off += b * n
+        return torch.cat(outs)
+
     def forward(self, x, key_valid: Optional[torch.Tensor] = None):
-        out = attention_qkv(self.qkv(x), self.num_heads, key_valid,
-                            self.attn_impl)
-        return self.proj(out)
+        return self.proj(self.attend(self.qkv(x), key_valid))
 
 
 class ModalityBlock(nn.Module):
     """Pre-LN ViT block with modality-routed norm sets and shared attention
     and MLP weights. ``modality``: None -> norm1/norm2, 'a' -> norm*_a,
     'v' -> norm*_v, 'av' -> a tuple (a, v) with per-modality norms and joint
-    attention, returning (out[:, :num_a], the pre-MLP video tail)."""
+    attention, returning (out[:, :num_a], the pre-MLP video tail).
+
+    With ``remat`` a call under autograd keeps only its inputs and runs its
+    forward again in the backward (``torch.utils.checkpoint``), as flax's
+    ``nn.remat`` of the block class does: its kernels' forward launches
+    twice. ``call_tconcat`` is not rematerialised, as in JAX, where
+    ``nn.remat`` wraps ``__call__`` only."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, ln_eps: float, dtype, attn_impl: str,
-                 gelu: str, mlp_impl: str, device):
+                 gelu: str, mlp_impl: str, device, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.ln_eps = ln_eps
         self.gelu = gelu
         self.mlp_impl = mlp_impl
+        self.remat = remat
         for name in ("norm1", "norm1_a", "norm1_v", "norm2", "norm2_a",
                      "norm2_v"):
             setattr(self, name, LayerNormFP32(dim, ln_eps, dtype, device))
@@ -216,13 +240,25 @@ class ModalityBlock(nn.Module):
 
     def forward(self, x, modality: Optional[str] = None,
                 key_valid: Optional[torch.Tensor] = None):
+        if self.remat and torch.is_grad_enabled():
+            # no block draws random numbers: reading the generator's state
+            # would be a host read inside a captured graph
+            return checkpoint(self._forward, x, modality, key_valid,
+                              use_reentrant=False, preserve_rng_state=False)
+        return self._forward(x, modality, key_valid)
+
+    def _norms(self, modality: Optional[str]):
+        """(norm1, norm2) of a single-modality routing."""
         if modality is None:
-            n1, n2 = self.norm1, self.norm2
-        elif modality == "a":
-            n1, n2 = self.norm1_a, self.norm2_a
-        elif modality == "v":
-            n1, n2 = self.norm1_v, self.norm2_v
-        elif modality == "av":
+            return self.norm1, self.norm2
+        if modality == "a":
+            return self.norm1_a, self.norm2_a
+        if modality == "v":
+            return self.norm1_v, self.norm2_v
+        raise ValueError(f"unknown modality: {modality}")
+
+    def _forward(self, x, modality, key_valid):
+        if modality == "av":
             a, v = x
             num_a = a.shape[1]
             x = torch.cat([self.norm1_a(a), self.norm1_v(v)], dim=1)
@@ -231,9 +267,20 @@ class ModalityBlock(nn.Module):
             v2 = self.norm2_v(x[:, num_a:])
             out = x + self.mlp(torch.cat([a2, v2], dim=1))
             return out[:, :num_a], x[:, num_a:]
-        else:
-            raise ValueError(f"unknown modality: {modality}")
+        n1, n2 = self._norms(modality)
         x = x + self.attn(n1(x), key_valid)
+        return self._mlp_res(x, n2)
+
+    def call_tconcat(self, x, modality: Optional[str], chunk_shapes):
+        """Token-concat form (``avsiam_tpu/models/layers.py:353-384``): x
+        [T, C] is the row concatenation of chunks [B_i, N_i, C]
+        (``chunk_shapes`` ((B_i, N_i), ...), T = sum B_i N_i). The norms,
+        the qkv and proj GEMMs and the MLP sub-block run once over all rows;
+        attention runs per chunk at its own length, on contiguous row views
+        of the one qkv output."""
+        n1, n2 = self._norms(modality)
+        x = x + self.attn.proj(self.attn.attend_rows(self.attn.qkv(n1(x)),
+                                                     chunk_shapes))
         return self._mlp_res(x, n2)
 
     def _mlp_res(self, x, n2):
@@ -270,10 +317,13 @@ class SiameseViT(nn.Module):
     embeds, pos_embed [1, 1 + Lv, D] (the CLS row is kept for checkpoint
     parity but unused), pos_embed_a [1, La, D], modality-routed blocks and
     per-modality final norms. Embeddings are doubled before the blocks
-    (``x = x + norm_pre(x)`` with an identity norm_pre)."""
+    (``x = x + norm_pre(x)`` with an identity norm_pre). ``remat``
+    rematerialises each block's calls (``ModalityBlock``), the JAX
+    ``remat_blocks``."""
 
     def __init__(self, cfg: ViTConfig, dtype, attn_impl: str,
-                 embed_double: bool, mlp_impl: str, device):
+                 embed_double: bool, mlp_impl: str, device,
+                 remat: bool = False):
         super().__init__()
         c = cfg
         self.dtype = dtype
@@ -287,7 +337,7 @@ class SiameseViT(nn.Module):
         self.blocks = nn.ModuleList(
             ModalityBlock(c.dim, c.num_heads, c.mlp_ratio, c.qkv_bias,
                           c.block_ln_eps, dtype, attn_impl, c.gelu, mlp_impl,
-                          device)
+                          device, remat)
             for _ in range(c.depth))
         self.norm = LayerNormFP32(c.dim, c.final_ln_eps, dtype, device)
         self.norm_a = LayerNormFP32(c.dim, c.final_ln_eps, dtype, device)
@@ -312,6 +362,13 @@ class SiameseViT(nn.Module):
                    key_valid: Optional[torch.Tensor] = None):
         for blk in self.blocks:
             x = blk(x, modality, key_valid)
+        return x
+
+    def run_blocks_tconcat(self, x, modality: str, chunk_shapes):
+        """Every block in token-concat form (``ModalityBlock.call_tconcat``)
+        over the [T, C] rows of one modality's chunks."""
+        for blk in self.blocks:
+            x = blk.call_tconcat(x, modality, chunk_shapes)
         return x
 
     def final_norm(self, x, modality: str):

@@ -12,6 +12,8 @@ Phases (any failure raises and the script exits non-zero):
    then holds each kernel against its plain PyTorch version at every shape
    the step phases give it (bf16 inputs; the plain version runs in float32
    on the same values), the MLP kernels also at ViT-L's and ViT-H's widths,
+   K1/K2 also at phase P64's masked encoder shapes under the keep masks
+   'padded' draws,
    and times kernel, plain version and, where one PyTorch call computes the
    same function (``F.scaled_dot_product_attention`` for attention,
    ``torch.mm`` with a float32 output for the weight gradient,
@@ -21,10 +23,11 @@ Phases (any failure raises and the script exits non-zero):
    operands (a composite yardstick). Each time is device time per call,
    from torch.profiler; K3's and K4's also by pass (LN rows, fc1, fc2,
    partial-sum epilogue), K7's likewise, with per-step totals. A kernel
-   that spills registers fails the run. K1/K2 and K3 are also held, untimed,
-   at the B=64 step's shapes (phase A64).
-3. steps: full-width two-pass pretrain steps (bf16 compute, batch 8) from
-   the port's own seeded init, in six configurations:
+   that spills registers fails the run. Every kernel of phases A64, P64,
+   H64 and F is also held, untimed, at those steps' shapes.
+3. steps: full-width two-pass pretrain steps (bf16 compute, batch 8 unless
+   named) from the port's own seeded init, 'exact' contrastive form unless
+   named, in these configurations:
    A. ViT-B/16 (depth 12, decoder depth 8), ``mlp_impl='lnfres'`` (the
       bench configuration: K1, K2, K3);
    B. ViT-B, ``mlp_impl='fused'`` (K1, K2, K4 forward, K7 backward, which
@@ -38,9 +41,16 @@ Phases (any failure raises and the script exits non-zero):
       16 heads of 80; decoder 512/8/16), ``attn_impl='pallas'``,
       ``mlp_impl='fused'`` (K5, K6 in the encoders, K1, K2 in the decoder;
       K4 and K7, with K9, at D 1280 and in the decoder);
-   A64. A at the JAX bench's batch of 64 (``bench.py:81-84``).
+   A64. A at the JAX bench's batch of 64 (``bench.py:81-84``);
+   P64. A64 in the 'padded' form, the JAX config's default (K1/K2 with a
+      key mask per sample at full length, K3);
+   H64. E at B=64 with ``remat_blocks`` (K5, K6; K1, K2 in the decoder;
+      K4, K7, K9; the encoders' forward kernels run again in the backward);
+   F. A in the 'tconcat', 'bucketed' and 'packed' forms ('packed' runs
+      K4, not K3, in the encoders).
    Each phase runs the eager step (``make_pretrain_step``: five steps in
-   A-D, three in E and A64) and then, on the same state, the step as one
+   A-D, three in E, A64 and P64, two in H64 and F) and then, on the same
+   state, the step as one
    CUDA graph (``make_graphed_pretrain_step``: a warm-up step, the
    capture, which replays once, and as many timed replays). Every metric
    must be finite. Each kernel's launch count, reset just before the eager
@@ -50,10 +60,13 @@ Phases (any failure raises and the script exits non-zero):
    device's busy share of a step, and each kernel's calls; a profiled
    replay must call every kernel of the port as often as the profiled
    eager step does (a replay runs no wrapper, so this is what shows the
-   graph ran them). After phase A, two states from one seed take three eager and
-   three graphed steps: metrics, parameters and Adam moments must agree
-   within 1e-5 relative (the same bits are expected).
-4. reference: for each configuration, one contrastive and one MAE
+   graph ran them). After phases A and P64, two states from one seed take
+   three eager and three graphed steps: metrics, parameters and Adam
+   moments must agree within 1e-5 relative (the same bits are expected).
+   Then, on one set of 'exact' draws at B=8, each other form's pooled
+   contrastive outputs must be within 2e-2 relative of 'exact''s ('padded'
+   given the keep masks of those draws).
+4. reference: for configurations A-E, P64 and H64, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
    from the same weights and draws: losses and gradients must agree within
@@ -76,6 +89,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -201,47 +215,109 @@ def kernel_resources(build_log: str):
 
 
 # ------------------------------------------------------------------ shapes
-def main_path_shapes(cfg, batch: int):
+class Shapes(NamedTuple):
+    """The kernel-call shapes of one pretrain step (``main_path_shapes``)
+    and their calls per step."""
+
+    attn: dict  # {(b, N, H, D): calls}
+    mlp: dict  # {(rows, D, H, mlp_impl as mlp_route resolves it): calls}
+    ln: dict  # {(rows, C): LayerNormFP32 calls}
+    again_attn: dict  # the forward calls remat runs again in the backward
+    again_mlp: dict
+    masked: set  # the attention shapes that run with a key mask
+
+
+def main_path_shapes(cfg, batch: int) -> Shapes:
     """Distinct (kernel-call) shapes of one pretrain step and their calls per
-    step: {(b, N, H, D): calls} for attention, {(rows, D, H, mlp_impl):
-    calls} for the MLP sub-blocks (the impl as ``mlp_route`` resolves it),
-    {(rows, C): calls} for the LayerNormFP32 calls (each block call's norm1,
-    and its norm2 unless K3 folds it in; the encoders' final norms and the
-    decoder's)."""
+    step, in the configuration's contrastive form: each block call's
+    attention and MLP sub-block, and the LayerNormFP32 calls (each block
+    call's norm1, and its norm2 unless K3 folds it in; the encoders' final
+    norms and the decoder's). Pass 1 by form: 'exact' each chunk at its keep
+    counts, 'bucketed' at those rounded up to 128 (masked where padded),
+    'padded' the whole batch at full length (masked), 'tconcat' attention
+    per chunk and the MLP over all of a modality's rows, 'packed' attention
+    per chunk and one 'fres' MLP (not the LN-folded sub-block) over both
+    modalities' rows, its norms routed per modality. Under
+    ``remat_blocks`` each trunk-block call's forward kernels run again in
+    the backward (not 'tconcat''s or 'packed''s, which call the blocks'
+    parts, nor ``mm_layer_1/2``'s or the decoder's)."""
     from avsiam_tpu_torch.models.cavmae import chunk_sizes
     from avsiam_tpu_torch.models.layers import mlp_route
     from avsiam_tpu_torch.ops.masking import len_keep_for
     m = cfg.model
     v, d = m.vit, m.decoder
     La, Lv = v.num_audio_tokens, v.num_video_tokens
+    C, heads = v.dim, v.num_heads
     enc_h, dec_h = v.dim * int(v.mlp_ratio), d.dim * int(d.mlp_ratio)
     dec_impl = m.dec_mlp_impl or m.mlp_impl
-    attn, mlp, ln = {}, {}, {}
+    remat = m.remat_blocks
+    s = Shapes({}, {}, {}, {}, {}, set())
 
     def count(table, key, calls):
         table[key] = table.get(key, 0) + calls
 
-    def add(b, n, heads, dim, hidden, calls, impl=m.mlp_impl):
-        impl = mlp_route(impl, dim, hidden)
-        count(attn, (b, n, heads, dim // heads), calls)
-        count(mlp, (b * n, dim, hidden, impl), calls)
-        count(ln, (b * n, dim), calls * (1 if impl == "lnfres" else 2))
+    def attention(b, n, heads, dim, calls, again=False, masked=False):
+        key = (b, n, heads, dim // heads)
+        count(s.attn, key, calls)
+        if again:
+            count(s.again_attn, key, calls)
+        if masked:
+            s.masked.add(key)
 
-    sizes = chunk_sizes(batch, m.mmixed_num_chunks)
-    for i, size in enumerate(sizes):  # pass 1: contrastive chunks
-        ratio = m.mmixed_ratio_step * i
-        for n in (len_keep_for(La, ratio), len_keep_for(Lv, ratio)):
-            add(size, n, v.num_heads, v.dim, enc_h, v.depth)
-            count(ln, (size * n, v.dim), 1)
+    def mlp(rows, dim, hidden, calls, impl, again=False):
+        key = (rows, dim, hidden, mlp_route(impl, dim, hidden))
+        count(s.mlp, key, calls)
+        if again:
+            count(s.again_mlp, key, calls)
+        count(s.ln, (rows, dim), calls * (1 if key[3] == "lnfres" else 2))
+
+    def block(b, n, heads, dim, hidden, calls, impl=m.mlp_impl, again=False,
+              masked=False):
+        attention(b, n, heads, dim, calls, again, masked)
+        mlp(b * n, dim, hidden, calls, impl, again)
+
+    sizes = chunk_sizes(batch, m.mmixed_num_chunks)  # pass 1: contrastive
+    keeps = [(len_keep_for(La, m.mmixed_ratio_step * i),
+              len_keep_for(Lv, m.mmixed_ratio_step * i))
+             for i in range(len(sizes))]
+    form = m.mmixed_impl
+    if form == "padded":
+        for n in (La, Lv):
+            block(batch, n, heads, C, enc_h, v.depth, again=remat,
+                  masked=True)
+            count(s.ln, (batch * n, C), 1)
+    elif form in ("exact", "bucketed"):
+        for size, keep in zip(sizes, keeps):
+            for k in keep:
+                n = -(-k // 128) * 128 if form == "bucketed" else k
+                block(size, n, heads, C, enc_h, v.depth, again=remat,
+                      masked=n != k)
+                count(s.ln, (size * n, C), 1)
+    else:
+        rows = [sum(b * keep[i] for b, keep in zip(sizes, keeps))
+                for i in (0, 1)]
+        for size, keep in zip(sizes, keeps):
+            for k in keep:
+                attention(size, k, heads, C, v.depth)
+        if form == "tconcat":
+            for r in rows:
+                mlp(r, C, enc_h, v.depth, m.mlp_impl)
+                count(s.ln, (r, C), 1)
+        else:  # 'packed': ``Mlp``, where 'lnfres' is 'fres'
+            impl = mlp_route(m.mlp_impl, C, enc_h)
+            count(s.mlp, (sum(rows), C, enc_h,
+                          "fres" if impl == "lnfres" else impl), v.depth)
+            for r in rows:  # norm1, norm2 and the final norm, routed
+                count(s.ln, (r, C), 2 * v.depth + 1)
     ka = len_keep_for(La, m.mae_mask_ratio)  # pass 2: MAE
     kv = len_keep_for(Lv, m.mae_mask_ratio)
     for n in (ka, kv):
-        add(batch, n, v.num_heads, v.dim, enc_h, v.depth)
-        count(ln, (batch * n, v.dim), 1)
-    add(batch, ka + kv, v.num_heads, v.dim, enc_h, 2)
-    add(batch, La + Lv, d.num_heads, d.dim, dec_h, d.depth, dec_impl)
-    count(ln, (batch * (La + Lv), d.dim), 1)
-    return attn, mlp, ln
+        block(batch, n, heads, C, enc_h, v.depth, again=remat)
+        count(s.ln, (batch * n, C), 1)
+    block(batch, ka + kv, heads, C, enc_h, 2)
+    block(batch, La + Lv, d.num_heads, d.dim, dec_h, d.depth, dec_impl)
+    count(s.ln, (batch * (La + Lv), d.dim), 1)
+    return s
 
 
 def mlp_call_launches(impl: str, split: bool) -> dict:
@@ -259,6 +335,10 @@ def mlp_call_launches(impl: str, split: bool) -> dict:
     return out
 
 
+# the kernels an MLP sub-block's forward launches (what remat runs again)
+MLP_FWD_KERNELS = ("ln_mlp_fwd", "mlp_fwd")
+
+
 def mlp_shape_launches(mlp_shapes, split: bool):
     """{(rows, D, H): {kernel: launches per step}} of one configuration."""
     out = {}
@@ -274,25 +354,31 @@ ATTN_KERNELS = {"token_major": ("attention_fwd", "attention_bwd"),
                 "xla": ()}
 
 
-def expected_launches(cfg, shapes, split: bool, ln_pallas: bool,
+def expected_launches(cfg, shapes: Shapes, split: bool, ln_pallas: bool,
                       n_steps: int):
     """Each kernel's launches over ``n_steps`` steps, from the shapes
     (``main_path_shapes``): attention by ``attention_route``, the MLP by
-    impl, K10 at every LayerNormFP32 call of a width it takes under
+    impl, the forward kernels of the calls remat runs again once more, K10
+    at every LayerNormFP32 call of a width it takes under
     ``AVSIAM_LN=pallas``."""
     from avsiam_tpu_torch import kernels
     from avsiam_tpu_torch.ops.attention import attention_route
-    attn_shapes, mlp_shapes, ln_shapes = shapes
     out = {k: 0 for k in kernels.LAUNCHES}
-    for (_, _, heads, hd), calls in attn_shapes.items():
-        route = attention_route(cfg.model.attn_impl, heads * hd, heads)
-        for k in ATTN_KERNELS[route]:
-            out[k] += calls * n_steps
-    for row in mlp_shape_launches(mlp_shapes, split).values():
+    for table, which in ((shapes.attn, slice(None)),
+                         (shapes.again_attn, slice(0, 1))):
+        for (_, _, heads, hd), calls in table.items():
+            route = attention_route(cfg.model.attn_impl, heads * hd, heads)
+            for k in ATTN_KERNELS[route][which]:
+                out[k] += calls * n_steps
+    for row in mlp_shape_launches(shapes.mlp, split).values():
         for k, n in row.items():
             out[k] += n * n_steps
+    for row in mlp_shape_launches(shapes.again_mlp, split).values():
+        for k, n in row.items():
+            if k in MLP_FWD_KERNELS:
+                out[k] += n * n_steps
     if ln_pallas:
-        out["ln_bwd"] = n_steps * sum(c for (_, C), c in ln_shapes.items()
+        out["ln_bwd"] = n_steps * sum(c for (_, C), c in shapes.ln.items()
                                       if C % 128 == 0)
     return out
 
@@ -306,15 +392,29 @@ def head_major_shapes(cfg, attn_shapes):
 
 
 # ------------------------------------------------------------ kernel phase
-def check_attention(shapes, extra, gen):
+def random_key_mask(b: int, n: int, gen) -> torch.Tensor:
+    """[b, n] bool, about 70% of the keys valid, key 0 always."""
+    kv = torch.rand((b, n), generator=gen, device="cuda") > 0.3
+    kv[:, 0] = True
+    return kv
+
+
+def check_attention(shapes, extra, gen, masks=None):
+    """K1 and K2 at each (b, N, H, D) of ``shapes`` ({shape: calls per
+    step}; under the key mask ``masks`` gives the shape, if any) and of
+    ``extra`` ([(shape, masked)]: a random mask where masked), against their
+    plain versions in float32 on the same values; times of kernel, plain
+    version and SDPA on the same bf16 q, k, v and boolean mask, and the
+    bound, which counts the products of the valid keys only."""
     import torch.nn.functional as F
     from avsiam_tpu_torch.ops.attention import (attention_bwd_kernel,
                                                 attention_fwd_kernel,
                                                 attention_hm_stats_reference,
                                                 attention_reference)
+    masks = masks or {}
     rows = []
     for (b, n, heads, hd), calls, masked in (
-            [(k, c, False) for k, c in shapes.items()]
+            [(k, c, masks.get(k, False)) for k, c in shapes.items()]
             + [(k, 0, m) for k, m in extra]):
         C = heads * hd
         xqkv = torch.randn((b, n, 3 * C), generator=gen, device="cuda"
@@ -322,9 +422,10 @@ def check_attention(shapes, extra, gen):
         dout = torch.randn((b, n, C), generator=gen, device="cuda"
                            ).to(torch.bfloat16)
         kv = None
-        if masked:
-            kv = torch.rand((b, n), generator=gen, device="cuda") > 0.3
-            kv[:, 0] = True
+        if isinstance(masked, torch.Tensor):
+            kv, masked = masked, True
+        elif masked:
+            kv = random_key_mask(b, n, gen)
         out, stats = attention_fwd_kernel(xqkv, heads, kv)
         dqkv = attention_bwd_kernel(xqkv, out, stats, dout, heads, kv)
         torch.cuda.synchronize()
@@ -360,17 +461,19 @@ def check_attention(shapes, extra, gen):
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             lib_out, (ql, kl, vl), do_t, retain_graph=True))
         # operations: q k^T and p v forward; backward adds the recomputed
-        # q k^T, do v^T, dv, dq and dk. Bytes (bf16, stats f32): forward
-        # reads qkv, writes out and stats; backward reads qkv, out, dout and
-        # stats and writes dqkv.
-        sq = b * heads * n * n * hd
+        # q k^T, do v^T, dv, dq and dk, over the valid keys of each sample.
+        # Bytes (bf16, stats f32): forward reads qkv, writes out and stats;
+        # backward reads qkv, out, dout and stats and writes dqkv.
+        keys = b * n if kv is None else int(kv.sum())
+        sq = heads * n * keys * hd
         tok = b * n * C * 2  # one [B, N, C] bf16 tensor
         st = b * heads * n * 8
         fb = bound_ms(4 * sq, 3 * tok + tok + st)
         bb = bound_ms(10 * sq, 3 * tok + 2 * tok + st + 3 * tok)
-        rows.append(dict(b=b, N=n, H=heads, D=hd, masked=masked, calls=calls,
-                         fwd_err=ferr, fwd_rel=frel, stats_rel=srel,
-                         bwd_err=berr, bwd_rel=brel,
+        rows.append(dict(b=b, N=n, H=heads, D=hd, masked=masked,
+                         valid_keys=keys, calls=calls, fwd_err=ferr,
+                         fwd_rel=frel, stats_rel=srel, bwd_err=berr,
+                         bwd_rel=brel,
                          fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd,
                          plain_bwd_ms=plain_bwd, lib_fwd_ms=lib_fwd,
                          lib_bwd_ms=lib_bwd, fwd_bound=fb, bwd_bound=bb))
@@ -733,10 +836,7 @@ def check_attention_hm(shapes, extra, gen):
         q, k, v = xqkv.view(b, n, 3, heads, hd).unbind(2)
         dout = torch.randn((b, n, heads, hd), generator=gen, device="cuda"
                            ).bfloat16()
-        kv = None
-        if masked:
-            kv = torch.rand((b, n), generator=gen, device="cuda") > 0.3
-            kv[:, 0] = True
+        kv = random_key_mask(b, n, gen) if masked else None
         out, stats = pat.attention_hm_fwd_kernel(q, k, v, kv)
         grads = pat.attention_hm_bwd_kernel(q, k, v, out, stats, dout, kv)
         torch.cuda.synchronize()
@@ -1009,27 +1109,37 @@ PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5, 8),
           ("D", dict(mlp_impl="lnfres"), False, True, 5, 8),
           ("E", dict(model="cav-mae-huge", attn_impl="pallas",
                      mlp_impl="fused"), False, False, 3, 8),
-          ("A64", dict(mlp_impl="lnfres"), False, False, 3, 64))
+          ("A64", dict(mlp_impl="lnfres"), False, False, 3, 64),
+          ("P64", dict(mmixed_impl="padded"), False, False, 3, 64),
+          ("H64", dict(model="cav-mae-huge", attn_impl="pallas",
+                       mlp_impl="fused", remat_blocks=True), False, False, 2,
+           64),
+          *((f"F-{form}", dict(mmixed_impl=form), False, False, 2, 8)
+            for form in ("tconcat", "bucketed", "packed")))
+# the phases the depth-1 reference phase runs (A64 and F's forms share A's
+# configuration but for the batch and the contrastive form)
+REFERENCE_PHASES = ("A", "B", "C", "D", "E", "P64", "H64")
 
 
 def bench_config(depth: int = 12, dec_depth: int = 8, batch: int = 8,
                  **impls):
-    """The JAX bench's configuration (``mlp_impl='lnfres'``), cut to B=8
-    unless ``batch`` says otherwise; ``impls`` overrides the MLP impls."""
+    """The JAX bench's configuration (``mlp_impl='lnfres'``,
+    ``mmixed_impl='exact'``), cut to B=8 unless ``batch`` says otherwise;
+    ``impls`` overrides the impls."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
                                           PretrainConfig, ViTConfig)
-    impls = dict(dict(mlp_impl="lnfres"), **impls)
+    impls = dict(dict(mlp_impl="lnfres", mmixed_impl="exact"), **impls)
     model = CAVMAEConfig(vit=ViTConfig(depth=depth),
                          decoder=DecoderConfig(depth=dec_depth),
-                         dtype=torch.bfloat16, mmixed_impl="exact",
-                         attn_impl="auto", **impls)
+                         dtype=torch.bfloat16, attn_impl="auto", **impls)
     return PretrainConfig(model=model, batch_size=batch)
 
 
 def phase_config(impls, depth=None, dec_depth=None, batch: int = 8):
     """A phase's configuration at ``batch``: ``bench_config`` with ``impls``, or
     with ``impls['model']`` that variant's ``pretrain_config`` (bf16,
-    'exact') in the other impls; ``depth``/``dec_depth`` cut the depths."""
+    'exact' unless ``impls`` says otherwise) in the other impls;
+    ``depth``/``dec_depth`` cut the depths."""
     from avsiam_tpu_torch.configs import PretrainConfig, replace
     from avsiam_tpu_torch.models.variants import pretrain_config
     impls = dict(impls)
@@ -1037,8 +1147,8 @@ def phase_config(impls, depth=None, dec_depth=None, batch: int = 8):
     if name is None:
         m = bench_config(**impls).model
     else:
-        m = pretrain_config(name, dtype=torch.bfloat16, mmixed_impl="exact",
-                            **impls)
+        m = pretrain_config(name, dtype=torch.bfloat16,
+                            **dict(dict(mmixed_impl="exact"), **impls))
     if depth is not None:
         m = replace(m, vit=replace(m.vit, depth=depth),
                     decoder=replace(m.decoder, depth=dec_depth))
@@ -1097,12 +1207,12 @@ def main(argv=None) -> int:
         phases[label] = dict(impls=impls, cfg=cfg, split=split, ln=ln,
                              n_steps=n_steps,
                              shapes=main_path_shapes(cfg, cfg.batch_size))
-    attn_shapes, mlp_shapes, _ = phases["A"]["shapes"]
+    attn_shapes, mlp_shapes = phases["A"]["shapes"][:2]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     report = {"device": card, "kernel_resources": resources}
     log("phase kernels: each kernel against its plain version")
     # beyond the B=8 step's shapes: the B=64 step's shortest chunks, and
-    # key_valid masks (used by the mmixed forms still to be ported)
+    # random key masks
     extra = [((2, 102, 12, 64), False), ((2, 39, 12, 64), False),
              ((2, 177, 12, 64), True), ((2, 708, 16, 32), True)]
     attn_rows = check_attention(attn_shapes, extra, gen)
@@ -1126,10 +1236,22 @@ def main(argv=None) -> int:
         head_major_shapes(e["cfg"], e["shapes"][0]),
         [((2, 177, 16, 80), True), ((2, 196, 12, 64), False),
          ((2, 177, 12, 64), True)], gen)
+    # K1/K2 at phase P64's masked encoder shapes, under the keep masks
+    # 'padded' draws, timed beside SDPA with the same mask
+    p64 = phases["P64"]
+    attn_p64 = check_attention(
+        {k: c for k, c in p64["shapes"].attn.items()
+         if k in p64["shapes"].masked}, [], gen,
+        masks=padded_masks_at(p64["cfg"], gen))
+    log_attention_totals("P64", attn_p64)
     report.update(attention=attn_rows, ln_mlp=mlp_rows, mlp_family=fam_rows,
                   ln_bwd=ln_rows, attention_hm=hm_rows,
-                  float32=check_float32(gen),
-                  a64=check_at_shapes(phases["A64"]["shapes"], gen))
+                  attention_p64=attn_p64, float32=check_float32(gen),
+                  at_shapes={label: check_at_shapes(label, p["cfg"],
+                                                    p["shapes"], gen)
+                             for label, p in phases.items()
+                             if label in ("A64", "P64", "H64")
+                             or label.startswith("F-")})
     launches = {}
     for label, p in phases.items():
         with env_flags(p["split"], p["ln"]):
@@ -1137,13 +1259,14 @@ def main(argv=None) -> int:
                 label, p["cfg"], expected_launches(
                     p["cfg"], p["shapes"], p["split"], p["ln"], 1),
                 args.seed, report, p["n_steps"])
-        if label == "A":
-            report["eager_vs_graphed"] = compare_eager_graphed(p["cfg"],
-                                                               args.seed)
-    for label, p in phases.items():
-        if p["cfg"].batch_size == 8:  # A64's reference is A's
-            with env_flags(p["split"], p["ln"]):
-                run_reference(label, p["impls"], args.seed, report)
+        if label in ("A", "P64"):
+            report.setdefault("eager_vs_graphed", {})[label] = \
+                compare_eager_graphed(p["cfg"], args.seed)
+    report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
+    for label in REFERENCE_PHASES:
+        p = phases[label]
+        with env_flags(p["split"], p["ln"]):
+            run_reference(label, p["impls"], args.seed, report)
 
     if args.report:
         with open(args.report, "w") as f:
@@ -1155,7 +1278,9 @@ def main(argv=None) -> int:
     print(json.dumps({"steps": {
         label: {k: r.get(k) for k in STEP_KEYS}
         for label, r in report["steps"].items()},
-        "eager_vs_graphed_max_rel": report["eager_vs_graphed"]["max_rel"]}))
+        "eager_vs_graphed_max_rel": {
+            k: r["max_rel"] for k, r in report["eager_vs_graphed"].items()},
+        "forms_vs_exact_max_rel": report["forms_vs_exact"]}))
     log(card)
     print(json.dumps({"kernels": kernel_entries(
         attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows, launches)}))
@@ -1239,7 +1364,8 @@ def run_steps(label, cfg, per_step, seed, report, n_steps: int = 5):
         f"ViT dim {v.dim} depth {v.depth} heads {v.num_heads}, decoder "
         f"{d.dim}/{d.depth}/{d.num_heads}, {m.dtype}, batch "
         f"{cfg.batch_size}, attn_impl {m.attn_impl}, mlp_impl {m.mlp_impl}, "
-        f"dec_mlp_impl {m.dec_mlp_impl}, AVSIAM_MLP_BWD="
+        f"dec_mlp_impl {m.dec_mlp_impl}, mmixed_impl {m.mmixed_impl}, "
+        f"remat_blocks {m.remat_blocks}, AVSIAM_MLP_BWD="
         f"{os.environ.get('AVSIAM_MLP_BWD')}, AVSIAM_LN="
         f"{os.environ.get('AVSIAM_LN')}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1368,43 +1494,146 @@ def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
                 equal=n_equal)
 
 
-def check_at_shapes(shapes, gen):
-    """K1/K2 and K3 against their plain versions at the attention and MLP
-    shapes of ``shapes`` (``main_path_shapes``) that the kernels phase has
-    not timed: phase A64's, the B=64 step's. Untimed."""
-    from avsiam_tpu_torch.ops.attention import (attention_bwd_kernel,
-                                                attention_fwd_kernel,
-                                                attention_reference)
-    from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
-    attn_shapes, mlp_shapes, _ = shapes
+def padded_masks_at(cfg, gen):
+    """{(B, N, H, D): [B, N] bool}: the keep masks of one 'padded' draw at
+    ``cfg``'s batch (``models/cavmae.py:padded_keep_masks``), by the
+    encoder attention shape each masks."""
+    from avsiam_tpu_torch.models.cavmae import draw_masks, padded_keep_masks
+    m = cfg.model
+    B, heads = cfg.batch_size, m.vit.num_heads
+    keep = padded_keep_masks(m, draw_masks(m, B, gen, "cuda", mae=False))
+    return {(B, k.shape[1], heads, m.vit.dim // heads): k for k in keep}
+
+
+def log_attention_totals(label, rows):
+    """K1's and K2's time per step of phase ``label`` over ``rows``
+    (``check_attention``'s), beside SDPA's and the bound."""
+    def tot(key):
+        return sum((r[key][0] if key.endswith("bound") else r[key])
+                   * r["calls"] for r in rows)
+
+    log(f"  attention per phase-{label} step at these shapes: K1 "
+        f"{tot('fwd_ms'):.3f} ms (sdpa {tot('lib_fwd_ms'):.3f}, bound "
+        f"{tot('fwd_bound'):.3f}), K2 {tot('bwd_ms'):.3f} ms (sdpa "
+        f"{tot('lib_bwd_ms'):.3f}, bound {tot('bwd_bound'):.3f})")
+
+
+def compare_forms(cfg, seed, batch: int = 8, tol: float = 2e-2):
+    """Each contrastive form of ``cfg`` (ViT-B, full width, bf16) against
+    'exact' on one shared set of 'exact' draws: the pooled ca and cv of
+    'tconcat', 'bucketed' and 'packed' from the draws themselves, and of
+    'padded' from the keep masks of those draws
+    (``models/cavmae.py:exact_keep_masks``), each within ``tol`` relative
+    (max |form - exact| / max |exact|). Returns {form: that error}."""
+    from avsiam_tpu_torch.configs import replace
+    from avsiam_tpu_torch.models.cavmae import (CAVMAEPretrain, draw_masks,
+                                                exact_keep_masks)
+    m = cfg.model
+    log(f"phase forms: each contrastive form against 'exact' on one set of "
+        f"draws, batch {batch}, tolerance {tol} relative")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    exact = CAVMAEPretrain(replace(m, mmixed_impl="exact"), "cuda", gen)
+    v = m.vit
+    audio = torch.randn((batch, v.audio_length, v.mel_bins), generator=gen,
+                        device="cuda")
+    imgs = torch.randn((batch, 3, v.img_size, v.img_size), generator=gen,
+                       device="cuda")
+    draws = draw_masks(exact.cfg, batch, gen, "cuda", mae=False)
     errs = {}
-    for b, n, heads, hd in attn_shapes:
-        x = torch.randn((b, n, 3 * heads * hd), generator=gen,
-                        device="cuda").bfloat16()
-        do = torch.randn((b, n, heads * hd), generator=gen,
-                         device="cuda").bfloat16()
-        out, stats = attention_fwd_kernel(x, heads)
-        dx = attention_bwd_kernel(x, out, stats, do, heads)
+    with torch.no_grad():
+        want = exact.forward_encoder_mmixed(audio, imgs, draws)
+        for form in ("tconcat", "bucketed", "packed", "padded"):
+            model = CAVMAEPretrain(replace(m, mmixed_impl=form), "cuda", gen)
+            model.load_state_dict(exact.state_dict())
+            if form == "padded":
+                keep_a, keep_v = exact_keep_masks(exact.cfg, draws)
+                got = (model._encode_contrastive(
+                           model.vit.embed_audio(audio), "a", keep_a),
+                       model._encode_contrastive(
+                           model.vit.embed_video(imgs), "v", keep_v))
+            else:
+                got = model.forward_encoder_mmixed(audio, imgs, draws)
+            errs[form] = max(rel_err(g, w)[1] for g, w in zip(got, want))
+            log(f"  {form}: ca, cv rel err {errs[form]:.2e} against 'exact' "
+                f"(<= {tol})")
+            del model
+    if max(errs.values()) > tol:
+        raise AssertionError(f"forms against 'exact': {errs} > {tol}")
+    del exact
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_at_shapes(label, cfg, shapes: Shapes, gen):
+    """Every kernel of phase ``label``'s step against its plain version at
+    the step's attention and MLP shapes (``main_path_shapes``), the ones the
+    kernels phase does not time: K1/K2 or K5/K6 by ``attention_route``
+    (under a random key mask where the step masks keys), K3 under 'lnfres',
+    K4 with the hidden under 'fres', K4 and K7 (with K9 twice) and K9 alone
+    under 'fused'. Untimed."""
+    from avsiam_tpu_torch.ops import attention as pat
+    from avsiam_tpu_torch.ops import mlp as pm
+    errs = {}
+    for b, n, heads, hd in shapes.attn:
+        C = heads * hd
+        x = torch.randn((b, n, 3 * C), generator=gen, device="cuda"
+                        ).bfloat16()
+        do = torch.randn((b, n, C), generator=gen, device="cuda").bfloat16()
+        kv = (random_key_mask(b, n, gen) if (b, n, heads, hd) in shapes.masked
+              else None)
+        route = pat.attention_route(cfg.model.attn_impl, C, heads)
+        name = (f"{route} b={b} N={n} H={heads} D={hd} "
+                f"mask={int(kv is not None)}")
         xr = x.float().requires_grad_(True)
-        ref = attention_reference(xr, heads)
-        (gref,) = torch.autograd.grad(ref, xr, do.float())
-        errs[f"attention b={b} N={n} H={heads} D={hd}"] = max(
-            rel_err(out, ref)[1], rel_err(dx, gref)[1])
+        if route == "token_major":
+            out, stats = pat.attention_fwd_kernel(x, heads, kv)
+            dx = pat.attention_bwd_kernel(x, out, stats, do, heads, kv)
+            ref = pat.attention_reference(xr, heads, kv)
+            (gref,) = torch.autograd.grad(ref, xr, do.float())
+        else:
+            q, k, v = x.view(b, n, 3, heads, hd).unbind(2)
+            out, stats = pat.attention_hm_fwd_kernel(q, k, v, kv)
+            dx = torch.stack(pat.attention_hm_bwd_kernel(
+                q, k, v, out, stats, do.view(b, n, heads, hd), kv), dim=2)
+            qr, kr, vr = xr.view(b, n, 3, heads, hd).unbind(2)
+            ref = pat.attention_hm_reference(qr, kr, vr, kv)
+            (gref,) = torch.autograd.grad(ref, xr, do.float().view_as(ref))
+            gref = gref.view_as(dx)
+        errs[name] = max(rel_err(out, ref)[1], rel_err(dx, gref)[1])
         del ref, gref, xr
-    for t, d, h, _ in mlp_shapes:
+    for t, d, h, impl in shapes.mlp:
         o = mlp_operands(gen, t, d, h)
-        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-        bl = 0.1 * torch.randn(d, generator=gen, device="cuda")
-        out, hpre = ln_mlp_fwd_kernel(o["x"], g, bl, o["w1"], o["b1"],
-                                      o["w2"], o["b2"], 1e-5)
-        ref, href = ln_mlp_reference(o["x"].float(), g, bl, o["w1"].float(),
-                                     o["b1"], o["w2"].float(), o["b2"], 1e-5)
-        errs[f"ln_mlp T={t} D={d} H={h}"] = max(rel_err(out, ref)[1],
-                                                 rel_err(hpre, href)[1])
+        x, w1, b1, w2, b2, do = (o[k] for k in ("x", "w1", "b1", "w2", "b2",
+                                                "do"))
+        f = {k: val.float() for k, val in o.items()}
+        name = f"{impl} T={t} D={d} H={h}"
+        got, want = [], []
+        if impl == "lnfres":
+            g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            bl = 0.1 * torch.randn(d, generator=gen, device="cuda")
+            got += pm.ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2, 1e-5)
+            want += pm.ln_mlp_reference(f["x"], g, bl, f["w1"], b1, f["w2"],
+                                        b2, 1e-5)
+        if impl in ("fused", "fres"):
+            got += pm.mlp_fwd_kernel(x, w1, b1, w2, b2, True)
+            want += pm.mlp_fwd_reference(f["x"], f["w1"], b1, f["w2"], b2,
+                                         save_hpre=True)
+        if impl == "fused":
+            got += pm.mlp_bwd_kernel(x, w1, b1, w2, do)
+            want += pm.mlp_bwd_reference(f["x"], f["w1"], b1, f["w2"],
+                                         f["do"])
+            gh = torch.randn((t, h), generator=gen, device="cuda").bfloat16()
+            for a_, g_ in ((x, gh), (gh, do)):  # dw1's and dw2's operands
+                got += pm.weight_grads_kernel(a_, g_)
+                want += pm.weight_grads_reference(a_.float(), g_.float())
+        if got:
+            errs[name] = max(rel_err(g_, w_)[1] for g_, w_ in zip(got, want))
+        del got, want
     for name, e in errs.items():
-        log(f"  B=64 shape {name}: rel err {e:.1e} (<= {ATTN_TOL})")
+        log(f"  {label} shape {name}: rel err {e:.1e} (<= {ATTN_TOL})")
         if e > ATTN_TOL:
-            raise AssertionError(f"{name}: rel err {e:.3e} > {ATTN_TOL}")
+            raise AssertionError(f"{label} {name}: rel err {e:.3e} > "
+                                 f"{ATTN_TOL}")
     return errs
 
 

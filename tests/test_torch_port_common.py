@@ -8,12 +8,15 @@ patch grid, 16 tokens), video one 48 x 48 frame (9 tokens), so the decoder
 runs at 25 tokens: not a multiple of 16.
 
 Random draws: ``record_draws`` runs the JAX model with its masking
-functions wrapped (pytest monkeypatch, nothing in the JAX package changes)
-and returns the noise and permutations JAX drew from the given keys as the
-port's ``MaskDraws``.
+functions and random draws wrapped (``recording_draws``: pytest
+monkeypatch, nothing in the JAX package changes) and returns the noise and
+permutations JAX drew from the given keys as the port's ``MaskDraws``, in
+the layout of the model's contrastive form.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +58,83 @@ def batch(n: int, seed: int = 0):
     return a, v
 
 
+@contextlib.contextmanager
+def recording_draws(monkeypatch):
+    """Within the block, the JAX masking functions, ``take_batch``,
+    ``jax.random.permutation`` and ``jax.random.uniform`` are wrapped to
+    collect what they draw (pytest monkeypatch: nothing in the JAX package
+    changes). Yields the dict of lists they fill, which a jitted function
+    can return beside the model's outputs; ``draws_from`` turns it into the
+    port's ``MaskDraws``."""
+    rec = dict(uniform=[], structured=[], batch_ids=[], perms=[],
+               uniforms=[])
+    orig_rm = jmasking.random_masking
+    orig_sn = jmasking.structured_noise
+    orig_tb = jcavmae.take_batch
+    orig_perm = jax.random.permutation
+    orig_uniform = jax.random.uniform
+
+    def rm(rng, x, len_keep, noise=None, pad_to=None):
+        if noise is None:  # the same draw random_masking makes itself
+            noise = jax.random.uniform(rng, x.shape[:2])
+            rec["uniform"].append(noise)
+        return orig_rm(rng, x, len_keep, noise=noise, pad_to=pad_to)
+
+    def sn(rng, N, f, t, mask_ratio, mode="tf"):
+        k_base, k_t, k_f = jax.random.split(rng, 3)  # as structured_noise
+        rec["structured"].append((jax.random.uniform(k_base, (N, f, t)),
+                                  jax.random.uniform(k_t, (N, t)),
+                                  jax.random.uniform(k_f, (N, f))))
+        return orig_sn(rng, N, f, t, mask_ratio, mode)
+
+    def tb(x, ids, impl="auto"):
+        rec["batch_ids"].append(ids)
+        return orig_tb(x, ids, impl)
+
+    def perm(*args, **kw):
+        out = orig_perm(*args, **kw)
+        rec["perms"].append(out)
+        return out
+
+    def uniform(*args, **kw):  # every uniform draw, in order
+        out = orig_uniform(*args, **kw)
+        rec["uniforms"].append(out)
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(jmasking, "random_masking", rm)
+        m.setattr(jmasking, "structured_noise", sn)
+        m.setattr(jcavmae, "take_batch", tb)
+        m.setattr(jax.random, "permutation", perm)
+        m.setattr(jax.random, "uniform", uniform)
+        yield rec
+
+
+def draws_from(rec, mae_w, con_w, mmixed_impl: str) -> MaskDraws:
+    """The port's ``MaskDraws`` from what ``recording_draws`` collected (as
+    numpy) over one forward with these loss weights and form."""
+    t = torch.from_numpy
+    uniform = rec["uniform"]
+    d = MaskDraws()
+    if mae_w != 0:  # forward_encoder draws audio, then video
+        d.noise_a, d.noise_v = t(uniform[0]), t(uniform[1])
+        uniform = uniform[2:]
+    if con_w != 0 and mmixed_impl == "padded":
+        # the two permutations, then the last four uniforms: base, r_t, r_f
+        # and the video noise from one 'mask' key split four ways
+        d.perm_a, d.perm_v = (t(p).long() for p in rec["perms"])
+        d.padded_a = tuple(t(u) for u in rec["uniforms"][-4:-1])
+        d.padded_v = t(rec["uniforms"][-1])
+    elif con_w != 0:
+        n = len(rec["structured"])  # chunks: (idx_a, idx_v) each, then 2
+        ids = rec["batch_ids"]  # restores
+        d.perm_a = t(np.concatenate(ids[0:2 * n:2])).long()
+        d.perm_v = t(np.concatenate(ids[1:2 * n:2])).long()
+        d.chunk_a = [tuple(t(u) for u in s) for s in rec["structured"]]
+        d.chunk_v = [t(u) for u in uniform]
+    return d
+
+
 def record_draws(monkeypatch, model, params, a, v, mae_w, con_w, rngs):
     """Run ``model.apply`` (jitted) and capture the draws it makes: returns
     (the JAX model's outputs, the port's ``MaskDraws``). The wrapped masking
@@ -62,51 +142,15 @@ def record_draws(monkeypatch, model, params, a, v, mae_w, con_w, rngs):
     function returns them beside the model's outputs."""
 
     def run(params, a, v, rngs):
-        uniform, structured, batch_ids = [], [], []
-        orig_rm = jmasking.random_masking
-        orig_sn = jmasking.structured_noise
-        orig_tb = jcavmae.take_batch
-
-        def rm(rng, x, len_keep, noise=None, pad_to=None):
-            if noise is None:  # the same draw random_masking makes itself
-                noise = jax.random.uniform(rng, x.shape[:2])
-                uniform.append(noise)
-            return orig_rm(rng, x, len_keep, noise=noise, pad_to=pad_to)
-
-        def sn(rng, N, f, t, mask_ratio, mode="tf"):
-            k_base, k_t, k_f = jax.random.split(rng, 3)  # as structured_noise
-            structured.append((jax.random.uniform(k_base, (N, f, t)),
-                               jax.random.uniform(k_t, (N, t)),
-                               jax.random.uniform(k_f, (N, f))))
-            return orig_sn(rng, N, f, t, mask_ratio, mode)
-
-        def tb(x, ids, impl="auto"):
-            batch_ids.append(ids)
-            return orig_tb(x, ids, impl)
-
-        with monkeypatch.context() as m:
-            m.setattr(jmasking, "random_masking", rm)
-            m.setattr(jmasking, "structured_noise", sn)
-            m.setattr(jcavmae, "take_batch", tb)
+        with recording_draws(monkeypatch) as rec:
             out = model.apply({"params": params}, a, v,
                               mae_loss_weight=mae_w,
                               contrast_loss_weight=con_w, rngs=rngs)
-        return out, (uniform, structured, batch_ids)
+        return out, rec
 
     out, rec = jax.jit(run)(params, jnp.asarray(a), jnp.asarray(v), rngs)
-    uniform, structured, batch_ids = jax.tree_util.tree_map(np.array, rec)
-    t = torch.from_numpy
-    d = MaskDraws()
-    if mae_w != 0:  # forward_encoder draws audio, then video
-        d.noise_a, d.noise_v = t(uniform[0]), t(uniform[1])
-        uniform = uniform[2:]
-    if con_w != 0:
-        n = len(structured)  # chunks: (idx_a, idx_v) each, then 2 restores
-        d.perm_a = t(np.concatenate(batch_ids[0:2 * n:2])).long()
-        d.perm_v = t(np.concatenate(batch_ids[1:2 * n:2])).long()
-        d.chunk_a = [tuple(t(u) for u in s) for s in structured]
-        d.chunk_v = [t(u) for u in uniform]
-    return out, d
+    rec = jax.tree_util.tree_map(np.array, rec)
+    return out, draws_from(rec, mae_w, con_w, model.cfg.mmixed_impl)
 
 
 def to_np(x):

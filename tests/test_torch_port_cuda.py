@@ -130,18 +130,19 @@ _NO_LAUNCHES = {k: 0 for k in kernels.LAUNCHES}
 
 def _depth1_config(vit=None, model=None, **impls):
     """A depth-1 full-width bf16 configuration at batch 2 in the given impls
-    (ViT-B unless ``vit`` gives other ViTConfig fields, or ``model`` names a
-    variant's ``pretrain_config``)."""
+    ('exact' unless they name another contrastive form; ViT-B unless
+    ``vit`` gives other ViTConfig fields, or ``model`` names a variant's
+    ``pretrain_config``)."""
     from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig,
                                           PretrainConfig, ViTConfig, replace)
     from avsiam_tpu_torch.models.variants import pretrain_config
+    impls = dict(dict(mmixed_impl="exact"), **impls)
     if model is None:
         m = CAVMAEConfig(vit=ViTConfig(**dict(vit or {}, depth=1)),
                          decoder=DecoderConfig(depth=1), dtype=torch.bfloat16,
-                         mmixed_impl="exact", **impls)
+                         **impls)
     else:
-        m = pretrain_config(model, dtype=torch.bfloat16, mmixed_impl="exact",
-                            **impls)
+        m = pretrain_config(model, dtype=torch.bfloat16, **impls)
         m = replace(m, vit=replace(m.vit, depth=1),
                     decoder=replace(m.decoder, depth=1))
     return PretrainConfig(model=m, batch_size=2)
@@ -234,6 +235,66 @@ def test_wide_variants_step_under_every_mlp_kernel(gen, monkeypatch, model,
                             **_WIDE_MLP_LAUNCHES[impl])
 
 
+# the launches of a depth-1 'lnfres' step in each contrastive form and
+# under remat: two chunks of one clip, so pass 1 makes 4 block calls
+# ('exact', 'bucketed'; 'tconcat' one MLP call a modality, 'packed' one
+# K4 call over both), 'padded' 2 at full length; pass 2 makes 5 (two
+# encoder blocks, mm_layer_1/2, the decoder). Under remat the 6 trunk-block
+# calls launch K1 and K3 once more, in the backward.
+_FORM_LAUNCHES = {
+    "tconcat": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=7),
+    "bucketed": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=9),
+    "packed": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=5,
+                   mlp_fwd=1),
+    "padded": dict(attention_fwd=7, attention_bwd=7, ln_mlp_fwd=7),
+    "remat": dict(attention_fwd=15, attention_bwd=9, ln_mlp_fwd=15),
+}
+
+
+def _form_impls(form):
+    return (dict(remat_blocks=True) if form == "remat"
+            else dict(mmixed_impl=form))
+
+
+@pytest.mark.parametrize("form", list(_FORM_LAUNCHES))
+def test_contrastive_forms_step_on_the_card(gen, form):
+    """A depth-1 step in each contrastive form and under ``remat_blocks``:
+    finite metrics and each kernel launched exactly as often as the form's
+    calls imply, remat's recompute included."""
+    launches = _depth1_step(gen, **_form_impls(form))
+    assert launches == dict(_NO_LAUNCHES, **_FORM_LAUNCHES[form])
+
+
+@pytest.mark.parametrize("N", [512, 196])
+def test_masked_attention_at_the_padded_shapes(gen, N):
+    """K1/K2 at 'padded''s encoder shapes (B, 512) and (B, 196), 12 heads of
+    64, under the keep masks 'padded' draws: against the plain version, and
+    the same bits over 100 calls."""
+    from avsiam_tpu_torch.configs import CAVMAEConfig
+    from avsiam_tpu_torch.models.cavmae import draw_masks, padded_keep_masks
+    B, H, D = 16, 12, 64
+    cfg = CAVMAEConfig(mmixed_impl="padded")
+    keep = padded_keep_masks(cfg, draw_masks(cfg, B, gen, "cuda",
+                                             mae=False))
+    kv = keep[0] if N == 512 else keep[1]
+    assert kv.shape == (B, N) and int(kv.sum(1).min()) >= int(N * 0.2)
+    x = torch.randn((B, N, 3 * H * D), generator=gen, device="cuda"
+                    ).bfloat16()
+    do = torch.randn((B, N, H * D), generator=gen, device="cuda").bfloat16()
+
+    def call():
+        out, stats = pat.attention_fwd_kernel(x, H, kv)
+        return out, stats, pat.attention_bwd_kernel(x, out, stats, do, H, kv)
+
+    first = call()
+    xr = x.float().requires_grad_(True)
+    ref = pat.attention_reference(xr, H, kv)
+    (gref,) = torch.autograd.grad(ref, xr, do.float())
+    assert _rel(first[0], ref) <= TOL and _rel(first[2], gref) <= TOL
+    for _ in range(100):
+        assert all(torch.equal(a, b) for a, b in zip(call(), first))
+
+
 def test_ln_pallas_step_on_the_card(gen, monkeypatch):
     """Under ``AVSIAM_LN=pallas`` K10 runs at every LayerNormFP32 call, and
     the 'lnfres' kernels as without it."""
@@ -252,6 +313,7 @@ _GRAPH_ROUTES = {
     "ln_pallas": ({}, {"AVSIAM_LN": "pallas"}),
     "vit_h_pallas": (dict(vit=dict(dim=1280, num_heads=16),
                           attn_impl="pallas", mlp_impl="fused"), {}),
+    **{form: (_form_impls(form), {}) for form in _FORM_LAUNCHES},
 }
 
 
@@ -272,19 +334,13 @@ def _port_kernel_calls(fn):
             and any(k in e.key for k in _PORT_KERNELS)}
 
 
-def _rel_or_zero(got, want):
-    """max |got - want| / max |want|, 0 where both are 0."""
-    got, want = got.detach().float(), want.detach().float()
-    err = float((got - want).abs().max())
-    return err / max(float(want.abs().max()), 1e-30)
-
-
 @pytest.mark.parametrize("route", list(_GRAPH_ROUTES))
 def test_graphed_step_matches_the_eager_step(gen, monkeypatch, route):
     """Depth-1 steps as one CUDA graph (warm-up, capture, two replays)
     against the eager step from the same seed, the learning rate halved
-    each step: metrics per step and final parameters within 1e-5 relative
-    (the same bits are expected), each graphed call counting the launches
+    each step, in each route, each contrastive form and under remat:
+    metrics per step and final parameters the same bits, each graphed call
+    counting the launches
     the eager step counts, the last replay, profiled, calling each kernel
     of the port as often as the eager step does, and a batch of another
     shape refused."""
@@ -320,10 +376,10 @@ def test_graphed_step_matches_the_eager_step(gen, monkeypatch, route):
     for e, g_ in zip(me, mg):
         for k in e:
             assert math.isfinite(float(g_[k]))
-            assert _rel_or_zero(g_[k], e[k]) <= 1e-5, k
+            assert torch.equal(g_[k], e[k]), k
     for (name, pe), pg in zip(se.model.named_parameters(),
                               sg.model.parameters()):
-        assert _rel_or_zero(pg, pe) <= 1e-5, name
+        assert torch.equal(pg, pe), name
     a, v = batch
     with pytest.raises(ValueError, match="captured for"):
         step(sg, (a[:1], v[:1]), g, 1e-4)

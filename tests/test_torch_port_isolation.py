@@ -58,7 +58,8 @@ step = make_pretrain_step(cfg)
 for _ in range(2):
     state, metrics = step(state, (a, v), gen, 1e-3)
 assert all(math.isfinite(float(x)) for x in metrics.values()), metrics
-attn, mlp, ln = chip_smoke.main_path_shapes(chip_smoke.bench_config(), 8)
+shapes = chip_smoke.main_path_shapes(chip_smoke.bench_config(), 8)
+attn, mlp, ln = shapes.attn, shapes.mlp, shapes.ln
 assert sum(attn.values()) == sum(mlp.values()) == 130
 assert sum(ln.values()) == 130 + 8 + 2 + 1  # norm1s, final norms, decoder
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
