@@ -5,9 +5,9 @@ DecoderConfig, CAVMAEConfig, AudioConfig, OptimizerConfig, MeshConfig,
 PretrainConfig), with torch dtypes in place of jnp ones. The port keeps its
 own copy so that it imports nothing of the JAX package.
 
-The port takes every value the JAX package takes, save ``ViTConfig.gelu``,
-which it takes as 'erf' or 'ans' (anything else raises where it is read).
-``CAVMAEConfig.mmixed_impl`` names the contrastive encoder's form: 'exact',
+The port takes every value the JAX package takes (``ViTConfig.gelu``:
+'erf', 'tanh', 'ans', 'cheb' or 'tanh5', the MLP kernels running 'erf' as
+'ans'). ``CAVMAEConfig.mmixed_impl`` names the contrastive encoder's form: 'exact',
 'tconcat', 'bucketed', 'packed' or 'padded' (the default, as in JAX);
 ``remat_blocks`` rematerialises the trunks' blocks in the backward
 (``torch.utils.checkpoint``). ``attn_impl`` takes the JAX package's set:
@@ -103,7 +103,9 @@ class CAVMAEConfig:
 
 @dataclass(frozen=True)
 class AudioConfig:
-    """Audio front-end settings (kept for field parity of PretrainConfig)."""
+    """Audio front-end settings, read by the data layer's transforms
+    (``data/dataset.py``: the fbank's geometry, SpecAugment's ``freqm`` and
+    ``timem``, ``mixup``, ``noise``, the normalisation)."""
 
     num_mel_bins: int = 128
     target_length: int = 1024

@@ -4,7 +4,8 @@
 // operands and gradients live.
 //
 // Per (sample, head): q, k and v rows `ld` elements apart from the sample's
-// first row, the head's channels at [h D, h D + D); the output o, its
+// first row, the head's dh channels at [h dh, h dh + dh) (dh <= D, the
+// tiles' width: attention_common.cuh); the output o, its
 // cotangent do and the gradients rows `ldo` (or `ldg`) apart; stats
 // [B, H, N, 2] = each row's max m and 1/denominator r of s * scale + bias,
 // s = q k^T, as the forward saved them. Then
@@ -16,7 +17,10 @@
 //   dq: a block per 64-query tile writes delta for its rows, then walks the
 //     key tiles: s, dp, ds and dq += ds k (three products);
 //   dk/dv: a block per 64-key tile walks the query tiles: s^T = k q^T,
-//     dp^T = v do^T, dv += p^T do and dk += ds^T q (four products).
+//     dp^T = v do^T, dv += p^T do and dk += ds^T q (four products); at
+//     the tile width 128, two blocks per key tile, each with half
+//     the channels of dk and dv (so that the accumulators fit the
+//     registers without spilling), each forming s and dp itself.
 // The backward that recomputes the statistics takes nine.
 //
 // Scores never leave registers. Each of the 4 warps owns 16 rows of the
@@ -75,11 +79,11 @@ __device__ __forceinline__ float dot8(const float* a, const float* b) {
 
 // dq of the 64 queries from q0 of head h of sample b; also writes delta
 // [B, H, N] for them.
-template <typename T, int D>
+template <typename T, int D, bool VEC>
 __device__ __forceinline__ void attn_bwd_dq_body(
     const T* q, const T* k, const T* v, int ld, const T* out, const T* dout, int ldo,
     const float* stats, float* delta, const uint8_t* key_valid, T* dq, int ldg, int b, int h,
-    int q0, int N, int H, float scale) {
+    int q0, int N, int H, int dh, float scale) {
   using SM = DqSmem<D>;
   constexpr int LDT = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -89,17 +93,17 @@ __device__ __forceinline__ void attn_bwd_dq_body(
   bf16* Vs = reinterpret_cast<bf16*>(smem + SM::V);
   float* Bs = reinterpret_cast<float*>(smem + SM::BIAS);
   const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
-  const int col = h * D, nk = (N + BK - 1) / BK;
+  const int col = h * dh, nk = (N + BK - 1) / BK;
   const float sl2 = scale * LOG2E;
 
   // group 0: q, do and key tile 0; group 1: key tile 1
-  stage_tile<T, D>(Qs, q, q0, N, ld, col, tid);
-  stage_tile<T, D>(DOs, dout, q0, N, ldo, col, tid);
+  stage_tile<T, D, VEC>(Qs, q, q0, N, ld, col, dh, tid);
+  stage_tile<T, D, VEC>(DOs, dout, q0, N, ldo, col, dh, tid);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     if (j < nk) {
-      stage_tile<T, D>(Ks + j * BK * LDT, k, j * BK, N, ld, col, tid);
-      stage_tile<T, D>(Vs + j * BK * LDT, v, j * BK, N, ld, col, tid);
+      stage_tile<T, D, VEC>(Ks + j * BK * LDT, k, j * BK, N, ld, col, dh, tid);
+      stage_tile<T, D, VEC>(Vs + j * BK * LDT, v, j * BK, N, ld, col, dh, tid);
       if (tid < BK) Bs[j * BK + tid] = key_bias(key_valid, b, N, j * BK + tid) * LOG2E;
     }
     cp_async_commit();
@@ -114,8 +118,11 @@ __device__ __forceinline__ void attn_bwd_dq_body(
     if (n < N) {
       const T* o = out + (size_t)n * ldo + col;
       const T* g = dout + (size_t)n * ldo + col;
-#pragma unroll
-      for (int c = (lane & 1) * 8; c < D; c += 16) dl += dot8(o + c, g + c);
+      if constexpr (VEC) {
+        for (int c = (lane & 1) * 8; c < dh; c += 16) dl += dot8(o + c, g + c);
+      } else {
+        for (int c = lane & 1; c < dh; c += 2) dl += to_f32(o[c]) * to_f32(g[c]);
+      }
       ml = stats[2 * i] * LOG2E;
       rl = stats[2 * i + 1];
     }
@@ -162,23 +169,29 @@ __device__ __forceinline__ void attn_bwd_dq_body(
     warp_pm<D>(acc, ds, Kt, lane);  // dq += ds k
     __syncthreads();                // every warp is done with stage st
     if (j + 2 < nk) {
-      stage_tile<T, D>(Ks + st * BK * LDT, k, (j + 2) * BK, N, ld, col, tid);
-      stage_tile<T, D>(Vs + st * BK * LDT, v, (j + 2) * BK, N, ld, col, tid);
+      stage_tile<T, D, VEC>(Ks + st * BK * LDT, k, (j + 2) * BK, N, ld, col, dh, tid);
+      stage_tile<T, D, VEC>(Vs + st * BK * LDT, v, (j + 2) * BK, N, ld, col, dh, tid);
       if (tid < BK) Bs[st * BK + tid] = key_bias(key_valid, b, N, (j + 2) * BK + tid) * LOG2E;
     }
     cp_async_commit();
   }
   cp_async_wait<0>();
-  store_rows<T, D>(dq, acc, scale, q0 + wr, N, ldg, col, lane);
+  store_rows<T, D>(dq, acc, scale, q0 + wr, N, ldg, col, dh, lane);
 }
 
 // dk and dv of the 64 keys from k0 of head h of sample b, from the row
-// statistics and the delta the dq kernel wrote.
-template <typename T, int D>
+// statistics and the delta the dq kernel wrote: their DO channels from c0
+// (DO = D, or D / 2 where the two [64, D] accumulators would not fit the
+// registers: two blocks then share a key tile, each computing s and dp).
+template <int D>
+__host__ __device__ constexpr int dkdv_width() { return D == 128 ? D / 2 : D; }
+
+template <typename T, int D, bool VEC>
 __device__ __forceinline__ void attn_bwd_dkdv_body(
     const T* q, const T* k, const T* v, int ld, const T* dout, int ldo, const float* stats,
     const float* delta, const uint8_t* key_valid, T* dk, T* dv, int ldg, int b, int h, int k0,
-    int N, int H, float scale) {
+    int c0, int N, int H, int dh, float scale) {
+  constexpr int DO = dkdv_width<D>();
   using SM = DkvSmem<D>;
   constexpr int LDT = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -188,18 +201,18 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
   bf16* DOs = reinterpret_cast<bf16*>(smem + SM::DO);
   float* Rw = reinterpret_cast<float*>(smem + SM::ROW);
   const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
-  const int col = h * D, nq = (N + BQ - 1) / BQ;
+  const int col = h * dh, nq = (N + BQ - 1) / BQ;
   const float sl2 = scale * LOG2E;
   const size_t row_base = ((size_t)b * H + h) * N;
 
   // group 0: k, v and query tile 0; group 1: query tile 1
-  stage_tile<T, D>(Ks, k, k0, N, ld, col, tid);
-  stage_tile<T, D>(Vs, v, k0, N, ld, col, tid);
+  stage_tile<T, D, VEC>(Ks, k, k0, N, ld, col, dh, tid);
+  stage_tile<T, D, VEC>(Vs, v, k0, N, ld, col, dh, tid);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (i < nq) {
-      stage_tile<T, D>(Qs + i * BQ * LDT, q, i * BQ, N, ld, col, tid);
-      stage_tile<T, D>(DOs + i * BQ * LDT, dout, i * BQ, N, ldo, col, tid);
+      stage_tile<T, D, VEC>(Qs + i * BQ * LDT, q, i * BQ, N, ld, col, dh, tid);
+      stage_tile<T, D, VEC>(DOs + i * BQ * LDT, dout, i * BQ, N, ldo, col, dh, tid);
       if (tid < BQ) {
         const int n = i * BQ + tid;
         float* rw = Rw + i * 3 * BQ;
@@ -214,9 +227,9 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
   const float kb0 = key_bias(key_valid, b, N, k0 + wr + (lane >> 2)) * LOG2E;
   const float kb1 = key_bias(key_valid, b, N, k0 + wr + (lane >> 2) + 8) * LOG2E;
 
-  float gk[D / 8][4], gv[D / 8][4];
+  float gk[DO / 8][4], gv[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
 
@@ -248,13 +261,13 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
       ds[f][2] = p[f][2] * (ds[f][2] - dl.x);
       ds[f][3] = p[f][3] * (ds[f][3] - dl.y);
     }
-    warp_pm<D>(gv, p, DOt, lane);  // dv += p^T do
-    warp_pm<D>(gk, ds, Qt, lane);  // dk += ds^T q
+    warp_pm<DO, LDT>(gv, p, DOt + c0, lane);  // dv += p^T do
+    warp_pm<DO, LDT>(gk, ds, Qt + c0, lane);  // dk += ds^T q
     __syncthreads();               // every warp is done with stage st
     if (i + 2 < nq) {
       const int n0 = (i + 2) * BQ;
-      stage_tile<T, D>(Qs + st * BQ * LDT, q, n0, N, ld, col, tid);
-      stage_tile<T, D>(DOs + st * BQ * LDT, dout, n0, N, ldo, col, tid);
+      stage_tile<T, D, VEC>(Qs + st * BQ * LDT, q, n0, N, ld, col, dh, tid);
+      stage_tile<T, D, VEC>(DOs + st * BQ * LDT, dout, n0, N, ldo, col, dh, tid);
       if (tid < BQ) {
         const int n = n0 + tid;
         float* rws = Rw + st * 3 * BQ;
@@ -266,8 +279,9 @@ __device__ __forceinline__ void attn_bwd_dkdv_body(
     cp_async_commit();
   }
   cp_async_wait<0>();
-  store_rows<T, D>(dk, gk, scale, k0 + wr, N, ldg, col, lane);
-  store_rows<T, D>(dv, gv, 1.f, k0 + wr, N, ldg, col, lane);
+  const int dho = min(dh - c0, DO);  // this block's channels of the head
+  store_rows<T, DO>(dk, gk, scale, k0 + wr, N, ldg, col + c0, dho, lane);
+  store_rows<T, DO>(dv, gv, 1.f, k0 + wr, N, ldg, col + c0, dho, lane);
 }
 
 }  // namespace

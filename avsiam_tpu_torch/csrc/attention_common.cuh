@@ -6,9 +6,17 @@
 //
 // A block owns a 64-row tile of queries or keys and 4 warps, each warp 16
 // rows of it. q, k and v are read as rows `ld` elements apart from a
-// sample's first row, the head's channels at [h D, h D + D). Operand tiles
-// sit in shared memory as bf16 [64][D + 8]: the pad puts the 8 rows an
-// ldmatrix reads in 8 bank groups, D = 80 included. The products are
+// sample's first row, the head's channels at [h dh, h dh + dh). The
+// template width D is the tiles': a multiple of 16 from 16 to 128, the
+// products' 16-deep steps; the head's width dh <= D is a run-time value,
+// and the channels from dh up to D are zeros in shared memory (they add
+// nothing to q k^T and give output columns that are not stored). Operand
+// tiles sit in shared memory as bf16 [64][D + 8]: the pad puts the 8 rows
+// an ldmatrix reads in 8 bank groups, D = 80 included. A tile is staged
+// with 16-byte loads where its rows allow them (bf16, dh, ld and the first
+// channel multiples of 8, the source 16-byte aligned), else value by
+// value (the template flag VEC, which the launchers set from the dtype,
+// the strides and the pointers). The products are
 // mma.sync m16n8k16 with bf16 operands and f32 accumulation (mma.cuh); their
 // results stay in registers as 16 x 8 C fragments, and those fragments,
 // rounded to bf16 in pairs, are the A operand of the next product.
@@ -45,10 +53,13 @@ __device__ __forceinline__ float key_bias(const uint8_t* key_valid, int b, int N
   return 0.f;
 }
 
-// Rows [row0, row0 + 64) of D channels starting at column `col` of a row-major
-// [N, ld] matrix, into a bf16 tile [64][D + 8]; rows past N become zeros.
-template <typename T, int D>
-__device__ void load_tile(bf16* dst, const T* src, int row0, int N, int ld, int col, int tid) {
+// Rows [row0, row0 + 64) of dh channels starting at column `col` of a
+// row-major [N, ld] matrix, into a bf16 tile [64][D + 8]; rows past N and
+// channels from dh on become zeros. VEC: the rows take 16-byte pieces (bf16,
+// dh, ld and col multiples of 8, src 16-byte aligned), else value by value.
+template <typename T, int D, bool VEC>
+__device__ void load_tile(bf16* dst, const T* src, int row0, int N, int ld, int col, int dh,
+                          int tid) {
   constexpr int LDB = D + 8;
   constexpr int PER_ROW = D / 8;
   for (int c = tid; c < 64 * PER_ROW; c += THREADS) {
@@ -56,13 +67,14 @@ __device__ void load_tile(bf16* dst, const T* src, int row0, int N, int ld, int 
     const int d0 = (c % PER_ROW) * 8;
     const int n = row0 + r;
     bf16* out = dst + r * LDB + d0;
-    if (n < N) {
+    if (n < N && d0 < dh) {
       const T* in = src + (size_t)n * ld + col + d0;
-      if constexpr (sizeof(T) == 2) {
+      if constexpr (VEC) {
         *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(in);
       } else {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) out[i] = __float2bfloat16(in[i]);
+        for (int i = 0; i < 8; ++i)
+          out[i] = d0 + i < dh ? __float2bfloat16(to_f32(in[i])) : __float2bfloat16(0.f);
       }
     } else {
       *reinterpret_cast<uint4*>(out) = make_uint4(0u, 0u, 0u, 0u);
@@ -70,20 +82,20 @@ __device__ void load_tile(bf16* dst, const T* src, int row0, int N, int ld, int 
   }
 }
 
-// load_tile by cp.async for bf16 (complete after cp_async_wait), through
-// registers for f32.
-template <typename T, int D>
+// load_tile by cp.async for VEC rows (complete after cp_async_wait; the
+// pieces from dh on are zero-filled), else through registers.
+template <typename T, int D, bool VEC>
 __device__ __forceinline__ void stage_tile(bf16* dst, const T* src, int row0, int N, int ld,
-                                           int col, int tid) {
-  if constexpr (sizeof(T) == 2) {
+                                           int col, int dh, int tid) {
+  if constexpr (VEC) {
     constexpr int PER_ROW = D / 8;
     for (int c = tid; c < 64 * PER_ROW; c += THREADS) {
       const int r = c / PER_ROW, d0 = (c % PER_ROW) * 8, n = row0 + r;
-      const bool ok = n < N;
-      cp_async16(dst + r * (D + 8) + d0, src + (size_t)(ok ? n : 0) * ld + col + d0, ok);
+      const bool ok = n < N && d0 < dh;
+      cp_async16(dst + r * (D + 8) + d0, src + (ok ? (size_t)n * ld + col + d0 : 0), ok);
     }
   } else {
-    load_tile<T, D>(dst, src, row0, N, ld, col, tid);
+    load_tile<T, D, false>(dst, src, row0, N, ld, col, dh, tid);
   }
 }
 
@@ -146,12 +158,12 @@ __device__ __forceinline__ void warp_abt(float (&c)[8][4], const bf16* A, const 
 }
 
 // acc += a . M[16 kk : 16 kk + 16, 0 : D]: one 16-deep step of warp_pm, a
-// the A fragment of rows wr .. wr + 16, M a bf16 tile [64][D + 8]; acc
+// the A fragment of rows wr .. wr + 16, M a bf16 tile of rows LDT apart
+// ([64][D + 8] unless LDT says otherwise: D columns of a wider tile); acc
 // holds 16 x D as D / 8 fragments.
-template <int D>
+template <int D, int LDT = D + 8>
 __device__ __forceinline__ void pm_step(float (&acc)[D / 8][4], const uint32_t (&a)[4],
                                         const bf16* M, int kk, int lane) {
-  constexpr int LDT = D + 8;
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
     uint32_t b[4];  // M rows 16 kk .. + 16, columns 16 j .. + 16, transposed
@@ -164,14 +176,14 @@ __device__ __forceinline__ void pm_step(float (&acc)[D / 8][4], const uint32_t (
 
 // acc += P . M over 64 rows of M: P the warp's 16 x 64 f32 C fragments,
 // each step's pair rounded to bf16 (pack_a) just before its products.
-template <int D>
+template <int D, int LDT = D + 8>
 __device__ __forceinline__ void warp_pm(float (&acc)[D / 8][4], const float (&p)[8][4],
                                         const bf16* M, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t a[4];
     pack_a(a, p[2 * kk], p[2 * kk + 1]);
-    pm_step<D>(acc, a, M, kk, lane);
+    pm_step<D, LDT>(acc, a, M, kk, lane);
   }
 }
 
@@ -184,17 +196,32 @@ __device__ __forceinline__ void warp_pm(float (&acc)[D / 8][4], const uint32_t (
 }
 
 // The warp's 16 x D result, scaled, to rows row0 + g and row0 + g + 8 of a
-// row-major output `ld` elements apart (channels from col); rows past N are
-// not written.
+// row-major output `ld` elements apart (channels from col); rows past N and
+// channels from dh on are not written. Pairs of channels go out as one
+// store where they are aligned to it, else value by value.
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], float scale,
-                                           int row0, int N, int ld, int col, int lane) {
-  const int n = row0 + (lane >> 2), c = col + 2 * (lane & 3);
+                                           int row0, int N, int ld, int col, int dh, int lane) {
+  const int n = row0 + (lane >> 2), c = 2 * (lane & 3);
+  const bool pairs = dh % 2 == 0 && ld % 2 == 0 && col % 2 == 0 &&
+                     (reinterpret_cast<uintptr_t>(dst) & (2 * sizeof(T) - 1)) == 0;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    if (n < N) store_pair(dst + (size_t)n * ld + c + 8 * j, acc[j][0] * scale, acc[j][1] * scale);
-    if (n + 8 < N)
-      store_pair(dst + (size_t)(n + 8) * ld + c + 8 * j, acc[j][2] * scale, acc[j][3] * scale);
+    const int ch = c + 8 * j;
+    if (ch >= dh) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = n + 8 * half;
+      if (row >= N) continue;
+      T* p = dst + (size_t)row * ld + col + ch;
+      const float v0 = acc[j][2 * half] * scale, v1 = acc[j][2 * half + 1] * scale;
+      if (pairs) {
+        store_pair(p, v0, v1);
+      } else {
+        p[0] = from_f32<T>(v0);
+        if (ch + 1 < dh) p[1] = from_f32<T>(v1);
+      }
+    }
   }
 }
 

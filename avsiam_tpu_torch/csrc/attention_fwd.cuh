@@ -67,13 +67,13 @@ struct FwdRing {
 
 // Issue key tile j (k, v and the bias, natural and times log2e) into ring
 // stage j % 2.
-template <typename T, int D>
+template <typename T, int D, bool VEC>
 __device__ __forceinline__ void fwd_stage_keys(bf16* Ks, bf16* Vs, float* Bs, const T* k,
                                                const T* v, int ld, const uint8_t* key_valid,
-                                               int b, int j, int N, int col, int tid) {
+                                               int b, int j, int N, int col, int dh, int tid) {
   const int st = j & 1;
-  stage_tile<T, D>(Ks + st * BK * (D + 8), k, j * BK, N, ld, col, tid);
-  stage_tile<T, D>(Vs + st * BK * (D + 8), v, j * BK, N, ld, col, tid);
+  stage_tile<T, D, VEC>(Ks + st * BK * (D + 8), k, j * BK, N, ld, col, dh, tid);
+  stage_tile<T, D, VEC>(Vs + st * BK * (D + 8), v, j * BK, N, ld, col, dh, tid);
   if (tid < BK) {
     const float kb = key_bias(key_valid, b, N, j * BK + tid);
     Bs[2 * st * BK + tid] = kb;
@@ -81,15 +81,15 @@ __device__ __forceinline__ void fwd_stage_keys(bf16* Ks, bf16* Vs, float* Bs, co
   }
 }
 
-// The forward of the 64 queries from q0 of head h of sample b: the output to
-// rows `ldo` elements apart from the sample's first output row (channels
-// from h D), and, if stats is not null, each row's (m, 1 / l) to
-// stats[b, h, n, 0:2].
-template <typename T, int D>
+// The forward of the 64 queries from q0 of head h (dh channels, dh <= D) of
+// sample b: the output to rows `ldo` elements apart from the sample's first
+// output row (channels from h dh), and, if stats is not null, each row's
+// (m, 1 / l) to stats[b, h, n, 0:2].
+template <typename T, int D, bool VEC>
 __device__ __forceinline__ void attn_fwd_body(const T* q, const T* k, const T* v, int ld,
                                               const uint8_t* key_valid, T* out, int ldo,
                                               float* stats, int b, int h, int q0, int N, int H,
-                                              float scale) {
+                                              int dh, float scale) {
   using SM = FwdRing<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + SM::Q);
@@ -97,14 +97,14 @@ __device__ __forceinline__ void attn_fwd_body(const T* q, const T* k, const T* v
   bf16* Vs = reinterpret_cast<bf16*>(smem + SM::V);
   float* Bs = reinterpret_cast<float*>(smem + SM::BIAS);
   const int tid = threadIdx.x, lane = tid & 31, wr = (tid >> 5) * 16;
-  const int col = h * D, nk = (N + BK - 1) / BK;
+  const int col = h * dh, nk = (N + BK - 1) / BK;
   const float sl2 = scale * LOG2E;
 
   // group 0: q and key tile 0; group 1: key tile 1
-  stage_tile<T, D>(Qs, q, q0, N, ld, col, tid);
+  stage_tile<T, D, VEC>(Qs, q, q0, N, ld, col, dh, tid);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    if (j < nk) fwd_stage_keys<T, D>(Ks, Vs, Bs, k, v, ld, key_valid, b, j, N, col, tid);
+    if (j < nk) fwd_stage_keys<T, D, VEC>(Ks, Vs, Bs, k, v, ld, key_valid, b, j, N, col, dh, tid);
     cp_async_commit();
   }
   cp_async_wait<1>();
@@ -189,7 +189,8 @@ __device__ __forceinline__ void attn_fwd_body(const T* q, const T* k, const T* v
     }
     warp_pm<D>(o, pa, Vt, lane);  // o += p v
     __syncthreads();             // every warp is done with stage st
-    if (j + 2 < nk) fwd_stage_keys<T, D>(Ks, Vs, Bs, k, v, ld, key_valid, b, j + 2, N, col, tid);
+    if (j + 2 < nk)
+      fwd_stage_keys<T, D, VEC>(Ks, Vs, Bs, k, v, ld, key_valid, b, j + 2, N, col, dh, tid);
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -207,7 +208,7 @@ __device__ __forceinline__ void attn_fwd_body(const T* q, const T* k, const T* v
     o[d][2] *= i1;
     o[d][3] *= i1;
   }
-  store_rows<T, D>(out, o, 1.f, q0 + wr, N, ldo, col, lane);
+  store_rows<T, D>(out, o, 1.f, q0 + wr, N, ldo, col, dh, lane);
   if (stats != nullptr && (lane & 3) == 0) {
     const int n = q0 + wr + (lane >> 2);
     float* st = stats + (((size_t)b * H + h) * N + n) * 2;

@@ -4,7 +4,8 @@
 //   K5 _pallas_fwd (_fwd_kernel, _attn_fwd_math): o = (e . v) / sum(e) per
 //      head, e = exp(s * D^-1/2 + key bias - max), s = q k^T;
 //   K6 _pallas_bwd (_bwd_kernel, _attn_bwd_math): dq, dk, dv.
-// They serve head widths the token-major K1/K2 do not take: ViT-H's D = 80.
+// They serve head widths the token-major K1/K2 do not take (ViT-H's D = 80),
+// every D up to 128.
 //
 // Layout: q, k and v are [B, N, H, D] tensors that share strides (batch sB,
 // token sN, head D, channel 1), such as the three (3, H, D) slices of the
@@ -44,114 +45,146 @@
 // rounds e and r * do, e * (dp - c) and r * q instead: the same sums up to
 // where the rounding falls).
 
+#include <initializer_list>
+
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
 
 namespace {
 
-template <typename T, int D>
+// The kernels take the head width dh at run time; the template width D, the
+// tiles', is dh rounded up to a multiple of 16 (attention_common.cuh).
+template <typename T, int D, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 attn_hm_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                   T* __restrict__ out, float* __restrict__ stats, int N, int H, long long sB,
-                   int sN, float scale) {
+                   T* __restrict__ out, float* __restrict__ stats, int N, int H, int dh,
+                   long long sB, int sN, float scale) {
   const int b = blockIdx.z;
   const size_t boff = (size_t)b * sB;
-  attn_fwd_body<T, D>(q + boff, k + boff, v + boff, sN, key_valid, out + (size_t)b * N * H * D,
-                      H * D, stats, b, blockIdx.y, blockIdx.x * BQ, N, H, scale);
+  attn_fwd_body<T, D, VEC>(q + boff, k + boff, v + boff, sN, key_valid,
+                           out + (size_t)b * N * H * dh, H * dh, stats, b, blockIdx.y,
+                           blockIdx.x * BQ, N, H, dh, scale);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 attn_hm_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
                       const T* __restrict__ out, const T* __restrict__ dout,
                       const float* __restrict__ stats, float* __restrict__ delta,
-                      T* __restrict__ dq, int N, int H, long long sB, int sN, float scale) {
-  const int b = blockIdx.z, C = H * D;
+                      T* __restrict__ dq, int N, int H, int dh, long long sB, int sN,
+                      float scale) {
+  const int b = blockIdx.z, C = H * dh;
   const size_t boff = (size_t)b * sB, goff = (size_t)b * N * C;
-  attn_bwd_dq_body<T, D>(q + boff, k + boff, v + boff, sN, out + goff, dout + goff, C, stats,
-                         delta, key_valid, dq + goff, C, b, blockIdx.y, blockIdx.x * BQ, N, H,
-                         scale);
+  attn_bwd_dq_body<T, D, VEC>(q + boff, k + boff, v + boff, sN, out + goff, dout + goff, C,
+                              stats, delta, key_valid, dq + goff, C, b, blockIdx.y,
+                              blockIdx.x * BQ, N, H, dh, scale);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 attn_hm_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
                         const T* __restrict__ dout, const float* __restrict__ stats,
                         const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, int N, int H, long long sB, int sN, float scale) {
-  const int b = blockIdx.z, C = H * D;
+                        T* __restrict__ dv, int N, int H, int dh, long long sB, int sN,
+                        float scale) {
+  constexpr int SPLIT = D / dkdv_width<D>();
+  const int b = blockIdx.z, C = H * dh;
+  const int k0 = blockIdx.x / SPLIT * BK, c0 = blockIdx.x % SPLIT * dkdv_width<D>();
   const size_t boff = (size_t)b * sB, goff = (size_t)b * N * C;
-  attn_bwd_dkdv_body<T, D>(q + boff, k + boff, v + boff, sN, dout + goff, C, stats, delta,
-                           key_valid, dk + goff, dv + goff, C, b, blockIdx.y, blockIdx.x * BK, N,
-                           H, scale);
+  attn_bwd_dkdv_body<T, D, VEC>(q + boff, k + boff, v + boff, sN, dout + goff, C, stats, delta,
+                                key_valid, dk + goff, dv + goff, C, b, blockIdx.y, k0, c0, N, H,
+                                dh, scale);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool VEC>
 int launch_fwd(const void* q, const void* k, const void* v, const void* key_valid,
-               void* out, void* stats, int B, int N, int H, long long sB, int sN, float scale,
-               cudaStream_t stream) {
+               void* out, void* stats, int B, int N, int H, int dh, long long sB, int sN,
+               float scale, cudaStream_t stream) {
   const int smem = FwdRing<D>::BYTES;
-  cudaError_t err = allow_smem(attn_hm_fwd_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(attn_hm_fwd_kernel<T, D, VEC>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BQ - 1) / BQ, H, B);
-  attn_hm_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  attn_hm_fwd_kernel<T, D, VEC><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(key_valid), static_cast<T*>(out),
-      static_cast<float*>(stats), N, H, sB, sN, scale);
+      static_cast<float*>(stats), N, H, dh, sB, sN, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool VEC>
 int launch_bwd(const void* q, const void* k, const void* v, const void* key_valid,
                const void* out, const void* dout, const void* stats, void* delta, void* dq,
-               void* dk, void* dv, int B, int N, int H, long long sB, int sN, float scale,
-               cudaStream_t stream) {
+               void* dk, void* dv, int B, int N, int H, int dh, long long sB, int sN,
+               float scale, cudaStream_t stream) {
   const int smem_q = DqSmem<D>::BYTES, smem_kv = DkvSmem<D>::BYTES;
-  cudaError_t err = allow_smem(attn_hm_bwd_dq_kernel<T, D>, smem_q);
-  if (err == cudaSuccess) err = allow_smem(attn_hm_bwd_dkdv_kernel<T, D>, smem_kv);
+  cudaError_t err = allow_smem(attn_hm_bwd_dq_kernel<T, D, VEC>, smem_q);
+  if (err == cudaSuccess) err = allow_smem(attn_hm_bwd_dkdv_kernel<T, D, VEC>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   dim3 grid_q((N + BQ - 1) / BQ, H, B);
-  attn_hm_bwd_dq_kernel<T, D><<<grid_q, THREADS, smem_q, stream>>>(
+  attn_hm_bwd_dq_kernel<T, D, VEC><<<grid_q, THREADS, smem_q, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(key_valid), static_cast<const T*>(out),
       static_cast<const T*>(dout), static_cast<const float*>(stats),
-      static_cast<float*>(delta), static_cast<T*>(dq), N, H, sB, sN, scale);
+      static_cast<float*>(delta), static_cast<T*>(dq), N, H, dh, sB, sN, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_kv((N + BK - 1) / BK, H, B);
-  attn_hm_bwd_dkdv_kernel<T, D><<<grid_kv, THREADS, smem_kv, stream>>>(
+  constexpr int SPLIT = D / dkdv_width<D>();  // blocks per key tile
+  dim3 grid_kv((N + BK - 1) / BK * SPLIT, H, B);
+  attn_hm_bwd_dkdv_kernel<T, D, VEC><<<grid_kv, THREADS, smem_kv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(key_valid), static_cast<const T*>(dout),
       static_cast<const float*>(stats), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), N, H, sB, sN, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), N, H, dh, sB, sN, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define HM_DISPATCH(CALL)                              \
-  if (dtype == 1 && D == 80) return CALL(bf16, 80);    \
-  if (dtype == 1 && D == 64) return CALL(bf16, 64);    \
-  if (dtype == 1 && D == 32) return CALL(bf16, 32);    \
-  if (dtype == 0 && D == 80) return CALL(float, 80);   \
-  if (dtype == 0 && D == 64) return CALL(float, 64);   \
-  if (dtype == 0 && D == 32) return CALL(float, 32);   \
+// CALL(T, tile width, VEC) for the dtype and every head width D from 1 to
+// 128, in the tiles of the widths the models use: 16, 32, 64, 80 (ViT-H)
+// and 128, the least one that holds D. VEC where every row read and written
+// takes 16-byte pieces.
+#define HM_WIDTHS(CALL, T, VEC)                   \
+  switch ((D + 15) / 16) {                        \
+    case 1: return CALL(T, 16, VEC);              \
+    case 2: return CALL(T, 32, VEC);              \
+    case 3:                                       \
+    case 4: return CALL(T, 64, VEC);              \
+    case 5: return CALL(T, 80, VEC);              \
+    case 6:                                       \
+    case 7:                                       \
+    case 8: return CALL(T, 128, VEC);             \
+    default: return (int)cudaErrorInvalidValue;  \
+  }
+#define HM_DISPATCH(CALL, VEC16)                                                 \
+  if (D <= 0 || D > 128) return (int)cudaErrorInvalidValue;                      \
+  if (dtype == 1 && (VEC16)) HM_WIDTHS(CALL, bf16, true)                         \
+  if (dtype == 1) HM_WIDTHS(CALL, bf16, false)                                   \
+  if (dtype == 0) HM_WIDTHS(CALL, float, false)                                  \
   return (int)cudaErrorInvalidValue;
 
+// whether every pointer is 16-byte aligned
+static inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [B, N, H, D] with strides
-// (sB, sN, D, 1), in elements; key_valid: [B, N] bytes or null; out:
-// contiguous [B, N, H, D]; stats: [B, H, N, 2] f32 (row max, 1/denom).
+// (sB, sN, D, 1), in elements, D <= 128; key_valid: [B, N] bytes or null;
+// out: contiguous [B, N, H, D]; stats: [B, H, N, 2] f32 (row max, 1/denom).
 extern "C" int avsiam_attn_hm_fwd(const void* q, const void* k, const void* v,
                                   const void* key_valid, void* out, void* stats, int B, int N,
                                   int H, int D, long long sB, long long sN, int dtype,
                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HM_FWD(T, DD) \
-  launch_fwd<T, DD>(q, k, v, key_valid, out, stats, B, N, H, sB, (int)sN, scale, s)
-  HM_DISPATCH(HM_FWD)
+#define HM_FWD(T, DP, VEC) \
+  launch_fwd<T, DP, VEC>(q, k, v, key_valid, out, stats, B, N, H, D, sB, (int)sN, scale, s)
+  const bool vec = D % 8 == 0 && sN % 8 == 0 && sB % 8 == 0 && aligned16({q, k, v, out});
+  HM_DISPATCH(HM_FWD, vec)
 #undef HM_FWD
 }
 
@@ -164,9 +197,11 @@ extern "C" int avsiam_attn_hm_bwd(const void* q, const void* k, const void* v,
                                   int B, int N, int H, int D, long long sB, long long sN,
                                   int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HM_BWD(T, DD)                                                                    \
-  launch_bwd<T, DD>(q, k, v, key_valid, out, dout, stats, delta, dq, dk, dv, B, N, H, sB, \
-                    (int)sN, scale, s)
-  HM_DISPATCH(HM_BWD)
+#define HM_BWD(T, DP, VEC)                                                                \
+  launch_bwd<T, DP, VEC>(q, k, v, key_valid, out, dout, stats, delta, dq, dk, dv, B, N, H, D, \
+                         sB, (int)sN, scale, s)
+  const bool vec = D % 8 == 0 && sN % 8 == 0 && sB % 8 == 0 &&
+                   aligned16({q, k, v, out, dout, dq, dk, dv});
+  HM_DISPATCH(HM_BWD, vec)
 #undef HM_BWD
 }

@@ -9,7 +9,9 @@
 // Numerics, as the Pallas kernels have them: bf16 operands with f32
 // accumulation (an f32 call stores f32 but multiplies bf16 operands), the
 // pre-GELU hidden hpre = x w1^T + b1 in f32, GELU and GELU' in f32 in the
-// A&S 'ans' form, the activation act = gelu(hpre) in bf16, gh = (do w2) *
+// asked form (a template parameter of the fc1 and gh passes' epilogues:
+// 'ans', 'tanh', 'cheb' or 'tanh5', mlp_tile.cuh; 'erf' runs as 'ans'),
+// the activation act = gelu(hpre) in bf16, gh = (do w2) *
 // gelu'(hpre) in f32. dx and dw1 take gh in bf16; K7's db1 sums the f32 gh,
 // K9's sums the stored gh.
 //
@@ -238,8 +240,9 @@ constexpr int FC1_STAGES = 3;
 
 // xmap: the bf16 rows [rows, D] (x, or K3's LN(x)); wmap: w1 [H, D] in
 // boxes of 64 columns by FC1_BH rows. hpre [rows, H] in T, or null; act
-// [rows, H] bf16. H is a multiple of FC1_BH, so every column tile is whole.
-template <typename T>
+// [rows, H] bf16, gelu of form G. H is a multiple of FC1_BH, so every
+// column tile is whole.
+template <typename T, int G>
 __global__ void __launch_bounds__(SLAB_THREADS, 3)
 mlp_fc1_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                const float* __restrict__ b1, T* __restrict__ hpre, bf16* __restrict__ act,
@@ -256,7 +259,7 @@ mlp_fc1_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
     const float a0 = v0 + bb.x, a1 = v1 + bb.y;
     const size_t o = (size_t)row * H + col;
     if (hpre != nullptr) store_pair(hpre + o, a0, a1);
-    store_pair(act + o, gelu_ans(a0), gelu_ans(a1));
+    store_pair(act + o, gelu_act<G>(a0), gelu_act<G>(a1));
   });
 }
 
@@ -340,8 +343,9 @@ __device__ __forceinline__ void gh_issue_slab(unsigned char* st, uint64_t* bar,
 // w1 [H, D] in boxes of 64 by GH_BH; w2map: w2 [D, H] in boxes of 64 by 64;
 // all bf16 with the 128-byte swizzle. gh, act [rows, H] in T; gh16 the bf16
 // gh for the dx pass (written only where T is not bf16); colsum, when not
-// null, [row tiles, H] f32 column sums of each row tile's f32 gh.
-template <typename T>
+// null, [row tiles, H] f32 column sums of each row tile's f32 gh. GELU and
+// GELU' of form G.
+template <typename T, int G>
 __global__ void __launch_bounds__(SLAB_THREADS, 1)
 mlp_gh_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dmap,
               const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
@@ -407,8 +411,8 @@ mlp_gh_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ 
         const int row = ra + 8 * half, i = 4 * j + 2 * half;
         if (row >= rows) continue;
         float a0, a1, q0, q1;
-        gelu_ans_act_grad(hacc[i] + bb.x, a0, q0);
-        gelu_ans_act_grad(hacc[i + 1] + bb.y, a1, q1);
+        gelu_act_grad<G>(hacc[i] + bb.x, a0, q0);
+        gelu_act_grad<G>(hacc[i + 1] + bb.y, a1, q1);
         const float g0 = dacc[i] * q0, g1 = dacc[i + 1] * q1;
         const size_t o = (size_t)row * H + col;
         store_pair(gh + o, g0, g1);
@@ -754,7 +758,7 @@ bool dw_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
   return tma_map(map, ptr, rows, cols, L::BOX, DW_BK, L::SW);
 }
 
-template <typename T>
+template <typename T, int G>
 int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, const void* do16,
               void* gh, void* act, void* gh16, void* colsum, void* db1, int rows, int D, int H,
               cudaStream_t stream) {
@@ -765,10 +769,10 @@ int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, c
       !tma_map(&w1map, w1, H, D, SM::BK, GH_BH, 128) ||
       !tma_map(&w2map, w2, D, H, SM::LW2::BOX, SM::BK, SM::LW2::SW))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(mlp_gh_kernel<T>, SM::BYTES);
+  cudaError_t err = allow_smem(mlp_gh_kernel<T, G>, SM::BYTES);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (rows + SLAB_BM - 1) / SLAB_BM;
-  mlp_gh_kernel<T><<<dim3((H + GH_BH - 1) / GH_BH, tiles), SLAB_THREADS, SM::BYTES, stream>>>(
+  mlp_gh_kernel<T, G><<<dim3((H + GH_BH - 1) / GH_BH, tiles), SLAB_THREADS, SM::BYTES, stream>>>(
       xmap, dmap, w1map, w2map, static_cast<const float*>(b1), static_cast<T*>(gh),
       static_cast<T*>(act), static_cast<bf16*>(gh16), static_cast<float*>(colsum), rows, D, H);
   err = cudaGetLastError();
@@ -778,7 +782,7 @@ int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, c
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int G>
 int launch_fc1(const void* x16, const void* w1, const void* b1, void* hpre, void* act, int rows,
                int D, int H, cudaStream_t stream) {
   using SM = SlabSmem<FC1_BH, true, FC1_STAGES>;
@@ -786,10 +790,10 @@ int launch_fc1(const void* x16, const void* w1, const void* b1, void* hpre, void
   if (!tma_map(&xmap, x16, rows, D, SM::BK, SLAB_BM, 128) ||
       !tma_map(&wmap, w1, H, D, SM::BK, FC1_BH, 128))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(mlp_fc1_kernel<T>, SM::BYTES);
+  cudaError_t err = allow_smem(mlp_fc1_kernel<T, G>, SM::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H / FC1_BH, (rows + SLAB_BM - 1) / SLAB_BM);
-  mlp_fc1_kernel<T><<<grid, SLAB_THREADS, SM::BYTES, stream>>>(
+  mlp_fc1_kernel<T, G><<<grid, SLAB_THREADS, SM::BYTES, stream>>>(
       xmap, wmap, static_cast<const float*>(b1), static_cast<T*>(hpre), static_cast<bf16*>(act),
       rows, D, H);
   return (int)cudaGetLastError();
@@ -852,17 +856,32 @@ int launch_dw_tc(const void* a, const void* g, void* dw, void* db, int rows, int
 // dtype: 0 = float32, 1 = bfloat16 (x, out, hpre, dx, gh, act, a, g). Each
 // returns cudaGetLastError().
 
+// CALL(TYPE, G) for the asked dtype and GELU form
+#define AVSIAM_GELU_FORM(CALL, TYPE)         \
+  switch (gelu) {                            \
+    case GELU_ANS: CALL(TYPE, GELU_ANS);     \
+    case GELU_TANH: CALL(TYPE, GELU_TANH);   \
+    case GELU_CHEB: CALL(TYPE, GELU_CHEB);   \
+    case GELU_TANH5: CALL(TYPE, GELU_TANH5); \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+#define AVSIAM_GELU_DISPATCH(CALL)                  \
+  if (dtype == 1) AVSIAM_GELU_FORM(CALL, bf16)      \
+  if (dtype == 0) AVSIAM_GELU_FORM(CALL, float)     \
+  return (int)cudaErrorInvalidValue;
+
 // The fc1 pass of K3 and K4: x16 [rows, D] bf16 (D a multiple of 64), w1
 // [H, D] bf16, b1 [H] f32 (H a multiple of 64); hpre [rows, H] in dtype
-// (or null), act [rows, H] bf16.
+// (or null), act [rows, H] bf16; gelu the form's GeluForm code.
 extern "C" int avsiam_mlp_fc1(const void* x16, const void* w1, const void* b1, void* hpre,
-                              void* act, int rows, int D, int H, int dtype, void* stream) {
+                              void* act, int rows, int D, int H, int dtype, int gelu,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || D <= 0 || H <= 0 || D % 64 != 0 || H % FC1_BH != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return launch_fc1<bf16>(x16, w1, b1, hpre, act, rows, D, H, s);
-  if (dtype == 0) return launch_fc1<float>(x16, w1, b1, hpre, act, rows, D, H, s);
-  return (int)cudaErrorInvalidValue;
+#define AVSIAM_FC1(TYPE, G) return launch_fc1<TYPE, G>(x16, w1, b1, hpre, act, rows, D, H, s)
+  AVSIAM_GELU_DISPATCH(AVSIAM_FC1)
+#undef AVSIAM_FC1
 }
 
 // The fc2 pass of K3 and K4: out [rows, D] in dtype = act16 [rows, H]
@@ -890,19 +909,23 @@ extern "C" int avsiam_mlp_fc2(const void* act16, const void* w2, const void* b2,
 // The gh pass of K7 and K8. x16, do16 [rows, D] bf16; w1 [H, D], w2 [D, H]
 // bf16; b1 [H] f32; D and H multiples of 64. gh, act [rows, H] in dtype;
 // gh16 [rows, H] bf16 (gh itself for bfloat16). For K7's db1: colsum, f32
-// scratch [ceil(rows / 128), H], and db1 [H] f32; for K8 both null.
+// scratch [ceil(rows / 128), H], and db1 [H] f32; for K8 both null. gelu:
+// the form's GeluForm code.
 extern "C" int avsiam_mlp_bwd_gh(const void* x16, const void* w1, const void* b1, const void* w2,
                                  const void* do16, void* gh, void* act, void* gh16, void* colsum,
-                                 void* db1, int rows, int D, int H, int dtype, void* stream) {
+                                 void* db1, int rows, int D, int H, int dtype, int gelu,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || D <= 0 || H <= 0 || D % GhSmem::BK != 0 || H % 64 != 0 ||
       (colsum == nullptr) != (db1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch_gh<bf16>(x16, w1, b1, w2, do16, gh, act, gh, colsum, db1, rows, D, H, s);
-  if (dtype == 0)
-    return launch_gh<float>(x16, w1, b1, w2, do16, gh, act, gh16, colsum, db1, rows, D, H, s);
-  return (int)cudaErrorInvalidValue;
+  // gh16 is gh itself for bfloat16
+#define AVSIAM_GH(TYPE, G)                                                                \
+  return launch_gh<TYPE, G>(x16, w1, b1, w2, do16, gh, act,                               \
+                            std::is_same<TYPE, bf16>::value ? gh : gh16, colsum, db1, rows, \
+                            D, H, s)
+  AVSIAM_GELU_DISPATCH(AVSIAM_GH)
+#undef AVSIAM_GH
 }
 
 // The dx pass of K7 and K8: dx [rows, D] in dtype = gh16 [rows, H] (bf16)

@@ -57,15 +57,16 @@ _SIGNATURES = {
                         _P),
     # x, ln_g, ln_b, n16, rows, D, dtype, eps, stream
     "avsiam_ln_mlp_rows": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x16, w1, b1, hpre (or None), act16, rows, D, H, dtype, stream
-    "avsiam_mlp_fc1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x16, w1, b1, hpre (or None), act16, rows, D, H, dtype, gelu form,
+    # stream
+    "avsiam_mlp_fc1": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # act16, w2, b2, x (residual, or None), out, partial (or None), rows, D,
     # H, splits, dtype, stream
     "avsiam_mlp_fc2": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x16, w1, b1, w2, do16, gh, act, gh16, colsum (or None), db1 (or
-    # None), rows, D, H, dtype, stream
+    # None), rows, D, H, dtype, gelu form, stream
     "avsiam_mlp_bwd_gh": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _P),
+                          _I, _I, _P),
     # gh16, w1, dx, partial (or None), rows, D, H, splits, dtype, stream
     "avsiam_mlp_bwd_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, g, dw, db, rows, m, n, tile rows, tile columns, dtype, stream

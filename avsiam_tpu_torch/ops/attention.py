@@ -7,10 +7,13 @@ the CUDA kernels of ``csrc/attention.cu`` and ``csrc/attention_hm.cu``:
 
 - K1 ``attention_fwd_kernel`` (``_pallas_fwd_tm``) and K2
   ``attention_bwd_kernel`` (``_pallas_bwd_tm``): token-major, reading the
-  packed qkv in place; head widths 32 and 64;
+  packed qkv in place; every head width that divides 128, as the JAX
+  token-major kernel (``tm_kernel_takes``);
 - K5 ``attention_hm_fwd_kernel`` (``_pallas_fwd``) and K6
   ``attention_hm_bwd_kernel`` (``_pallas_bwd``): head-major, for the widths
-  K1 does not take (ViT-H's D=80). K5 saves each row's softmax max and
+  K1 does not take (ViT-H's D=80), every D up to ``HM_MAX_HEAD_DIM``. A
+  D > 128 raises on the card, where the JAX head-major kernel takes any D.
+  K5 saves each row's softmax max and
   1/denominator, as K1 does, and K6 reads them with the output: the JAX
   VJP keeps only q, k and v and recomputes the softmax, the port's kernels
   take the saved-statistics form (``attention_hm_bwd_stats_reference``) of
@@ -40,27 +43,31 @@ from avsiam_tpu_torch import kernels
 NEG_INF = -1e30
 LANE = 128
 ATTN_IMPLS = ("auto", "pallas", "xla")
-KERNEL_HEAD_DIMS = (32, 64)  # K1/K2
-HM_KERNEL_HEAD_DIMS = (32, 64, 80)  # K5/K6
+HM_MAX_HEAD_DIM = 128  # K5/K6 take every head width up to it
+
+
+def tm_kernel_takes(D: int) -> bool:
+    """Whether K1/K2 take head width D: every D that divides 128, the
+    widths of the JAX token-major kernel (``avsiam_tpu/ops/attention.py:744``,
+    which also needs C % 128 == 0)."""
+    return D > 0 and LANE % D == 0
 
 
 def attention_route(impl: str, C: int, num_heads: int) -> str:
     """Which path ``attention_qkv`` takes, as
     ``avsiam_tpu/ops/attention.py:741-757`` decides: where the shape is
-    token-major (C % 128 == 0 and 128 % D == 0), 'token_major' (K1/K2) under
-    'pallas', and under 'auto' where K1 also takes D; elsewhere
+    token-major (``tm_ok``: C % 128 == 0 and 128 % D == 0), 'token_major'
+    (K1/K2, which take every such D) under 'pallas' and 'auto'; elsewhere
     'head_major' (K5/K6) under 'pallas' and 'xla' under 'auto' (the JAX
-    'auto' is XLA there); 'xla' under 'xla'. The route does not look at
-    which widths the kernels take: on a CPU tensor every route takes its
-    plain version, and on the card a kernel refuses a D it does not take
-    (K1/K2 ``KERNEL_HEAD_DIMS``, K5/K6 ``HM_KERNEL_HEAD_DIMS``)."""
+    'auto' is XLA there); 'xla' under 'xla'. On a CPU tensor every route
+    takes its plain version; on the card K5/K6 refuse a D above
+    ``HM_MAX_HEAD_DIM``."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not in {ATTN_IMPLS}")
     D = C // num_heads
     if impl == "xla":
         return "xla"
-    if C % LANE == 0 and LANE % D == 0 and (impl == "pallas"
-                                            or D in KERNEL_HEAD_DIMS):
+    if C % LANE == 0 and LANE % D == 0:
         return "token_major"
     return "head_major" if impl == "pallas" else "xla"
 
@@ -97,9 +104,9 @@ def _geometry(xqkv: torch.Tensor, num_heads: int,
                          f" for {num_heads} heads")
     B, N, C3 = xqkv.shape
     D = C3 // (3 * num_heads)
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dims {KERNEL_HEAD_DIMS}"
-                         f", got {D}")
+    if not tm_kernel_takes(D):
+        raise ValueError(f"attention kernel takes head dims that divide "
+                         f"{LANE}, got {D}")
     if xqkv.device.type != "cuda":
         raise ValueError(f"attention kernel needs a CUDA tensor, got "
                          f"{xqkv.device}")
@@ -283,30 +290,29 @@ def attention_hm_bwd_stats_reference(q, k, v, out, stats, do,
 
 def _hm_geometry(q, k, v, key_valid):
     """Validate a K5/K6 call; returns (B, N, H, D, batch stride, row
-    stride)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"head-major attention kernel needs a CUDA tensor, "
-                         f"got {q.device}")
+    stride): the width rule first, then the device."""
     if q.dtype not in kernels.DTYPE_CODES or q.dim() != 4:
         raise ValueError(f"q must be [B, N, H, D] float32 or bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     B, N, H, D = q.shape
-    if D not in HM_KERNEL_HEAD_DIMS or B == 0 or N == 0:
-        raise ValueError(f"head-major attention kernel takes head dims "
-                         f"{HM_KERNEL_HEAD_DIMS} and a non-empty batch, got "
+    if not 0 < D <= HM_MAX_HEAD_DIM or B == 0 or N == 0:
+        raise ValueError(f"head-major attention kernel takes head dims up to "
+                         f"{HM_MAX_HEAD_DIM} and a non-empty batch, got "
                          f"{tuple(q.shape)}")
+    if q.device.type != "cuda":
+        raise ValueError(f"head-major attention kernel needs a CUDA tensor, "
+                         f"got {q.device}")
     sB, sN, sH, sD = q.stride()
     for name, t in (("k", k), ("v", v)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or t.stride() != q.stride()):
             raise ValueError(f"{name} must match q's shape, dtype, device and "
                              f"strides")
-    # bf16 tiles are read with 16-byte loads
-    if (sD != 1 or sH != D or sN % 8 or sB % 8
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("q, k, v must have unit channel stride, head stride "
-                         "D, token and batch strides a multiple of 8 and "
-                         "16-byte aligned data")
+    # the kernels read rows in 16-byte pieces where the strides and the
+    # data's alignment allow it, else value by value
+    if sD != 1 or sH != D:
+        raise ValueError("q, k, v must have unit channel stride and head "
+                         "stride D")
     if key_valid is not None and (
             key_valid.shape != (B, N) or key_valid.dtype != torch.bool
             or key_valid.device != q.device

@@ -29,7 +29,8 @@ the 'lnfres' backward is. ``AVSIAM_MLP_BWD=split``, read at each backward,
 routes K7 to K8 plus K9 twice.
 
 Numerics: GEMM operands in the activation dtype with float32 accumulation,
-float32 GELU ('erf' evaluated as 'ans', as the Pallas kernels do), the
+float32 GELU in the asked form ('erf' evaluated as 'ans', as the Pallas
+kernels do; ``gelu.kernel_impl``), the
 pre-GELU hidden saved in the activation dtype. K7's db1 sums the float32
 gh; 'fres' and K9 sum gh after its cast to the activation dtype.
 
@@ -50,7 +51,8 @@ import torch.nn.functional as F
 
 from avsiam_tpu_torch import kernels
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
-from avsiam_tpu_torch.ops.gelu import gelu_act_grad_f32, gelu_f32, kernel_impl
+from avsiam_tpu_torch.ops.gelu import (KERNEL_CODES, gelu_act_grad_f32,
+                                       gelu_f32, kernel_impl)
 from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_vjp
 
 FUSED_IMPLS = ("fused", "fbwd", "fres")
@@ -189,9 +191,10 @@ def mlp_fc2_reference(act, w2, b2, resid=None):
     return y if resid is None else resid + y
 
 
-def _fc1_pass(x16, w1, b1, dtype, save_hpre: bool):
+def _fc1_pass(x16, w1, b1, dtype, save_hpre: bool, gelu: str = "erf"):
     """The fc1 pass on the card: (hpre [T, H] in ``dtype`` or None, act
-    [T, H] in bf16) from bf16 rows x16."""
+    [T, H] in bf16, GELU in ``kernel_impl(gelu)``'s form) from bf16 rows
+    x16."""
     T, D = x16.shape
     H = w1.shape[0]
     dev = x16.device
@@ -201,7 +204,8 @@ def _fc1_pass(x16, w1, b1, dtype, save_hpre: bool):
     err = kernels.library().avsiam_mlp_fc1(
         x16.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         None if hpre is None else hpre.data_ptr(), act.data_ptr(), T, D, H,
-        kernels.DTYPE_CODES[dtype], kernels.stream_handle(x16))
+        kernels.DTYPE_CODES[dtype], KERNEL_CODES[kernel_impl(gelu)],
+        kernels.stream_handle(x16))
     kernels.check(err, "MLP forward fc1 pass")
     return hpre, act
 
@@ -225,20 +229,22 @@ def _fc2_pass(act, w2, b2, dtype, splits: int, resid=None):
     return out
 
 
-def _fwd_passes(x16, w1, b1, w2, b2, dtype, save_hpre: bool, resid=None):
+def _fwd_passes(x16, w1, b1, w2, b2, dtype, save_hpre: bool, resid=None,
+                gelu: str = "erf"):
     """The fc1 and fc2 passes, the fc2 pass splitting H as the dx pass
     does (``dx_splits``: the same [T, H] by [H, D] product): (out, hpre or
     None) in ``dtype``."""
     T, D = x16.shape
     H = w1.shape[0]
-    hpre, act = _fc1_pass(x16, w1, b1, dtype, save_hpre)
+    hpre, act = _fc1_pass(x16, w1, b1, dtype, save_hpre, gelu)
     splits = dx_splits(T, D, H, kernels.num_sms(x16.device))
     return _fc2_pass(act, w2, b2, dtype, splits, resid), hpre
 
 
-def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
+def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
+                      gelu: str = "erf"):
     """K3 on [T, D] rows of float32 or bfloat16: returns (out, pre-GELU
-    hidden) in x2's dtype. Weights bf16, LN parameters and biases f32. The
+    hidden) in x2's dtype, GELU in ``kernel_impl(gelu)``'s form. Weights bf16, LN parameters and biases f32. The
     LN rows kernel writes LN(x) in bf16, the fc1 pass reads it, and the fc2
     pass adds the residual x."""
     T, D, H = _rows_geometry("LN-MLP", x2, w1)
@@ -252,7 +258,8 @@ def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), n16.data_ptr(),
         T, D, kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
     kernels.check(err, "LN-MLP LayerNorm rows")
-    out, hpre = _fwd_passes(n16, w1, b1, w2, b2, x2.dtype, True, resid=x2)
+    out, hpre = _fwd_passes(n16, w1, b1, w2, b2, x2.dtype, True, resid=x2,
+                            gelu=gelu)
     kernels.LAUNCHES["ln_mlp_fwd"] += 1
     return out, hpre
 
@@ -290,12 +297,11 @@ class _LnMlp(torch.autograd.Function):
             out, hpre = ln_mlp_reference(x2, ln_scale, ln_bias, w1, b1, w2,
                                          b2, eps, gelu)
         else:
-            kernel_impl(gelu)  # the kernel evaluates GELU as 'ans'
             f32 = torch.float32
             w1k, b1k, w2k, b2k = _kernel_weights(w1, b1, w2, b2)
             out, hpre = ln_mlp_fwd_kernel(
                 x2, ln_scale.to(f32).contiguous(), ln_bias.to(f32).contiguous(),
-                w1k, b1k, w2k, b2k, eps)
+                w1k, b1k, w2k, b2k, eps, gelu)
         ctx.save_for_backward(x2, ln_scale, ln_bias, w1, w2, hpre)
         ctx.eps, ctx.gelu, ctx.b1_dtype = eps, gelu, b1.dtype
         return out
@@ -342,9 +348,11 @@ def mlp_fwd_reference(x2, w1, b1, w2, b2, gelu: str = "erf",
     return (out, hpre.to(dt)) if save_hpre else out
 
 
-def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False):
+def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False,
+                   gelu: str = "erf"):
     """K4 on [T, D] rows of float32 or bfloat16: out, or (out, pre-GELU
-    hidden) with ``save_hpre``, in x2's dtype. Weights bf16, biases f32. An
+    hidden) with ``save_hpre``, in x2's dtype, GELU in
+    ``kernel_impl(gelu)``'s form. Weights bf16, biases f32. An
     f32 call feeds the fc1 pass x cast to bf16 (the operand it multiplies
     in either storage)."""
     T, D, H = _rows_geometry("MLP forward", x2, w1)
@@ -352,7 +360,7 @@ def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False):
     _check_operands("MLP forward", x2.device,
                     *_weight_specs(w1, b1, w2, D, H, b2))
     out, hpre = _fwd_passes(x2.to(torch.bfloat16), w1, b1, w2, b2, x2.dtype,
-                            save_hpre)
+                            save_hpre, gelu=gelu)
     kernels.LAUNCHES["mlp_fwd"] += 1
     return (out, hpre) if save_hpre else out
 
@@ -362,8 +370,8 @@ def mlp_fwd(x2, w1, b1, w2, b2, gelu: str = "erf", save_hpre: bool = False):
     version on a CPU tensor."""
     if x2.device.type == "cpu":
         return mlp_fwd_reference(x2, w1, b1, w2, b2, gelu, save_hpre)
-    kernel_impl(gelu)  # the kernel evaluates GELU as 'ans'
-    return mlp_fwd_kernel(x2, *_kernel_weights(w1, b1, w2, b2), save_hpre)
+    return mlp_fwd_kernel(x2, *_kernel_weights(w1, b1, w2, b2), save_hpre,
+                          gelu)
 
 
 # ---------------------------------------------------------- K7, K8, K9
@@ -446,9 +454,9 @@ def _bwd_operands(name, x2, w1, b1, w2, do):
     return T, D, H
 
 
-def _gh_pass(x2, w1, b1, w2, do, with_db1: bool):
+def _gh_pass(x2, w1, b1, w2, do, with_db1: bool, gelu: str = "erf"):
     """The gh pass on the card: (gh, act in x2's dtype, gh in bf16 for the
-    dx pass, K7's db1 or None). An f32 call feeds the kernel x and do cast
+    dx pass, K7's db1 or None), GELU in ``kernel_impl(gelu)``'s form. An f32 call feeds the kernel x and do cast
     to bf16 (the operands it multiplies in either storage)."""
     T, D = x2.shape
     H = w1.shape[0]
@@ -467,7 +475,8 @@ def _gh_pass(x2, w1, b1, w2, do, with_db1: bool):
         do16.data_ptr(), gh.data_ptr(), act.data_ptr(), gh16.data_ptr(),
         None if colsum is None else colsum.data_ptr(),
         None if db1 is None else db1.data_ptr(), T, D, H,
-        kernels.DTYPE_CODES[x2.dtype], kernels.stream_handle(x2))
+        kernels.DTYPE_CODES[x2.dtype], KERNEL_CODES[kernel_impl(gelu)],
+        kernels.stream_handle(x2))
     kernels.check(err, "MLP backward gh pass")
     return gh, act, gh16, db1
 
@@ -490,7 +499,7 @@ def _dx_pass(gh16, w1, dtype):
     return dx
 
 
-def mlp_bwd_kernel(x2, w1, b1, w2, do):
+def mlp_bwd_kernel(x2, w1, b1, w2, do, gelu: str = "erf"):
     """K7 on [T, D] rows x2 and their cotangent do (float32 or bfloat16,
     alike; H a multiple of 128): (dx in x2's dtype; dw1 [H, D], db1 [H],
     dw2 [D, H], db2 [D] in float32). Weights bf16, b1 f32. The gh pass (db1
@@ -500,7 +509,7 @@ def mlp_bwd_kernel(x2, w1, b1, w2, do):
     if H % WEIGHT_GRAD_TILE:
         raise ValueError(f"MLP backward takes H a multiple of "
                          f"{WEIGHT_GRAD_TILE} (K9's tiles), got H={H}")
-    gh, act, gh16, db1 = _gh_pass(x2, w1, b1, w2, do, with_db1=True)
+    gh, act, gh16, db1 = _gh_pass(x2, w1, b1, w2, do, True, gelu)
     dx = _dx_pass(gh16, w1, x2.dtype)
     kernels.LAUNCHES["mlp_bwd"] += 1
     dw1, _ = weight_grads_kernel(x2, gh)
@@ -508,12 +517,12 @@ def mlp_bwd_kernel(x2, w1, b1, w2, do):
     return dx, dw1, db1, dw2, db2
 
 
-def mlp_bwd_dx_kernel(x2, w1, b1, w2, do):
+def mlp_bwd_dx_kernel(x2, w1, b1, w2, do, gelu: str = "erf"):
     """K8 on [T, D] rows x2 and their cotangent do: (dx [T, D], gh [T, H],
     act [T, H]), all in x2's dtype. Weights bf16, b1 f32. The gh pass, then
     the dx pass."""
     _bwd_operands("MLP backward dx", x2, w1, b1, w2, do)
-    gh, act, gh16, _ = _gh_pass(x2, w1, b1, w2, do, with_db1=False)
+    gh, act, gh16, _ = _gh_pass(x2, w1, b1, w2, do, False, gelu)
     dx = _dx_pass(gh16, w1, x2.dtype)
     kernels.LAUNCHES["mlp_bwd_dx"] += 1
     return dx, gh, act
@@ -570,11 +579,10 @@ def _recompute_bwd(x2, w1, b1, w2, do, gelu: str):
             return mlp_bwd_reference(x2, w1, b1, w2, do, gelu)
         dx, gh, act = mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu)
     else:
-        kernel_impl(gelu)  # the kernels evaluate GELU as 'ans'
         w1k, b1k, w2k, _ = _kernel_weights(w1, b1, w2)
         if not split:
-            return mlp_bwd_kernel(x2, w1k, b1k, w2k, do)
-        dx, gh, act = mlp_bwd_dx_kernel(x2, w1k, b1k, w2k, do)
+            return mlp_bwd_kernel(x2, w1k, b1k, w2k, do, gelu)
+        dx, gh, act = mlp_bwd_dx_kernel(x2, w1k, b1k, w2k, do, gelu)
     dw1, db1 = weight_grads(x2, gh)
     dw2, db2 = weight_grads(act, do)
     return dx, dw1, db1, dw2, db2

@@ -227,7 +227,11 @@ class _GraphedPretrainStep:
         before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            # thread-local: another thread may use the card meanwhile (the
+            # data loader's worker pins batches and copies them on its own
+            # stream); in the default global mode its calls would
+            # invalidate the capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 metrics = self._body()
         except BaseException as err:
             self.failed = err
@@ -259,7 +263,9 @@ def make_graphed_pretrain_step(cfg: PretrainConfig) -> _GraphedPretrainStep:
     call too). The routes the environment chooses, ``AVSIAM_LN``
     (``models/layers.py``) and ``AVSIAM_MLP_BWD`` (``ops/mlp.py``), are
     frozen at capture: a later change of either does not reach the
-    graph."""
+    graph. The capture is thread-local, so a data loader's worker thread
+    may copy the next batch to the card while it runs
+    (``data/pipeline.py:device_loader``)."""
     return _GraphedPretrainStep(cfg)
 
 

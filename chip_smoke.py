@@ -24,7 +24,19 @@ Phases (any failure raises and the script exits non-zero):
    from torch.profiler; K3's and K4's also by pass (LN rows, fc1, fc2,
    partial-sum epilogue), K7's likewise, with per-step totals. A kernel
    that spills registers fails the run. Every kernel of phases A64, P64,
-   H64 and F is also held, untimed, at those steps' shapes.
+   H64 and F is also held, untimed, at those steps' shapes. K3, K4, K7 and
+   K8 also under each GELU form the kernels run ('ans', 'tanh', 'cheb',
+   'tanh5'), at phase A's largest encoder rows, each timed, and in
+   float32 storage K8's act and gh from K4's hpre within 1e-4 of the asked
+   form and nearer it than any other form float32 tells apart; K1/K2 at head
+   widths 8, 16 and 128 (C 128, 128, 256) and K5/K6 at 8, 16, 48 and 128,
+   with and without masked keys.
+   Then the data layer on the card: ``kaldi_fbank`` against
+   ``tests/fixtures/fbank_golden.npz`` over the golden waveforms (atol
+   5e-3, rtol 5e-4), and the train transform under the finetune recipes'
+   augmentations (freqm 48, timem 192, mixup 0.5, noise) at B=8 against
+   the port's plain transform on the CPU from the same draws (masks and
+   rolls equal, values within 5e-3); PD64's data pieces timed alone.
 3. steps: full-width two-pass pretrain steps (bf16 compute, batch 8 unless
    named) from the port's own seeded init, 'exact' contrastive form unless
    named, in these configurations:
@@ -66,6 +78,15 @@ Phases (any failure raises and the script exits non-zero):
    Then, on one set of 'exact' draws at B=8, each other form's pooled
    contrastive outputs must be within 2e-2 relative of 'exact''s ('padded'
    given the keep masks of those draws).
+   PD64. P64's graphed step fed by the port's loader (``device_loader``
+   over an ``AVDataset`` of 'synthetic' clips, the pretrain recipe's audio
+   config): warm-up and capture, the loader's lead drained, then a window
+   of 40 data-fed replays timed as one span (rate, loader wait, each
+   half), the launch counts (from 0 just before, P64's per step), a
+   profiled data-fed step (busy share), beside P64 on random batches. The
+   host's assembly of one batch, and the device time of its copy to the
+   card, the draws and the transform, are timed alone with the kernel
+   checks.
 4. reference: for configurations A-E, P64 and H64, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
@@ -906,6 +927,301 @@ def check_attention_hm(shapes, extra, gen):
     return rows
 
 
+# head widths no step phase runs: (b, N, H, D), K1/K2 at D | 128 with C a
+# multiple of 128, K5/K6 up to 128 (K1/K2 also take the first and last)
+WIDTHS_TM = ((2, 512, 16, 8), (2, 512, 8, 16), (2, 512, 2, 128))
+WIDTHS_HM = ((2, 512, 16, 8), (2, 512, 8, 16), (2, 512, 4, 48),
+             (2, 512, 2, 128))
+
+
+def check_widths(gen):
+    """K1/K2 at ``WIDTHS_TM`` and K5/K6 at ``WIDTHS_HM``, each with and
+    without masked keys, against their plain versions in float32 on the
+    same bf16 values (K6 against the saved-statistics form, fed K5's output
+    and statistics); the kernels' device time per call."""
+    from avsiam_tpu_torch.ops import attention as pat
+    rows = []
+    for route, shapes in (("token_major", WIDTHS_TM),
+                          ("head_major", WIDTHS_HM)):
+        for (b, n, heads, hd), masked in (
+                (s_, m) for s_ in shapes for m in (False, True)):
+            C = heads * hd
+            xqkv = torch.randn((b, n, 3 * C), generator=gen, device="cuda"
+                               ).bfloat16()
+            dout = torch.randn((b, n, C), generator=gen, device="cuda"
+                               ).bfloat16()
+            kv = random_key_mask(b, n, gen) if masked else None
+            q, k, v = xqkv.view(b, n, 3, heads, hd).unbind(2)
+            f = [t.float() for t in (q, k, v)]
+            do = dout.view(b, n, heads, hd)
+            if route == "token_major":
+                def fwd():
+                    return pat.attention_fwd_kernel(xqkv, heads, kv)
+                out_c, stats = fwd()
+
+                def bwd():
+                    return pat.attention_bwd_kernel(xqkv, out_c, stats, dout,
+                                                    heads, kv)
+                grads = bwd().view(b, n, 3, heads, hd).unbind(2)
+                out = out_c.view(b, n, heads, hd)
+            else:
+                def fwd():
+                    return pat.attention_hm_fwd_kernel(q, k, v, kv)
+                out, stats = fwd()
+
+                def bwd():
+                    return pat.attention_hm_bwd_kernel(q, k, v, out, stats,
+                                                       do, kv)
+                grads = bwd()
+            torch.cuda.synchronize()
+            ferr = rel_err(out, pat.attention_hm_reference(*f, kv))
+            berr = max((rel_err(g, w) for g, w in zip(
+                grads, pat.attention_hm_bwd_stats_reference(
+                    *f, out.float(), stats, do.float(), kv))),
+                key=lambda e: e[1])
+            if max(ferr[1], berr[1]) > ATTN_TOL:
+                raise AssertionError(
+                    f"{route} attention b={b} N={n} H={heads} D={hd} "
+                    f"masked={masked}: fwd rel err {ferr[1]:.3e}, bwd "
+                    f"{berr[1]:.3e} > {ATTN_TOL}")
+            ms = dict(fwd=time_ms(fwd, iters=10), bwd=time_ms(bwd, iters=10))
+            rows.append(dict(route=route, b=b, N=n, H=heads, D=hd,
+                             masked=masked, fwd_err=ferr, bwd_err=berr,
+                             ms=ms))
+            log(f"  {'K1/K2' if route == 'token_major' else 'K5/K6'} b={b} "
+                f"N={n} H={heads:2d} D={hd:3d} mask={int(masked)}  fwd rel "
+                f"err {ferr[1]:.1e}, bwd {berr[1]:.1e} <= {ATTN_TOL}  "
+                f"{ms['fwd']:.4f} + {ms['bwd']:.4f} ms a call")
+    return rows
+
+
+GELU_FORMS = ("ans", "tanh", "cheb", "tanh5")  # 'erf' runs as 'ans'
+
+
+def check_gelu_forms(shape, gen, eps: float = 1e-5):
+    """K3, K4 (saving the hidden), K7 and K8 under each GELU form the
+    kernels run, at one (rows, D, H[, impl]) of a ViT-B step, against their
+    plain versions in float32 on the same values; each kernel's device time
+    per call under each form; then, in float32 storage, the form itself
+    (``check_gelu_form``)."""
+    from avsiam_tpu_torch.ops import mlp as pm
+    t, d, h = shape[:3]
+    o = mlp_operands(gen, t, d, h)
+    x, w1, b1, w2, b2, do = (o[k] for k in ("x", "w1", "b1", "w2", "b2",
+                                            "do"))
+    f = {k: v.float() for k, v in o.items()}
+    g = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    bl = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    rows = []
+    for form in GELU_FORMS:
+        calls = {
+            "ln_mlp_fwd": (
+                lambda: pm.ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2, eps,
+                                             gelu=form),
+                lambda: pm.ln_mlp_reference(f["x"], g, bl, f["w1"], b1,
+                                            f["w2"], b2, eps, gelu=form)),
+            "mlp_fwd": (
+                lambda: pm.mlp_fwd_kernel(x, w1, b1, w2, b2, True,
+                                          gelu=form),
+                lambda: pm.mlp_fwd_reference(f["x"], f["w1"], b1, f["w2"],
+                                             b2, form, True)),
+            "mlp_bwd": (
+                lambda: pm.mlp_bwd_kernel(x, w1, b1, w2, do, gelu=form),
+                lambda: pm.mlp_bwd_reference(f["x"], f["w1"], b1, f["w2"],
+                                             f["do"], form)),
+            "mlp_bwd_dx": (
+                lambda: pm.mlp_bwd_dx_kernel(x, w1, b1, w2, do, gelu=form),
+                lambda: pm.mlp_bwd_dx_reference(f["x"], f["w1"], b1,
+                                                f["w2"], f["do"], form)),
+        }
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(got, want, strict=True)]
+            rel = max(e[1] for e in errs)
+            if rel > MLP_TOL:
+                raise AssertionError(f"{name} gelu={form} T={t} D={d} H={h}: "
+                                     f"rel err {rel:.3e} > {MLP_TOL}")
+            ms = time_ms(kernel, iters=10)
+            rows.append(dict(kernel=name, gelu=form, T=t, D=d, H=h,
+                             max_abs_err=max(e[0] for e in errs),
+                             max_rel_err=rel, ms=ms))
+        rows[-1]["form_check"] = check_gelu_form(form, o)
+    base = {r["kernel"]: r["ms"] for r in rows if r["gelu"] == "ans"}
+    for r in rows:
+        log(f"  gelu {r['gelu']:5s} {r['kernel']:10s} T={t} D={d} H={h}  "
+            f"rel err {r['max_rel_err']:.1e} <= {MLP_TOL}  {r['ms']:.4f} "
+            f"ms/call ('ans' {base[r['kernel']]:.4f}, "
+            f"{r['ms'] / base[r['kernel']]:.3f}x)")
+    return rows
+
+
+GELU_FORM_ATOL = 1e-4
+# Pairs of forms whose float32 values differ by float32 rounding only
+# ('cheb' and 'ans' by about 1e-7 RMS in act and gelu'): not told apart.
+GELU_TWINS = ({"ans", "cheb"},)
+
+
+def check_gelu_form(form, o):
+    """The form the kernels run, where the bf16 checks cannot show it: K8's
+    float32 act and gh against each form's plain act and (do w2) * gelu',
+    in float64 from K4's float32 hpre (the same bf16 operands and f32
+    accumulation as K8's recomputed hidden). Within ``GELU_FORM_ATOL`` of
+    the asked form's, and at most half as far from it (RMS) as from any
+    other form the values tell apart. Returns the errors and ratios."""
+    from avsiam_tpu_torch.ops import gelu as pg
+    from avsiam_tpu_torch.ops import mlp as pm
+    x, do = o["x"].float(), o["do"].float()
+    _, hpre = pm.mlp_fwd_kernel(x, o["w1"], o["b1"], o["w2"], o["b2"], True,
+                                gelu=form)
+    _, gh, act = pm.mlp_bwd_dx_kernel(x, o["w1"], o["b1"], o["w2"], do,
+                                      gelu=form)
+    h64 = hpre.double()
+    dw = o["do"].double() @ o["w2"].double()
+
+    def plain(f):
+        return pg.gelu_f32(h64, f), dw * pg.gelu_grad_f32(h64, f)
+
+    def rms(a, b):
+        return float((a.double() - b).pow(2).mean().sqrt())
+
+    mine = plain(form)
+    err = [float((a.double() - b).abs().max())
+           for a, b in zip((act, gh), mine, strict=True)]
+    ratios = {}
+    for other in GELU_FORMS:
+        if other == form or {form, other} in GELU_TWINS:
+            continue
+        ratios[other] = max(
+            rms(a, b) / rms(a, c)
+            for a, b, c in zip((act, gh), mine, plain(other), strict=True))
+    log(f"  gelu {form:5s} form check (K4's f32 hpre, K8's f32 act and gh): "
+        f"max err {err[0]:.1e}, {err[1]:.1e} <= {GELU_FORM_ATOL}; RMS to "
+        f"'{form}' / RMS to the other form: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ratios.items()) + " <= 0.5")
+    if max(err) > GELU_FORM_ATOL or any(v > 0.5 for v in ratios.values()):
+        raise AssertionError(f"gelu={form}: the kernels do not run the "
+                             f"asked form (max err {err}, ratios {ratios})")
+    return dict(max_err_act=err[0], max_err_gh=err[1], rms_ratio=ratios)
+
+
+def golden_waveforms() -> dict:
+    """The waveforms of the committed fbank golden, by the recipe of
+    ``scripts/gen_goldens.py:golden_waveforms`` (copied here, so that this
+    script imports nothing of the repo outside the port)."""
+    import numpy as np
+    sr = 16000
+    rs = np.random.RandomState(0)
+    t1 = np.arange(sr) / sr
+    return {
+        "noise_1s": (rs.randn(sr) * 0.1).astype(np.float32),
+        "tone_440": (0.5 * np.sin(2 * np.pi * 440.0 * np.arange(sr // 2)
+                                  / sr)).astype(np.float32),
+        "chirp": (0.3 * np.sin(2 * np.pi * (100.0 + (7900.0 - 100.0)
+                                            * t1 / 2.0) * t1)
+                  ).astype(np.float32),
+        "impulse": np.concatenate(
+            [np.zeros(1000, np.float32), np.asarray([0.9], np.float32),
+             np.zeros(sr * 3 // 10 - 1001, np.float32)]),
+        "noise_2s": (rs.randn(2 * sr) * 0.05).astype(np.float32),
+    }
+
+
+FBANK_ATOL, FBANK_RTOL = 5e-3, 5e-4  # tests/test_fbank.py's limits
+TRANSFORM_ATOL = 5e-3
+
+
+def check_fbank():
+    """``kaldi_fbank`` on the card against ``tests/fixtures/
+    fbank_golden.npz`` (the native C++ oracle's), over the golden
+    waveforms, within atol 5e-3 and rtol 5e-4."""
+    import numpy as np
+    from avsiam_tpu_torch.ops.fbank import kaldi_fbank
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "fbank_golden.npz")
+    golden = dict(np.load(path))
+    worst = 0.0
+    for name, wav in golden_waveforms().items():
+        got = kaldi_fbank(torch.from_numpy(wav).cuda()).cpu().numpy()
+        want = golden[name]
+        if got.shape != want.shape:
+            raise AssertionError(f"fbank {name}: shape {got.shape} != "
+                                 f"{want.shape}")
+        excess = np.abs(got - want) - (FBANK_ATOL + FBANK_RTOL * np.abs(want))
+        worst = max(worst, float(np.abs(got - want).max()))
+        if not np.isfinite(got).all() or (excess > 0).any():
+            raise AssertionError(f"fbank {name} on the card: max err "
+                                 f"{np.abs(got - want).max():.3e} beyond atol "
+                                 f"{FBANK_ATOL}, rtol {FBANK_RTOL}")
+    log(f"  fbank on the card against the native golden: {len(golden)} "
+        f"waveforms, max abs err {worst:.2e} (atol {FBANK_ATOL}, rtol "
+        f"{FBANK_RTOL})")
+    return dict(max_abs_err=worst, waveforms=len(golden))
+
+
+def check_transform(gen, seed: int, batch: int = 8):
+    """The train transform under the finetune recipes' augmentations
+    (freqm 48, timem 192, mixup 0.5, noise; ``recipes/ft_*.sh``) at B=8,
+    on the card against the port's plain transform on the CPU from the
+    same draws: the SpecAugment masks and the time rolls equal, every value
+    within atol 5e-3."""
+    from avsiam_tpu_torch.configs import AudioConfig
+    from avsiam_tpu_torch.data.dataset import make_train_transform
+    from avsiam_tpu_torch.ops import augment as aug
+    cfg = AudioConfig(freqm=48, timem=192, mixup=0.5, noise=True)
+    n = int(cfg.sample_rate * (cfg.target_length + 2) * cfg.frame_shift_ms
+            / 1000.0)
+    B = batch
+    wav = torch.randn((B, n), generator=gen, device="cuda") * 0.05
+    wav = wav - wav.mean(dim=-1, keepdim=True)
+    frames = torch.randint(0, 255, (B, 1, 224, 224, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    labels = (torch.rand((B, 527), generator=gen, device="cuda")
+              < 0.01).float()
+    wav_len = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    wav_len[::2] = n // 2  # half the clips end halfway: rows zeroed
+    draws = aug.draw_transform(
+        cfg, B, torch.Generator(device="cuda").manual_seed(seed))
+    cpu_draws = aug.TransformDraws(*(d.cpu() for d in draws))
+    tr = make_train_transform(cfg, im_res=224)
+    got = tr(draws, wav, frames, labels, wav_len)
+    want = tr(cpu_draws, wav.cpu(), frames.cpu(), labels.cpu(),
+              wav_len.cpu())
+    T, F = cfg.target_length, cfg.num_mel_bins
+    ones = torch.ones((B, T, F), device="cuda")
+    masks = aug.spec_augment(ones, cfg.freqm, cfg.timem, draws.freq_u,
+                             draws.time_u) == 0
+    cpu_masks = aug.spec_augment(ones.cpu(), cfg.freqm, cfg.timem,
+                                 cpu_draws.freq_u, cpu_draws.time_u) == 0
+    rows = torch.arange(T, dtype=torch.float32, device="cuda")
+    rows = rows[None, :, None].expand(B, T, F).contiguous()
+    rolled = aug.noise_and_roll(rows, torch.zeros_like(rows), draws.noise_u,
+                                draws.shift)
+    cpu_rolled = aug.noise_and_roll(rows.cpu(), torch.zeros_like(rows.cpu()),
+                                    cpu_draws.noise_u, cpu_draws.shift)
+    if not torch.equal(masks.cpu(), cpu_masks) or not cpu_masks.any():
+        raise AssertionError("transform: the SpecAugment masks on the card "
+                             "differ from the CPU's")
+    if not torch.equal(rolled.cpu(), cpu_rolled):
+        raise AssertionError("transform: the time rolls on the card differ "
+                             "from the CPU's")
+    errs = {}
+    for name, g, w in zip(("fbank", "image", "labels"), got, want,
+                          strict=True):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"transform {name}: {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}, or not finite")
+        errs[name] = float((g.cpu() - w).abs().max())
+    log(f"  train transform (freqm 48, timem 192, mixup 0.5, noise) at B={B}:"
+        f" masks and rolls equal, max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (atol {TRANSFORM_ATOL})")
+    if max(errs.values()) > TRANSFORM_ATOL:
+        raise AssertionError(f"transform on the card vs the CPU: {errs} > "
+                             f"{TRANSFORM_ATOL}")
+    return errs
+
+
 def check_float32(gen, eps: float = 1e-5):
     """The kernels' float32-storage variants (off the bf16 step paths) at one
     encoder and one decoder shape each, against the plain version."""
@@ -1244,6 +1560,20 @@ def main(argv=None) -> int:
          if k in p64["shapes"].masked}, [], gen,
         masks=padded_masks_at(p64["cfg"], gen))
     log_attention_totals("P64", attn_p64)
+    # the GELU forms of K3, K4, K7 and K8 at phase A's largest encoder
+    # rows; K1/K2 and K5/K6 at the head widths no step phase runs
+    gelu_rows = check_gelu_forms(max(k for k in mlp_shapes if k[1] == 768),
+                                 gen)
+    log("phase widths: K1/K2 at D 8, 16, 128; K5/K6 at D 8, 16, 48, 128")
+    width_rows = check_widths(gen)
+    log("phase data: the fbank and the train transform on the card, PD64's "
+        "data pieces timed")
+    report.update(gelu_forms=gelu_rows, widths=width_rows,
+                  fbank=check_fbank(),
+                  transform=check_transform(gen, args.seed),
+                  data_pieces=time_data_pieces(phases["P64"]["cfg"],
+                                               args.seed))
+    log(f"kernels and data checks done at {time.time() - t0:.0f} s")
     report.update(attention=attn_rows, ln_mlp=mlp_rows, mlp_family=fam_rows,
                   ln_bwd=ln_rows, attention_hm=hm_rows,
                   attention_p64=attn_p64, float32=check_float32(gen),
@@ -1262,12 +1592,19 @@ def main(argv=None) -> int:
         if label in ("A", "P64"):
             report.setdefault("eager_vs_graphed", {})[label] = \
                 compare_eager_graphed(p["cfg"], args.seed)
+    log(f"step phases done at {time.time() - t0:.0f} s")
+    p64 = phases["P64"]
+    launches["PD64"] = run_data_fed(
+        "PD64", p64["cfg"], expected_launches(p64["cfg"], p64["shapes"],
+                                              False, False, 1),
+        args.seed, report)
     report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
     for label in REFERENCE_PHASES:
         p = phases[label]
         with env_flags(p["split"], p["ln"]):
             run_reference(label, p["impls"], args.seed, report)
 
+    log(f"reference phases done at {time.time() - t0:.0f} s")
     if args.report:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)
@@ -1282,8 +1619,11 @@ def main(argv=None) -> int:
             k: r["max_rel"] for k, r in report["eager_vs_graphed"].items()},
         "forms_vs_exact_max_rel": report["forms_vs_exact"]}))
     log(card)
-    print(json.dumps({"kernels": kernel_entries(
-        attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows, launches)}))
+    entries = kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
+                             launches)
+    for e in entries:  # the data-fed phase's counts beside the phase's
+        e["pd64_launches"] = launches["PD64"][e["name"]]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1341,7 +1681,8 @@ STEP_KEYS = ("batch", "eager_steady_ms", "graphed_steady_ms",
              "eager_busy_share", "graphed_busy_share", "eager_kernels",
              "graphed_kernels", "eager_adam_ms", "graphed_adam_ms",
              "eager_peak_gib", "eager_reserved_gib", "graphed_peak_gib",
-             "graphed_reserved_gib", "capture_s")
+             "graphed_reserved_gib", "capture_s", "clips_per_s",
+             "loader_wait_ms", "host_batch_ms", "h2d_ms", "transform_ms")
 
 
 def run_steps(label, cfg, per_step, seed, report, n_steps: int = 5):
@@ -1428,6 +1769,201 @@ def run_steps(label, cfg, per_step, seed, report, n_steps: int = 5):
         graphed_profile=gprof, graphed_busy_share=share(gprof),
         graphed_kernels=gprof and gprof["kernels"],
         graphed_adam_ms=adam(gprof), capture_s=capture_s)
+    del graphed, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+PD64_WINDOW = 40    # data-fed replays timed as one span
+PD64_MAX_DRAIN = 8  # batches the loader can hold ahead, with margin
+
+
+def pd64_data(cfg, seed: int, n_batches: int):
+    """PD64's data: P64's ``cfg`` with the pretrain recipe's audio config
+    (``recipes/pretrain_audioset.sh``: noise and roll, no mixup, no
+    SpecAugment), an ``AVDataset`` of ``n_batches`` x B 'synthetic' clips
+    (index written under ``build/chip_smoke_data``), the epoch's shuffled
+    indices and positions, and the train transform."""
+    from pathlib import Path
+
+    from avsiam_tpu_torch.configs import AudioConfig, replace
+    from avsiam_tpu_torch.data.dataset import AVDataset, make_train_transform
+    from avsiam_tpu_torch.data.samplers import shuffled_epoch_indices
+    audio = AudioConfig(noise=True)  # recipes/pretrain_audioset.sh:24
+    cfg = replace(cfg, audio=audio)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+    root.mkdir(parents=True, exist_ok=True)
+    index = root / f"pd64_index_{n_batches}.json"
+    index.write_text(json.dumps({"data": [
+        {"wav": f"synthetic/{i}.wav", "labels": ""}
+        for i in range(n_batches * cfg.batch_size)]}))
+    im_res = cfg.model.vit.img_size
+    ds = AVDataset(str(index), audio, frame_source="synthetic", mode="train",
+                   im_res=im_res)
+    idx, pos = shuffled_epoch_indices(len(ds), 0, seed, with_positions=True)
+    return cfg, ds, idx, pos, make_train_transform(audio, im_res=im_res)
+
+
+def time_data_pieces(cfg, seed: int) -> dict:
+    """PD64's data pieces alone, on batches of its size: the host's
+    assembly of one batch (host clock, median of three, on this thread),
+    and the device time per call (``time_ms``) of the pinned batch's copy
+    to the card, the draws and the train transform. Run with the kernel
+    checks: a profiler session this short came back with no device records
+    late in a long run."""
+    from avsiam_tpu_torch.data.pipeline import host_batches
+    from avsiam_tpu_torch.ops.augment import draw_transform
+    cfg, ds, idx, _, transform = pd64_data(cfg, seed, 1)
+    B, audio = cfg.batch_size, cfg.audio
+    host_ms = []
+    for _ in range(3):
+        t0 = time.time()
+        host = next(host_batches(ds, [idx[:B]], seed))
+        host_ms.append((time.time() - t0) * 1e3)
+    pinned = [torch.from_numpy(a).pin_memory() for a in host]
+    dev = [t.to("cuda") for t in pinned]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = draw_transform(audio, B, gen)
+    out = dict(
+        host_batch_ms=sorted(host_ms)[1],
+        h2d_ms=time_ms(lambda: [t.to("cuda", non_blocking=True)
+                                for t in pinned], iters=10),
+        h2d_bytes=sum(t.numel() * t.element_size() for t in pinned),
+        draw_ms=time_ms(lambda: draw_transform(audio, B, gen), iters=10),
+        transform_ms=time_ms(lambda: transform(draws, *dev), iters=10))
+    log(f"  PD64's data pieces, one batch of {B}: host assembly "
+        f"{out['host_batch_ms']:.1f} ms by host clock "
+        f"({out['host_batch_ms'] / B:.2f} ms a clip); device time a call: "
+        f"copy to the card {out['h2d_ms']:.3f} ms "
+        f"({out['h2d_bytes'] / 2**20:.1f} MiB), draws {out['draw_ms']:.3f} "
+        f"ms, transform {out['transform_ms']:.3f} ms")
+    return out
+
+
+def run_data_fed(label, cfg, per_step, seed, report):
+    """Phase PD64: the graphed ViT-B 'padded' pretrain step at B=64 (P64's
+    configuration) fed by the port's loader: ``device_loader`` over
+    ``pd64_data``'s clips in batches of 64 (host batches on its worker
+    thread, pinned, copied on a side stream, transformed on the card).
+
+    A warm-up step and the capture. Then the lead the loader built during
+    them (up to three batches: two queued, one in the worker's hand) is
+    drained: batches are taken without a step until one has to be waited
+    for, so that the window measures the steady state and not that head
+    start. The loader then holds nothing ahead and its worker has just
+    begun a batch, as in the steady state of a loader that sets the pace;
+    the next step waits for that whole batch and is left out of the
+    window. Then ``PD64_WINDOW`` data-fed replays timed as one span (each
+    step's wall time, its wait in ``next`` included): the rate is their
+    clips over the span, the loader wait their mean time in ``next``, for
+    the window and for each half. The kernel launches of every step,
+    counted from 0 just before the warm-up, must be ``per_step`` times the
+    steps, and every metric finite. Then one profiled data-fed step: the
+    device's busy share of the window's mean step."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.data.pipeline import device_loader
+    from avsiam_tpu_torch.data.samplers import batched
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step)
+    n_batches = 3 + PD64_MAX_DRAIN + PD64_WINDOW + 4
+    cfg, ds, idx, pos, transform = pd64_data(cfg, seed, n_batches)
+    B, audio, v = cfg.batch_size, cfg.audio, cfg.model.vit
+    pieces = report["data_pieces"]
+    log(f"phase data-fed {label}: P64's step (ViT dim {v.dim} depth "
+        f"{v.depth}, {cfg.model.mmixed_impl}, {cfg.model.mlp_impl}, "
+        f"{cfg.model.dtype}, batch {B}, graphed) fed by device_loader over "
+        f"{len(ds)} synthetic clips, noise {audio.noise}, mixup "
+        f"{audio.mixup}, freqm {audio.freqm}, timem {audio.timem}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_state(cfg, gen, "cuda")
+    graphed = make_graphed_pretrain_step(cfg)
+    loader = device_loader(ds, batched(idx, B), transform, draw_seed=seed,
+                           seed=seed, device="cuda",
+                           position_batches=batched(pos, B))
+    lr = cfg.opt.lr
+    steps = []
+
+    def step(i, what):
+        nonlocal state
+        t0 = time.time()
+        fb, img, _ = next(loader)
+        t1 = time.time()
+        state, metrics = graphed(state, (fb, img), gen, lr)
+        metrics = {k: float(x) for k, x in metrics.items()}
+        torch.cuda.synchronize()
+        ms, wait = (time.time() - t0) * 1e3, (t1 - t0) * 1e3
+        if not all(math.isfinite(x) for x in metrics.values()):
+            raise AssertionError(f"{label} step {i}: non-finite metrics "
+                                 f"{metrics}")
+        steps.append(dict(metrics, ms=ms, loader_wait_ms=wait))
+        log(f"  {label} {what} step {i}: " + " ".join(
+            f"{k} {x:.5f}" for k, x in metrics.items())
+            + f"  {ms:.1f} ms (loader wait {wait:.1f} ms)")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step(0, "warm-up")
+    step(1, "capture")
+    # a take from a non-empty queue returns in about a millisecond; one
+    # that waits for the worker, in a good part of an assembly
+    drained, waited = 0, 0.0
+    while waited < 0.25 * pieces["host_batch_ms"]:
+        if drained == PD64_MAX_DRAIN:
+            raise AssertionError(f"{label}: the loader's lead did not drain "
+                                 f"in {drained} batches")
+        t0 = time.time()
+        next(loader)
+        waited = (time.time() - t0) * 1e3
+        drained += 1
+    log(f"  {label}: drained the loader's lead in {drained} batches, the "
+        f"last waited {waited:.1f} ms")
+    step(2, "post-drain")
+    t_start = time.time()
+    for i in range(PD64_WINDOW):
+        step(3 + i, "window")
+    window_s = time.time() - t_start
+    launches = dict(kernels.LAUNCHES)
+    check_launches(label, launches, per_step, len(steps))
+    peak, reserved = memory_gib()
+    window = steps[3:]
+    half = PD64_WINDOW // 2
+    step_ms = 1e3 * window_s / PD64_WINDOW
+    wait = sum(s["loader_wait_ms"] for s in window) / PD64_WINDOW
+    halves = [dict(ms=sum(s["ms"] for s in w) / len(w),
+                   loader_wait_ms=sum(s["loader_wait_ms"] for s in w)
+                   / len(w)) for w in (window[:half], window[half:])]
+
+    def data_step(st, _batch, g, lr_):
+        fb_, img_, _ = next(loader)
+        return graphed(st, (fb_, img_), g, lr_)
+
+    prof = profile_step(data_step, state, None, gen, lr, step_ms)
+    loader.close()
+    p64_ms = report.get("steps", {}).get("P64", {}).get("graphed_steady_ms")
+    busy = None if prof is None else prof["busy_ms"] / step_ms
+    log(f"  phase {label} window: {PD64_WINDOW} data-fed steps in "
+        f"{window_s:.3f} s: {step_ms:.1f} ms a step, "
+        f"{1e3 * B / step_ms:.1f} clips/s, loader wait {wait:.1f} ms a step; "
+        f"halves {halves[0]['ms']:.1f} / {halves[1]['ms']:.1f} ms a step, "
+        f"wait {halves[0]['loader_wait_ms']:.1f} / "
+        f"{halves[1]['loader_wait_ms']:.1f} ms; "
+        + (f"busy {100 * busy:.1f}% of the step" if busy is not None
+           else "busy share not measured"))
+    if p64_ms is not None:
+        log(f"  P64 on random batches in this run: {p64_ms:.1f} ms, "
+            f"{1e3 * B / p64_ms:.1f} clips/s; the data costs "
+            f"{step_ms - p64_ms:.1f} ms a step; host assembly alone "
+            f"{pieces['host_batch_ms']:.1f} ms a batch (host clock); peak "
+            f"memory {peak:.2f} GiB allocated, {reserved:.2f} reserved")
+    report.setdefault("steps", {})[label] = dict(
+        pieces, batch=B, steps=steps, launches=launches, drained=drained,
+        window_steps=PD64_WINDOW, window_s=window_s,
+        graphed_steady_ms=step_ms, clips_per_s=1e3 * B / step_ms,
+        loader_wait_ms=wait, halves=halves, graphed_busy_share=busy,
+        graphed_profile=prof, graphed_kernels=prof and prof["kernels"],
+        graphed_peak_gib=peak, graphed_reserved_gib=reserved,
+        p64_graphed_steady_ms=p64_ms)
     del graphed, state
     torch.cuda.empty_cache()
     return launches

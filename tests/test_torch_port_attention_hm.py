@@ -113,13 +113,14 @@ def test_xla_attention_matches_jax_in_bf16(masked):
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 @pytest.mark.parametrize("C,H", [(768, 12), (512, 16), (1280, 16), (160, 2),
-                                 (128, 2), (96, 3), (256, 8), (256, 2)])
+                                 (128, 2), (96, 3), (256, 8), (256, 2),
+                                 (128, 16), (128, 8), (256, 1)])
 def test_attention_route_follows_the_jax_dispatch(monkeypatch, impl, C, H):
     """``attention_route`` against the branch the JAX ``attention_qkv``
     takes (``avsiam_tpu/ops/attention.py:741-759``), seen by spying on its
     three callees: token-major Pallas, head-major Pallas or XLA. D=80
     (ViT-H) and D=32 at C=96 are head-major; D=32 at C=256 token-major, and
-    so is D=128, which no kernel of the port takes."""
+    so are D=128 and D=8 (C=128, 16 heads)."""
     taken = []
     for name, route in (("pallas_attention_qkv", "token_major"),
                         ("pallas_attention", "head_major"),
@@ -135,33 +136,41 @@ def test_attention_route_follows_the_jax_dispatch(monkeypatch, impl, C, H):
 
 @pytest.mark.parametrize("C,H,route", [
     (768, 12, "token_major"), (512, 16, "token_major"), (1280, 16, "xla"),
-    (160, 2, "xla"), (96, 3, "xla")])
+    (160, 2, "xla"), (96, 3, "xla"), (128, 16, "token_major"),
+    (128, 8, "token_major"), (256, 2, "token_major"), (256, 1, "xla")])
 def test_auto_route_is_the_kernel_or_xla(C, H, route):
-    """'auto' takes K1/K2 where the shape is token-major; elsewhere the XLA
-    form, as the JAX 'auto' does on a TPU (off one it is always XLA)."""
+    """'auto' takes K1/K2 wherever the shape is token-major (the JAX
+    ``tm_ok``: D 8, 16, 64 and 128 here, every width K1/K2 take); elsewhere
+    the XLA form, as the JAX 'auto' does on a TPU (off one it is always
+    XLA)."""
     assert pat.attention_route("auto", C, H) == route
 
 
-@pytest.mark.parametrize("case", ["d128", "d16", "d128_off_the_cpu",
+@pytest.mark.parametrize("case", ["d128", "d16", "d8", "d128_off_the_cpu",
                                   "unknown_impl"])
 def test_pallas_route_refuses_a_width_no_kernel_takes(case):
     """Under 'pallas' only a kernel refuses a head width: on the CPU the
     token-major route takes its plain version at every D the JAX
-    ``attention_qkv`` runs, D=128 (C=256) and D=16 (C=128) here, held
-    against it (its Pallas kernel in interpret mode; float32, with masked
-    keys): output to 1e-5, d(xqkv) to 1e-4. Off the CPU the route goes to
-    K1, which refuses D=128. An unknown ``attn_impl`` raises."""
+    ``attention_qkv`` runs, D=128 (C=256), D=16 (C=128) and D=8 (C=128)
+    here, held against it (its Pallas kernel in interpret mode; float32,
+    with masked keys): output to 1e-5, d(xqkv) to 1e-4. Off the CPU K1/K2
+    take each of those widths; the one width no kernel of the port takes
+    is a head-major D above 128 (D=256 at C=256), which K5 refuses, where
+    the JAX head-major kernel runs it. An unknown ``attn_impl`` raises."""
     if case == "unknown_impl":
         with pytest.raises(ValueError, match="attn_impl"):
             pat.attention_route("cudnn", 768, 12)
         return
-    C, H = (128, 8) if case == "d16" else (256, 2)
-    assert pat.attention_route("pallas", C, H) == "token_major"
     if case == "d128_off_the_cpu":
+        assert pat.tm_kernel_takes(128) and pat.tm_kernel_takes(8)
+        C, H = 256, 1
+        assert pat.attention_route("pallas", C, H) == "head_major"
         x = torch.empty((2, 5, 3 * C), device="meta")
         with pytest.raises(ValueError, match="head dims"):
             pat.attention_qkv(x, H, impl="pallas")
         return
+    C, H = {"d16": (128, 8), "d8": (128, 16), "d128": (256, 2)}[case]
+    assert pat.attention_route("pallas", C, H) == "token_major"
     B, N = 2, 37
     rs = np.random.RandomState(C + H)
     x = rs.randn(B, N, 3 * C).astype(np.float32)

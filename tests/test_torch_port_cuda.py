@@ -943,3 +943,203 @@ def test_graphed_step_raises_on_a_capture_error(gen):
         timeout=600)
     assert run.returncode == 0 and "raised twice" in run.stdout, (
         run.stdout[-2000:] + run.stderr[-4000:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("gelu", ["ans", "tanh", "cheb", "tanh5"])
+def test_mlp_kernels_under_every_gelu_form(gen, gelu, dtype):
+    """K3, K4 (with the hidden), K7 and K8 under each GELU form the kernels
+    run, against their plain versions in float32 on the same values; in
+    float32 storage also the form itself (``_assert_gelu_form``)."""
+    T, Dm, Hm = 300, 256, 1024
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x, do = rnd(T, Dm).to(dtype), rnd(T, Dm).to(dtype)
+    w1, w2 = rnd(Hm, Dm, scale=Dm ** -0.5).to(bf), rnd(Dm, Hm, scale=Hm ** -0.5).to(bf)
+    b1, b2 = rnd(Hm, scale=0.1), rnd(Dm, scale=0.1)
+    g, bl = 1.0 + rnd(Dm, scale=0.1), rnd(Dm, scale=0.1)
+    xf, w1f, w2f, dof = x.float(), w1.float(), w2.float(), do.float()
+    pairs = [
+        (pmlp.ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2, 1e-5, gelu=gelu),
+         pmlp.ln_mlp_reference(xf, g, bl, w1f, b1, w2f, b2, 1e-5, gelu)),
+        (pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2, True, gelu=gelu),
+         pmlp.mlp_fwd_reference(xf, w1f, b1, w2f, b2, gelu, True)),
+        (pmlp.mlp_bwd_kernel(x, w1, b1, w2, do, gelu=gelu),
+         pmlp.mlp_bwd_reference(xf, w1f, b1, w2f, dof, gelu)),
+        (pmlp.mlp_bwd_dx_kernel(x, w1, b1, w2, do, gelu=gelu),
+         pmlp.mlp_bwd_dx_reference(xf, w1f, b1, w2f, dof, gelu))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for a, b in zip(got, want, strict=True):
+            assert _rel(a, b) <= TOL
+    if dtype == torch.float32:
+        _assert_gelu_form(gelu, x, w1, b1, w2, b2, do)
+
+
+# Pairs of forms whose float32 values differ by float32 rounding only
+# ('cheb' and 'ans' by about 1e-7 RMS in act and gelu'): not told apart.
+_GELU_TWINS = ({"ans", "cheb"},)
+
+
+def _assert_gelu_form(gelu, x, w1, b1, w2, b2, do):
+    """The form the kernels run, where bf16 storage cannot show it: K8's
+    float32 act and gh against each form's plain act and (do w2) * gelu',
+    in float64 from K4's float32 hpre (the same bf16 operands and f32
+    accumulation as K8's recomputed hidden). Within 1e-4 of the asked
+    form's, and at most half as far from it (RMS) as from any other form
+    the values tell apart ('tanh' differs from 'ans' by about 5e-4 in act
+    and 9e-4 in gelu', 'tanh5' by about 6e-6 and 2e-5)."""
+    from avsiam_tpu_torch.ops import gelu as pgelu
+    _, hpre = pmlp.mlp_fwd_kernel(x, w1, b1, w2, b2, True, gelu=gelu)
+    _, gh, act = pmlp.mlp_bwd_dx_kernel(x, w1, b1, w2, do, gelu=gelu)
+    h64 = hpre.double()
+    dw = do.to(torch.bfloat16).double() @ w2.double()
+
+    def plain(form):
+        return (pgelu.gelu_f32(h64, form),
+                dw * pgelu.gelu_grad_f32(h64, form))
+
+    def rms(a, b):
+        return float((a.double() - b).pow(2).mean().sqrt())
+
+    mine = plain(gelu)
+    for got, want in zip((act, gh), mine, strict=True):
+        assert float((got.double() - want).abs().max()) <= 1e-4
+    for other in ("ans", "tanh", "cheb", "tanh5"):
+        if other == gelu or {gelu, other} in _GELU_TWINS:
+            continue
+        for got, want, theirs in zip((act, gh), mine, plain(other),
+                                     strict=True):
+            assert rms(got, want) <= 0.5 * rms(got, theirs), other
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("C,H", [(128, 128), (128, 64), (128, 32),
+                                 (128, 16), (128, 8), (256, 2)],
+                         ids=["d1", "d2", "d4", "d8", "d16", "d128"])
+def test_attention_kernels_at_every_token_major_width(gen, C, H, masked,
+                                                      dtype):
+    """K1/K2 at every head width that divides 128 beyond the step's (D 1,
+    2, 4, 8, 16 and 128), through ``attention_qkv`` under 'auto' (the JAX
+    ``tm_ok`` route), against the plain version in float32."""
+    N = 77
+    x = torch.randn((2, N, 3 * C), generator=gen, device="cuda").to(dtype)
+    ct = torch.randn((2, N, C), generator=gen, device="cuda").to(dtype)
+    kv = None
+    if masked:
+        kv = torch.rand((2, N), generator=gen, device="cuda") > 0.3
+        kv[:, 0] = True
+    assert pat.attention_route("auto", C, H) == "token_major"
+    before = kernels.LAUNCHES["attention_fwd"]
+    xk = x.clone().requires_grad_(True)
+    out = pat.attention_qkv(xk, H, kv)
+    out.backward(ct)
+    assert kernels.LAUNCHES["attention_fwd"] == before + 1
+    xr = x.float().requires_grad_(True)
+    ref = pat.attention_reference(xr, H, kv)
+    ref.backward(ct.float())
+    assert _rel(out, ref) <= TOL
+    assert _rel(xk.grad, xr.grad) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("D", [1, 7, 8, 16, 20, 48, 96, 100, 112, 128])
+def test_attention_hm_kernels_at_every_width(gen, D, masked, dtype):
+    """K5/K6 at head widths up to 128 (16-byte rows and not, every tile
+    width, the split dk/dv tiles of the 128 tile) on the views of a packed qkv,
+    against the plain versions in float32; D > 128 raises."""
+    B, N, H = 2, 91, 3
+    x = torch.randn((B, N, 3 * H * D), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, N, H, D), generator=gen, device="cuda").to(dtype)
+    kv = None
+    if masked:
+        kv = torch.rand((B, N), generator=gen, device="cuda") > 0.3
+        kv[:, 0] = True
+    q, k, v = x.view(B, N, 3, H, D).unbind(2)
+    out, stats = pat.attention_hm_fwd_kernel(q, k, v, kv)
+    grads = pat.attention_hm_bwd_kernel(q, k, v, out, stats, do, kv)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v)]
+    assert _rel(out, pat.attention_hm_reference(*f, kv)) <= TOL
+    for got, want in zip(grads, pat.attention_hm_bwd_reference(
+            *f, do.float(), kv), strict=True):
+        assert _rel(got, want) <= TOL
+    wide = torch.zeros((B, N, H, 136), device="cuda", dtype=dtype)
+    with pytest.raises(ValueError, match="head dims"):
+        pat.attention_hm_fwd_kernel(wide, wide, wide)
+
+
+def test_fbank_and_transform_on_the_card(gen):
+    """``kaldi_fbank`` on the card against the float64 NumPy version, and
+    the train transform (finetune augmentations) on the card against the
+    CPU from the same draws: masks exact, values within 5e-3."""
+    import numpy as np
+
+    from avsiam_tpu_torch.configs import AudioConfig
+    from avsiam_tpu_torch.data.dataset import make_train_transform
+    from avsiam_tpu_torch.ops import augment as aug
+    from avsiam_tpu_torch.ops.fbank import kaldi_fbank, kaldi_fbank_np
+    wav = (np.random.RandomState(0).randn(32000) * 0.1).astype(np.float32)
+    got = kaldi_fbank(torch.from_numpy(wav).cuda()).cpu().numpy()
+    np.testing.assert_allclose(got, kaldi_fbank_np(wav), atol=5e-3, rtol=5e-4)
+    cfg = AudioConfig(num_mel_bins=64, target_length=256, freqm=24, timem=48,
+                      mixup=0.5, noise=True)
+    B, n = 4, 41600
+    w = torch.randn((B, n), generator=gen, device="cuda") * 0.05
+    frames = torch.randint(0, 255, (B, 1, 32, 32, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.rand((B, 5), generator=gen, device="cuda")
+    lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    draws = aug.draw_transform(cfg, B, gen)
+    tr = make_train_transform(cfg, im_res=48)
+    out = tr(draws, w, frames, labels, lens)
+    ref = tr(aug.TransformDraws(*(d.cpu() for d in draws)), w.cpu(),
+             frames.cpu(), labels.cpu(), lens.cpu())
+    for a, b in zip(out, ref, strict=True):
+        assert float((a.cpu() - b).abs().max()) <= 5e-3
+
+
+def test_graphed_step_captures_while_another_thread_copies(gen):
+    """The capture is thread-local: a thread that pins host tensors and
+    copies them to the card on its own stream throughout the warm-up,
+    the capture and the replays (as ``device_loader``'s worker does)
+    leaves the graph valid and its metrics finite."""
+    import threading
+
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step)
+    cfg = _depth1_config()
+    state = init_state(cfg, gen)
+    batch = _depth1_batch(gen)
+    step = make_graphed_pretrain_step(cfg)
+    stop, copies = threading.Event(), []
+
+    def copier():
+        side = torch.cuda.Stream()
+        while not stop.is_set():
+            host = torch.randn(1 << 20).pin_memory()
+            with torch.cuda.stream(side):
+                host.to("cuda", non_blocking=True)
+            side.synchronize()
+            copies.append(1)
+
+    thread = threading.Thread(target=copier, daemon=True)
+    thread.start()
+    try:
+        for _ in range(4):
+            state, metrics = step(state, batch, gen, 1e-4)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and len(copies) > 0
+    assert all(math.isfinite(float(x)) for x in metrics.values())
+    assert step.graph is not None

@@ -66,19 +66,35 @@ def test_fused_mlp_matches_jax_pallas(monkeypatch, impl, split, shape):
     summation order differs). The three db1s (K7's from the f32 gh, 'fres'
     and K9's from the cast gh) coincide in float32; the card's tests hold
     each kernel to its own plain version."""
+    _check_fused_mlp(monkeypatch, impl, split, shape, "erf")
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "cheb", "tanh5"])
+@pytest.mark.parametrize("impl,split", [
+    ("fused", False), ("fbwd", False), ("fres", False), ("fused", True)],
+    ids=["fused", "fbwd", "fres", "fused-split"])
+def test_fused_mlp_gelu_forms_match_jax_pallas(monkeypatch, impl, split,
+                                               gelu):
+    """``test_fused_mlp_matches_jax_pallas`` under the GELU forms the MLP
+    kernels run as asked ('erf' runs as 'ans'), at 300 rows: forward to
+    1e-5, gradients to 1e-4."""
+    _check_fused_mlp(monkeypatch, impl, split, (300,), gelu)
+
+
+def _check_fused_mlp(monkeypatch, impl, split, shape, gelu):
     if split:
         monkeypatch.setenv("AVSIAM_MLP_BWD", "split")
     p = _inputs(shape, seed=sum(shape))
 
     def jloss(*args):
-        out = jax_fused_mlp(*args, gelu="erf", impl=impl)
+        out = jax_fused_mlp(*args, gelu=gelu, impl=impl)
         return jnp.sum(out * p["ct"]), out
 
     (_, jout), jgrads = jax.value_and_grad(
         jloss, argnums=tuple(range(5)), has_aux=True)(
             *(jnp.asarray(p[n]) for n in NAMES))
     leaves = {n: _port_leaf(p, n) for n in NAMES}
-    out = pmlp.fused_mlp(*(leaves[n] for n in NAMES), gelu="erf", impl=impl)
+    out = pmlp.fused_mlp(*(leaves[n] for n in NAMES), gelu=gelu, impl=impl)
     (out * torch.from_numpy(p["ct"])).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
                                rtol=1e-5, atol=1e-5)
@@ -166,10 +182,10 @@ def test_bf16_saved_hidden_backward_matches_jax_pallas(shape, form):
             assert (got[n] != want).mean() <= 0.01, n
 
 
-def _jax_mlp(impl, x, seed):
+def _jax_mlp(impl, x, seed, gelu="erf"):
     """A JAX ``Mlp`` with perturbed (nonzero) biases: (params, output, the
     gradients of x and the params under a fixed cotangent)."""
-    m = JaxMlp(D, H, jnp.float32, "erf", impl)
+    m = JaxMlp(D, H, jnp.float32, gelu, impl)
     params = m.init(jax.random.PRNGKey(seed), x)["params"]
     params = jax.tree_util.tree_map(
         lambda a: a + 0.1 * jax.random.normal(jax.random.PRNGKey(a.size),
@@ -186,8 +202,8 @@ def _jax_mlp(impl, x, seed):
     return jax.device_get(params), out, grads, ct
 
 
-def _port_mlp(impl, params, dtype=torch.float32):
-    mlp = players.Mlp(D, H, dtype, "erf", "cpu", impl)
+def _port_mlp(impl, params, dtype=torch.float32, gelu="erf"):
+    mlp = players.Mlp(D, H, dtype, gelu, "cpu", impl)
     mlp.load_state_dict(params_from_jax(params), strict=True)
     return mlp
 
@@ -197,9 +213,23 @@ def test_mlp_every_impl_matches_jax(impl):
     """``Mlp(impl)`` against the JAX ``Mlp(impl)`` on the CPU ('auto' is
     'dense' there in both, 'lnfres' is 'fres'): output to 1e-5, gradients of
     the input and of all four parameters to 1e-4."""
+    _check_mlp_impl(impl, "erf")
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "cheb", "tanh5"])
+@pytest.mark.parametrize("impl", players.MLP_IMPLS)
+def test_mlp_every_impl_every_gelu_form_matches_jax(impl, gelu):
+    """``test_mlp_every_impl_matches_jax`` under the other GELU forms of
+    ``ViTConfig.gelu`` ('ans' is 'erf''s kernel form): output to 1e-5,
+    gradients to 1e-4."""
+    _check_mlp_impl(impl, gelu)
+
+
+def _check_mlp_impl(impl, gelu):
     x = np.random.RandomState(4).randn(3, 45, D).astype(np.float32)
-    params, jout, (jgp, jgx), ct = _jax_mlp(impl, jnp.asarray(x), seed=2)
-    mlp = _port_mlp(impl, params)
+    params, jout, (jgp, jgx), ct = _jax_mlp(impl, jnp.asarray(x), seed=2,
+                                            gelu=gelu)
+    mlp = _port_mlp(impl, params, gelu=gelu)
     xt = torch.from_numpy(x).requires_grad_(True)
     out = mlp(xt)
     (out * torch.from_numpy(np.array(ct))).sum().backward()

@@ -142,27 +142,72 @@ def test_chunk_sizes_match_jax(batch):
 
 
 # ------------------------------------------------------------------- gelu
-@pytest.mark.parametrize("impl", ["erf", "ans"])
+@pytest.mark.parametrize("impl", pgelu.GELU_IMPLS)
 def test_gelu_matches_jax(impl):
-    """float32 GELU and its derivative; 'erf' to 1e-6 (erf polynomial
-    differences), 'ans' to 1e-6 (same formula, f32 reassociation)."""
+    """float32 GELU, its derivative and the (act, grad) pair of every form
+    against the JAX package: values to 1e-6 (erf polynomial differences,
+    f32 reassociation). The derivatives of 'tanh' and 'tanh5' to 5e-6: the
+    JAX CPU tanh saturates to exactly 1 from about 7.9 on, where torch's
+    is 1 - 2^-22, and the derivative's 0.5 x (1 - t^2) (...) term carries
+    that as up to 4e-6 at |x| near 5."""
     x = np.linspace(-8, 8, 4001, dtype=np.float32)
+    gtol = 5e-6 if impl in ("tanh", "tanh5") else 1e-6
     np.testing.assert_allclose(pgelu.gelu_f32(T(x), impl).numpy(),
                                np.asarray(jgelu.gelu_f32(x, impl)), atol=1e-6)
+    np.testing.assert_allclose(pgelu.gelu_grad_f32(T(x), impl).numpy(),
+                               np.asarray(jgelu.gelu_grad_f32(x, impl)),
+                               atol=gtol)
     act, grad = pgelu.gelu_act_grad_f32(T(x), impl)
     jact, jgrad = jgelu.gelu_act_grad_f32(x, impl)
     np.testing.assert_allclose(act.numpy(), np.asarray(jact), atol=1e-6)
-    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), atol=1e-6)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), atol=gtol)
+
+
+def _bf16_grid():
+    """Every finite bfloat16 value, as float32."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    x = bits.view(np.float32)
+    return x[np.isfinite(x)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", pgelu.GELU_IMPLS)
+def test_dense_gelu_matches_jax_in_its_dtype(impl, dtype):
+    """The dense route's ``gelu`` against the JAX ``gelu`` in x's dtype, in
+    the JAX operation order, over every finite bf16 value (and those values
+    in float32). bfloat16: each output within one bf16 ulp of JAX's (ulps of
+    the larger magnitude) or within 1e-6 of it, the float32 tolerance: two
+    f32 tanh implementations part in 'tanh5''s cancelling tail (1 + tanh
+    near -1, where the form's own erf error is 3e-6), and XLA on the CPU
+    flushes subnormal intermediates to zero. float32: within 1e-6 relative
+    or absolute (erfc and tanh implementations differ by an ulp or two)."""
+    x = _bf16_grid()
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(jgelu.gelu(jnp.asarray(x).astype(jdt), impl)
+                      .astype(jnp.float32))
+    got = pgelu.gelu(T(x).to(getattr(torch, dtype)), impl).float().numpy()
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    mag = np.maximum(np.abs(got), np.abs(want))
+    if dtype == "bfloat16":
+        mag = np.maximum(mag, np.finfo(np.float32).tiny)
+        tol = np.maximum(2.0 ** (np.floor(np.log2(mag)) - 7), 1e-6)
+    else:
+        tol = np.maximum(1e-6 * mag, 1e-6)
+    assert (np.abs(got - want) <= tol).all()
 
 
 def test_kernel_gelu_is_ans_within_erf_gap():
     from avsiam_tpu.ops.mlp import _kernel_impl
     assert pgelu.kernel_impl("erf") == _kernel_impl("erf") == "ans"
+    for impl in ("tanh", "ans", "cheb", "tanh5"):
+        assert pgelu.kernel_impl(impl) == _kernel_impl(impl) == impl
     x = T(np.linspace(-8, 8, 4001, dtype=np.float32))
     gap = (pgelu.gelu_f32(x, "ans") - pgelu.gelu_f32(x, "erf")).abs().max()
     assert gap <= 1.5e-7 * 8 + 1e-6  # |x| * max erf error, plus f32 rounding
+    with pytest.raises(ValueError):  # a form neither package takes
+        pgelu.gelu_f32(x, "relu")
     with pytest.raises(ValueError):
-        pgelu.gelu_f32(x, "tanh")
+        pgelu.kernel_impl("relu")
 
 
 # -------------------------------------------------------------- layernorm

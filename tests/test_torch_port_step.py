@@ -58,22 +58,25 @@ B, LR = 6, 1e-3
 _JAX_APPLY = jpretrain._apply
 
 
-def _run(jax_mlp, port_mlp, n_steps, vit=None, ln_pallas=False):
+def _run(jax_mlp, port_mlp, n_steps, vit=None, ln_pallas=False,
+         batches=None):
     """``n_steps`` steps of both packages, with every intermediate the
     tests read; ``jax_mlp`` and ``port_mlp`` set each model's impls (the JAX
     side's attention is 'xla' unless they say otherwise), ``vit`` overrides
-    ViT fields, ``ln_pallas`` sets ``AVSIAM_LN=pallas`` for both."""
+    ViT fields, ``ln_pallas`` sets ``AVSIAM_LN=pallas`` for both.
+    ``batches`` ((audio, frames) of the JAX step, the same of the port's, as
+    float32 numpy) replaces the shared random batch."""
     mp = pytest.MonkeyPatch()
     if ln_pallas:
         mp.setattr(jlayernorm, "LN_IMPL", "pallas")
         mp.setenv("AVSIAM_LN", "pallas")
     try:
-        return _run_steps(mp, jax_mlp, port_mlp, n_steps, vit)
+        return _run_steps(mp, jax_mlp, port_mlp, n_steps, vit, batches)
     finally:
         mp.undo()
 
 
-def _run_steps(mp, jax_mlp, port_mlp, n_steps, vit):
+def _run_steps(mp, jax_mlp, port_mlp, n_steps, vit, batches=None):
     jcfg, pcfg = configs(batch=B, lr=LR, vit=vit)
     jcfg = jc.replace(jcfg, model=jc.replace(
         jcfg.model, **dict(dict(attn_impl="xla"), **jax_mlp)))
@@ -98,7 +101,10 @@ def _run_steps(mp, jax_mlp, port_mlp, n_steps, vit):
     jstep = jax_step_fn(model, jcfg)
     pstep = make_pretrain_step(pcfg)
     step_rng = jax.random.PRNGKey(11)
-    at, vt = torch.from_numpy(a), torch.from_numpy(v)
+    # the initial state and the draws above take the shared batch's shapes
+    # alone; the steps take the given batches
+    (ja, jv), (pa, pv) = batches if batches is not None else ((a, v), (a, v))
+    at, vt = torch.from_numpy(pa), torch.from_numpy(pv)
     jstate = _fresh(state0)
     steps = []
     for s in range(n_steps):
@@ -118,11 +124,11 @@ def _run_steps(mp, jax_mlp, port_mlp, n_steps, vit):
             # a JAX step at lr 0 leaves the parameters as they are for its
             # second pass: it hands over each pass's gradient at params0
             # without compiling anything beyond the step itself
-            jstep(_fresh(state0), (a, v), step_rng, jnp.float32(0.0))
+            jstep(_fresh(state0), (ja, jv), step_rng, jnp.float32(0.0))
             jax.effects_barrier()
-            grads = list(zip(seen[-1], _port_grads(pstate.model, a, v,
+            grads = list(zip(seen[-1], _port_grads(pstate.model, pa, pv,
                                                    draws)))
-        jstate, jm = jstep(jstate, (a, v), step_rng, jnp.float32(LR))
+        jstate, jm = jstep(jstate, (ja, jv), step_rng, jnp.float32(LR))
         pstate, pm = pstep(pstate, (at, vt), None, LR, draws=draws)
         steps.append(dict(jax_metrics=jax.device_get(jm), metrics=pm,
                           jax_params=params_from_jax(jax.device_get(jstate.params)),
