@@ -5,7 +5,9 @@
 //      head, e = exp(s * D^-1/2 + key bias - max), s = q k^T;
 //   K6 _pallas_bwd (_bwd_kernel, _attn_bwd_math): dq, dk, dv.
 // They serve head widths the token-major K1/K2 do not take (ViT-H's D = 80),
-// every D up to 128.
+// every D: up to 128 in the tiles below, above 128 on the wide path
+// (attention_wide.cuh: the products over the head in 64-channel chunks, the
+// outputs cut into channel slices on a grid axis).
 //
 // Layout: q, k and v are [B, N, H, D] tensors that share strides (batch sB,
 // token sN, head D, channel 1), such as the three (3, H, D) slices of the
@@ -49,6 +51,7 @@
 
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -141,12 +144,97 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* key_vali
   return (int)cudaGetLastError();
 }
 
+// The wide path (D > 128): one block per (64-row tile, channel slice) on
+// the x axis, the slice fastest.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+attn_hm_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                        T* __restrict__ out, float* __restrict__ stats, int N, int H, int dh,
+                        long long sB, int sN, float scale) {
+  const int ns = wide_slices(dh, WS_FWD), b = blockIdx.z;
+  const size_t boff = (size_t)b * sB;
+  attn_wide_fwd_body<T, VEC>(q + boff, k + boff, v + boff, sN, key_valid,
+                             out + (size_t)b * N * H * dh, H * dh, stats, b, blockIdx.y,
+                             blockIdx.x / ns * BQ, blockIdx.x % ns * WS_FWD, N, H, dh, scale);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+attn_hm_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                       const T* __restrict__ out, const T* __restrict__ dout,
+                       const float* __restrict__ stats, float* __restrict__ delta,
+                       T* __restrict__ dq, int N, int H, int dh, long long sB, int sN,
+                       float scale) {
+  const int ns = wide_slices(dh, WS_DQ), b = blockIdx.z, C = H * dh;
+  const size_t boff = (size_t)b * sB, goff = (size_t)b * N * C;
+  attn_wide_dq_body<T, VEC>(q + boff, k + boff, v + boff, sN, out + goff, dout + goff, C, stats,
+                            delta, key_valid, dq + goff, C, b, blockIdx.y,
+                            blockIdx.x / ns * BQ, blockIdx.x % ns * WS_DQ, N, H, dh, scale);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+attn_hm_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                         const T* __restrict__ dout, const float* __restrict__ stats,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int N, int H, int dh, long long sB, int sN,
+                         float scale) {
+  const int ns = wide_slices(dh, WS_DKDV), b = blockIdx.z, C = H * dh;
+  const size_t boff = (size_t)b * sB, goff = (size_t)b * N * C;
+  attn_wide_dkdv_body<T, VEC>(q + boff, k + boff, v + boff, sN, dout + goff, C, stats, delta,
+                              key_valid, dk + goff, dv + goff, C, b, blockIdx.y,
+                              blockIdx.x / ns * BK, blockIdx.x % ns * WS_DKDV, N, H, dh, scale);
+}
+
+template <typename T, bool VEC>
+int launch_wide_fwd(const void* q, const void* k, const void* v, const void* key_valid,
+                    void* out, void* stats, int B, int N, int H, int dh, long long sB, int sN,
+                    float scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem(attn_hm_wide_fwd_kernel<T, VEC>, WideFwdSmem::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BQ - 1) / BQ * wide_slices(dh, WS_FWD), H, B);
+  attn_hm_wide_fwd_kernel<T, VEC><<<grid, THREADS, WideFwdSmem::BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out),
+      static_cast<float*>(stats), N, H, dh, sB, sN, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int launch_wide_bwd(const void* q, const void* k, const void* v, const void* key_valid,
+                    const void* out, const void* dout, const void* stats, void* delta,
+                    void* dq, void* dk, void* dv, int B, int N, int H, int dh, long long sB,
+                    int sN, float scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem(attn_hm_wide_dq_kernel<T, VEC>, WideDqSmem::BYTES);
+  if (err == cudaSuccess)
+    err = allow_smem(attn_hm_wide_dkdv_kernel<T, VEC>, WideDkvSmem::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_q((N + BQ - 1) / BQ * wide_slices(dh, WS_DQ), H, B);
+  attn_hm_wide_dq_kernel<T, VEC><<<grid_q, THREADS, WideDqSmem::BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(key_valid), static_cast<const T*>(out),
+      static_cast<const T*>(dout), static_cast<const float*>(stats),
+      static_cast<float*>(delta), static_cast<T*>(dq), N, H, dh, sB, sN, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_kv((N + BK - 1) / BK * wide_slices(dh, WS_DKDV), H, B);
+  attn_hm_wide_dkdv_kernel<T, VEC><<<grid_kv, THREADS, WideDkvSmem::BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(key_valid), static_cast<const T*>(dout),
+      static_cast<const float*>(stats), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), N, H, dh, sB, sN, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // CALL(T, tile width, VEC) for the dtype and every head width D from 1 to
 // 128, in the tiles of the widths the models use: 16, 32, 64, 80 (ViT-H)
-// and 128, the least one that holds D. VEC where every row read and written
-// takes 16-byte pieces.
+// and 128, the least one that holds D; WIDE(T, VEC) above 128. VEC where
+// every row read and written takes 16-byte pieces.
 #define HM_WIDTHS(CALL, T, VEC)                   \
   switch ((D + 15) / 16) {                        \
     case 1: return CALL(T, 16, VEC);              \
@@ -159,8 +247,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* key_vali
     case 8: return CALL(T, 128, VEC);             \
     default: return (int)cudaErrorInvalidValue;  \
   }
-#define HM_DISPATCH(CALL, VEC16)                                                 \
-  if (D <= 0 || D > 128) return (int)cudaErrorInvalidValue;                      \
+#define HM_DISPATCH(CALL, WIDE, VEC16)                                           \
+  if (D <= 0) return (int)cudaErrorInvalidValue;                                 \
+  if (D > 128) {                                                                 \
+    if (dtype == 1 && (VEC16)) return WIDE(bf16, true);                          \
+    if (dtype == 1) return WIDE(bf16, false);                                    \
+    if (dtype == 0) return WIDE(float, false);                                   \
+    return (int)cudaErrorInvalidValue;                                           \
+  }                                                                              \
   if (dtype == 1 && (VEC16)) HM_WIDTHS(CALL, bf16, true)                         \
   if (dtype == 1) HM_WIDTHS(CALL, bf16, false)                                   \
   if (dtype == 0) HM_WIDTHS(CALL, float, false)                                  \
@@ -174,7 +268,7 @@ static inline bool aligned16(std::initializer_list<const void*> ptrs) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [B, N, H, D] with strides
-// (sB, sN, D, 1), in elements, D <= 128; key_valid: [B, N] bytes or null;
+// (sB, sN, D, 1), in elements, any D > 0; key_valid: [B, N] bytes or null;
 // out: contiguous [B, N, H, D]; stats: [B, H, N, 2] f32 (row max, 1/denom).
 extern "C" int avsiam_attn_hm_fwd(const void* q, const void* k, const void* v,
                                   const void* key_valid, void* out, void* stats, int B, int N,
@@ -183,8 +277,11 @@ extern "C" int avsiam_attn_hm_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HM_FWD(T, DP, VEC) \
   launch_fwd<T, DP, VEC>(q, k, v, key_valid, out, stats, B, N, H, D, sB, (int)sN, scale, s)
+#define HM_WIDE_FWD(T, VEC) \
+  launch_wide_fwd<T, VEC>(q, k, v, key_valid, out, stats, B, N, H, D, sB, (int)sN, scale, s)
   const bool vec = D % 8 == 0 && sN % 8 == 0 && sB % 8 == 0 && aligned16({q, k, v, out});
-  HM_DISPATCH(HM_FWD, vec)
+  HM_DISPATCH(HM_FWD, HM_WIDE_FWD, vec)
+#undef HM_WIDE_FWD
 #undef HM_FWD
 }
 
@@ -200,8 +297,12 @@ extern "C" int avsiam_attn_hm_bwd(const void* q, const void* k, const void* v,
 #define HM_BWD(T, DP, VEC)                                                                \
   launch_bwd<T, DP, VEC>(q, k, v, key_valid, out, dout, stats, delta, dq, dk, dv, B, N, H, D, \
                          sB, (int)sN, scale, s)
+#define HM_WIDE_BWD(T, VEC)                                                                 \
+  launch_wide_bwd<T, VEC>(q, k, v, key_valid, out, dout, stats, delta, dq, dk, dv, B, N, H, D, \
+                          sB, (int)sN, scale, s)
   const bool vec = D % 8 == 0 && sN % 8 == 0 && sB % 8 == 0 &&
                    aligned16({q, k, v, out, dout, dq, dk, dv});
-  HM_DISPATCH(HM_BWD, vec)
+  HM_DISPATCH(HM_BWD, HM_WIDE_BWD, vec)
+#undef HM_WIDE_BWD
 #undef HM_BWD
 }

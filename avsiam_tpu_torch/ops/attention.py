@@ -11,8 +11,8 @@ the CUDA kernels of ``csrc/attention.cu`` and ``csrc/attention_hm.cu``:
   token-major kernel (``tm_kernel_takes``);
 - K5 ``attention_hm_fwd_kernel`` (``_pallas_fwd``) and K6
   ``attention_hm_bwd_kernel`` (``_pallas_bwd``): head-major, for the widths
-  K1 does not take (ViT-H's D=80), every D up to ``HM_MAX_HEAD_DIM``. A
-  D > 128 raises on the card, where the JAX head-major kernel takes any D.
+  K1 does not take (ViT-H's D=80), every D, as the JAX head-major kernel
+  (above 128 on the kernels' wide path, ``csrc/attention_wide.cuh``).
   K5 saves each row's softmax max and
   1/denominator, as K1 does, and K6 reads them with the output: the JAX
   VJP keeps only q, k and v and recomputes the softmax, the port's kernels
@@ -43,7 +43,6 @@ from avsiam_tpu_torch import kernels
 NEG_INF = -1e30
 LANE = 128
 ATTN_IMPLS = ("auto", "pallas", "xla")
-HM_MAX_HEAD_DIM = 128  # K5/K6 take every head width up to it
 
 
 def tm_kernel_takes(D: int) -> bool:
@@ -60,8 +59,8 @@ def attention_route(impl: str, C: int, num_heads: int) -> str:
     (K1/K2, which take every such D) under 'pallas' and 'auto'; elsewhere
     'head_major' (K5/K6) under 'pallas' and 'xla' under 'auto' (the JAX
     'auto' is XLA there); 'xla' under 'xla'. On a CPU tensor every route
-    takes its plain version; on the card K5/K6 refuse a D above
-    ``HM_MAX_HEAD_DIM``."""
+    takes its plain version; on the card the kernels, which take every D
+    of their routes."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not in {ATTN_IMPLS}")
     D = C // num_heads
@@ -290,15 +289,14 @@ def attention_hm_bwd_stats_reference(q, k, v, out, stats, do,
 
 def _hm_geometry(q, k, v, key_valid):
     """Validate a K5/K6 call; returns (B, N, H, D, batch stride, row
-    stride): the width rule first, then the device."""
+    stride): the shape and dtype first, then the device."""
     if q.dtype not in kernels.DTYPE_CODES or q.dim() != 4:
         raise ValueError(f"q must be [B, N, H, D] float32 or bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     B, N, H, D = q.shape
-    if not 0 < D <= HM_MAX_HEAD_DIM or B == 0 or N == 0:
-        raise ValueError(f"head-major attention kernel takes head dims up to "
-                         f"{HM_MAX_HEAD_DIM} and a non-empty batch, got "
-                         f"{tuple(q.shape)}")
+    if D == 0 or B == 0 or N == 0:
+        raise ValueError(f"head-major attention kernel takes a non-empty "
+                         f"batch of non-empty heads, got {tuple(q.shape)}")
     if q.device.type != "cuda":
         raise ValueError(f"head-major attention kernel needs a CUDA tensor, "
                          f"got {q.device}")

@@ -1,7 +1,7 @@
-"""The two-pass pretrain step of the port.
+"""The two-pass pretrain step of the port, and its validation forward.
 
-Counterpart of ``avsiam_tpu/train/pretrain.py:init_state`` and
-``make_pretrain_step``. Per batch:
+Counterpart of ``avsiam_tpu/train/pretrain.py:init_state``,
+``make_pretrain_step``, ``make_eval_step`` and ``lr_for_epoch``. Per batch:
 
 - pass 1: forward with (mae=0, contrast=1), backward, Adam #1 step over the
   contrastive pass's touched parameters;
@@ -17,7 +17,10 @@ One body (``pretrain_step_body``) runs two ways: eagerly
 (``make_graphed_pretrain_step``), the counterpart of the JAX package's
 ``jax.jit(step)``. Both draw the passes' masks from the caller's generator
 before the body, in the order the eager forwards draw them, so the two give
-the same results from the same seed.
+the same results from the same seed. ``step_generator`` gives the generator
+of step n, keyed on (seed, n) as the JAX step keys its masks on
+``fold_in(rng, state.step)``: a resumed run draws what the run it continues
+would have drawn.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from avsiam_tpu_torch import kernels
 from avsiam_tpu_torch.configs import CAVMAEConfig, PretrainConfig
+from avsiam_tpu_torch.data.pipeline import batch_generator_seed
 from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain, MaskDraws, draw_masks
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import (lr_tensor, masked_torch_adam,
@@ -267,6 +271,43 @@ def make_graphed_pretrain_step(cfg: PretrainConfig) -> _GraphedPretrainStep:
     may copy the next batch to the card while it runs
     (``data/pipeline.py:device_loader``)."""
     return _GraphedPretrainStep(cfg)
+
+
+def step_generator(seed: Optional[int], n: int, device) -> torch.Generator:
+    """The generator of step n's draws, on ``device``. With a seed: seeded
+    from (seed, n), the counterpart of ``jax.random.fold_in(PRNGKey(seed),
+    n)`` with n the state's step count. Without one: seeded with n itself,
+    the counterpart of ``PRNGKey(n)``, which keys the eval step's batch
+    n."""
+    gen = torch.Generator(device=device)
+    return gen.manual_seed(int(n) if seed is None
+                           else batch_generator_seed(seed, n))
+
+
+def make_eval_step(cfg: PretrainConfig):
+    """Returns eval_step(model, batch, generator, draws=None) -> metrics:
+    the validation forward (traintest_cavmae_base.py:381-424), once, under
+    ``torch.no_grad()``, with the config's loss weights
+    (``cfg.mae_loss_weight``, ``cfg.contrast_loss_weight``) and the draws
+    of ``draws`` or else from ``generator``. The metrics (loss, loss_mae,
+    loss_mae_a, loss_mae_v, loss_c, c_acc) are device tensors. On the card
+    the forward runs the step's forward kernels (K1 and K3 in the recipe's
+    configuration)."""
+
+    def eval_step(model: CAVMAEPretrain, batch,
+                  generator: Optional[torch.Generator],
+                  draws: Optional[MaskDraws] = None):
+        a, v = batch
+        with torch.no_grad():
+            out = model(a, v, cfg.masking_ratio_a, cfg.masking_ratio,
+                        mae_loss_weight=cfg.mae_loss_weight,
+                        contrast_loss_weight=cfg.contrast_loss_weight,
+                        mask_mode=cfg.mask_mode, draws=draws,
+                        generator=generator)
+        return {"loss": out[0], "loss_mae": out[1], "loss_mae_a": out[2],
+                "loss_mae_v": out[3], "loss_c": out[4], "c_acc": out[7]}
+
+    return eval_step
 
 
 def lr_for_epoch(cfg: PretrainConfig, epoch_1indexed: int) -> float:

@@ -29,8 +29,9 @@ Phases (any failure raises and the script exits non-zero):
    'tanh5'), at phase A's largest encoder rows, each timed, and in
    float32 storage K8's act and gh from K4's hpre within 1e-4 of the asked
    form and nearer it than any other form float32 tells apart; K1/K2 at head
-   widths 8, 16 and 128 (C 128, 128, 256) and K5/K6 at 8, 16, 48 and 128,
-   with and without masked keys.
+   widths 8, 16 and 128 (C 128, 128, 256) and K5/K6 at 8, 16, 48 and 128
+   and, on their wide path, 136, 192 and 256, with and without masked
+   keys; K5/K6 at D 192 and 256 also timed beside SDPA.
    Then the data layer on the card: ``kaldi_fbank`` against
    ``tests/fixtures/fbank_golden.npz`` over the golden waveforms (atol
    5e-3, rtol 5e-4), and the train transform under the finetune recipes'
@@ -87,6 +88,14 @@ Phases (any failure raises and the script exits non-zero):
    host's assembly of one batch, and the device time of its copy to the
    card, the draws and the transform, are timed alone with the kernel
    checks.
+   CLI64. The port's runner (``python -m avsiam_tpu_torch.cli.pretrain``'s
+   ``main``, in this process) on the AudioSet pretrain recipe's command
+   line (``recipes/pretrain_audioset.sh``; 'synthetic' clips, 8 steps an
+   epoch, a 128-clip validation index): (a) epoch 1, (b) ``--resume`` to
+   epoch 2, (c) epochs 1-2 straight; the launch counts, finite losses,
+   resumed against straight within 1e-5 (the same bits expected), one lr
+   tensor for both Adams after the restore, the checkpoints loading back
+   (``run_cli``).
 4. reference: for configurations A-E, P64 and H64, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
@@ -248,9 +257,10 @@ class Shapes(NamedTuple):
     masked: set  # the attention shapes that run with a key mask
 
 
-def main_path_shapes(cfg, batch: int) -> Shapes:
+def main_path_shapes(cfg, batch: int, mae: bool = True) -> Shapes:
     """Distinct (kernel-call) shapes of one pretrain step and their calls per
-    step, in the configuration's contrastive form: each block call's
+    step (``mae=False``: of its contrastive pass alone), in the
+    configuration's contrastive form: each block call's
     attention and MLP sub-block, and the LayerNormFP32 calls (each block
     call's norm1, and its norm2 unless K3 folds it in; the encoders' final
     norms and the decoder's). Pass 1 by form: 'exact' each chunk at its keep
@@ -330,6 +340,8 @@ def main_path_shapes(cfg, batch: int) -> Shapes:
                           "fres" if impl == "lnfres" else impl), v.depth)
             for r in rows:  # norm1, norm2 and the final norm, routed
                 count(s.ln, (r, C), 2 * v.depth + 1)
+    if not mae:
+        return s
     ka = len_keep_for(La, m.mae_mask_ratio)  # pass 2: MAE
     kv = len_keep_for(Lv, m.mae_mask_ratio)
     for n in (ka, kv):
@@ -401,6 +413,24 @@ def expected_launches(cfg, shapes: Shapes, split: bool, ln_pallas: bool,
     if ln_pallas:
         out["ln_bwd"] = n_steps * sum(c for (_, C), c in shapes.ln.items()
                                       if C % 128 == 0)
+    return out
+
+
+def forward_launches(cfg, shapes: Shapes):
+    """Each kernel's launches of one forward, no backward, over ``shapes``:
+    attention's forward kernel by ``attention_route``, the MLP's forward
+    kernels (the eval step's forward)."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.ops.attention import attention_route
+    out = {k: 0 for k in kernels.LAUNCHES}
+    for (_, _, heads, hd), calls in shapes.attn.items():
+        route = attention_route(cfg.model.attn_impl, heads * hd, heads)
+        for k in ATTN_KERNELS[route][:1]:
+            out[k] += calls
+    for row in mlp_shape_launches(shapes.mlp, False).values():
+        for k, n in row.items():
+            if k in MLP_FWD_KERNELS:
+                out[k] += n
     return out
 
 
@@ -928,10 +958,12 @@ def check_attention_hm(shapes, extra, gen):
 
 
 # head widths no step phase runs: (b, N, H, D), K1/K2 at D | 128 with C a
-# multiple of 128, K5/K6 up to 128 (K1/K2 also take the first and last)
+# multiple of 128, K5/K6 up to 128 in the tiles and above on the wide path
+# (K1/K2 also take the first and the fourth)
 WIDTHS_TM = ((2, 512, 16, 8), (2, 512, 8, 16), (2, 512, 2, 128))
 WIDTHS_HM = ((2, 512, 16, 8), (2, 512, 8, 16), (2, 512, 4, 48),
-             (2, 512, 2, 128))
+             (2, 512, 2, 128), (2, 512, 4, 136), (2, 512, 4, 192),
+             (2, 512, 3, 256))
 
 
 def check_widths(gen):
@@ -1548,10 +1580,12 @@ def main(argv=None) -> int:
                       if k[1] == 1280})
     ln_rows = check_ln_bwd(ln_shapes, gen)
     e = phases["E"]
+    # and K5/K6 above head width 128 (the wide path), timed beside SDPA
     hm_rows = check_attention_hm(
         head_major_shapes(e["cfg"], e["shapes"][0]),
         [((2, 177, 16, 80), True), ((2, 196, 12, 64), False),
-         ((2, 177, 12, 64), True)], gen)
+         ((2, 177, 12, 64), True), ((2, 512, 4, 192), False),
+         ((2, 512, 3, 256), False)], gen)
     # K1/K2 at phase P64's masked encoder shapes, under the keep masks
     # 'padded' draws, timed beside SDPA with the same mask
     p64 = phases["P64"]
@@ -1564,7 +1598,8 @@ def main(argv=None) -> int:
     # rows; K1/K2 and K5/K6 at the head widths no step phase runs
     gelu_rows = check_gelu_forms(max(k for k in mlp_shapes if k[1] == 768),
                                  gen)
-    log("phase widths: K1/K2 at D 8, 16, 128; K5/K6 at D 8, 16, 48, 128")
+    log("phase widths: K1/K2 at D 8, 16, 128; K5/K6 at D 8, 16, 48, 128, "
+        "136, 192, 256")
     width_rows = check_widths(gen)
     log("phase data: the fbank and the train transform on the card, PD64's "
         "data pieces timed")
@@ -1598,6 +1633,8 @@ def main(argv=None) -> int:
         "PD64", p64["cfg"], expected_launches(p64["cfg"], p64["shapes"],
                                               False, False, 1),
         args.seed, report)
+    launches["CLI64"] = run_cli("CLI64", args.seed, report)
+    log(f"runner phase done at {time.time() - t0:.0f} s")
     report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
     for label in REFERENCE_PHASES:
         p = phases[label]
@@ -1617,12 +1654,16 @@ def main(argv=None) -> int:
         for label, r in report["steps"].items()},
         "eager_vs_graphed_max_rel": {
             k: r["max_rel"] for k, r in report["eager_vs_graphed"].items()},
-        "forms_vs_exact_max_rel": report["forms_vs_exact"]}))
+        "forms_vs_exact_max_rel": report["forms_vs_exact"],
+        "cli64": {k: report["steps"]["CLI64"][k] for k in (
+            "resume_max_rel", "resume_equal", "resume_tensors",
+            "rows_max_rel")}}))
     log(card)
     entries = kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
                              launches)
-    for e in entries:  # the data-fed phase's counts beside the phase's
+    for e in entries:  # the data-fed and runner phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
+        e["cli64_launches"] = launches["CLI64"].get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1969,6 +2010,235 @@ def run_data_fed(label, cfg, per_step, seed, report):
     return launches
 
 
+CLI_STEPS = 8          # --max_steps_per_epoch
+CLI_TRAIN_BATCHES = 10  # the train index: 640 clips, two batches spare
+CLI_VAL_CLIPS = 128     # the --data-val index
+CLI_TOL = 1e-5          # resumed against straight, as graphed against eager
+
+
+def recipe_argv(**paths):
+    """The argument words of ``recipes/pretrain_audioset.sh``'s command
+    line, word for word, its variables (DATA_TRAIN, DATA_VAL, LABEL_CSV,
+    EXP_DIR) replaced by ``paths``."""
+    import re
+    import shlex
+    from pathlib import Path
+    text = (Path(__file__).resolve().parent / "recipes"
+            / "pretrain_audioset.sh").read_text()
+    cmd = text[text.index("python -m avsiam_tpu.cli.pretrain"):]
+    words = shlex.split(cmd.replace("\\\n", " "))[3:]
+    return [re.sub(r"\$(\w+)", lambda m: paths[m.group(1)], w)
+            for w in words if w != "$@"]
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|: 0 for the same values."""
+    got, want = got.detach().float(), want.detach().float()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def state_diffs(got, want) -> dict:
+    """``max_rel`` of each parameter and of both Adams' moments and step
+    counts of two pretrain states, by name."""
+    diffs = {name: max_rel(pg, pw) for (name, pw), pg in zip(
+        want.model.named_parameters(), got.model.parameters(), strict=True)}
+    names = {id(p): n for n, p in want.model.named_parameters()}
+    for which, ow, og in (("adam1", want.opt1, got.opt1),
+                          ("adam2", want.opt2, got.opt2)):
+        if len(ow.state) != len(og.state):
+            raise AssertionError(f"{which}: {len(og.state)} moments against "
+                                 f"{len(ow.state)}")
+        for (pw, stw), (_, stg) in zip(ow.state.items(), og.state.items()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                diffs[f"{which} {key} {names[id(pw)]}"] = max_rel(stg[key],
+                                                                  stw[key])
+    return diffs
+
+
+def run_cli(label, seed, report):
+    """Phase CLI64: the port's runner, ``avsiam_tpu_torch.cli.pretrain.main``,
+    on the AudioSet pretrain recipe's command line word for word
+    (``recipes/pretrain_audioset.sh``: ViT-B, B=64, lr 2e-4, mask 0.25,
+    contrast 1 and MAE 0, noise, target length 1024, 'exact', bf16), on the
+    card through the graphed step. Only these differ: ``--frame_source
+    synthetic`` over an index of 'synthetic' clips, ``--max_steps_per_epoch
+    8``, ``--data-val`` a 128-clip index, ``--n-epochs`` 1 or 2; index,
+    labels and experiment directories are written under
+    ``build/chip_smoke_cli`` and removed at the end.
+
+    Three runs: (a) epoch 1, fresh; (b) ``--resume`` in (a)'s directory to
+    epoch 2; (c) epochs 1-2 straight with ``--save_model False``. Each must
+    write finite losses in every ``result.csv`` row and launch each kernel
+    as often as its steps and validation batches imply (the recipe's
+    per-step counts, and one contrastive forward's per eval batch), counted
+    from 0 just before the run. (b) against (c): every parameter, both
+    Adams' moments and step counts, and each epoch's row within ``CLI_TOL``
+    relative (the same bits are expected); after (b)'s restore both Adams
+    read one lr tensor. ``best_audio_model`` equals the best epoch's
+    ``audio_model``, and ``train_state.2`` restores into a fresh state as
+    (b) left it, bit for bit. Printed per run: steps, clips/s from the
+    loop's ``per_sample_time`` meter, the data share from
+    ``per_sample_data_time``, ms per validation batch, seconds per
+    checkpoint save and per restore, and the peak allocated GiB."""
+    import csv
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.cli import pretrain as cli
+    from avsiam_tpu_torch.configs import PretrainConfig
+    from avsiam_tpu_torch.train.pretrain import init_state
+    from avsiam_tpu_torch.utils import checkpoint as ck
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root))
+    log(f"phase {label}: python -m avsiam_tpu_torch.cli.pretrain on the "
+        f"pretrain recipe's flags, {CLI_STEPS} steps an epoch, "
+        f"{CLI_VAL_CLIPS} validation clips, under {tmp}")
+
+    def index(name, n):
+        path = tmp / name
+        path.write_text(json.dumps({"data": [
+            {"wav": f"synthetic/{name}/{i}.wav", "labels": f"/m/{i % 527}"}
+            for i in range(n)]}))
+        return str(path)
+
+    labels = tmp / "labels.csv"
+    labels.write_text("index,mid,display_name\n" + "".join(
+        f"{i},/m/{i},class {i}\n" for i in range(527)))
+    paths = dict(DATA_TRAIN=index("train.json", 64 * CLI_TRAIN_BATCHES),
+                 DATA_VAL=index("val.json", CLI_VAL_CLIPS),
+                 LABEL_CSV=str(labels))
+    expect = {}
+    runs = {}
+    total = {}
+
+    def run(what, exp, *extra):
+        argv = recipe_argv(**paths, EXP_DIR=str(tmp / exp)) + [
+            "--frame_source", "synthetic", "--max_steps_per_epoch",
+            str(CLI_STEPS), *extra]
+        os.environ.pop("AVSIAM_PLATFORM", None)  # the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.time()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not expect:  # the recipe's configuration, as the runner built it
+            cfg = PretrainConfig(model=out["state"].model.cfg, batch_size=64)
+            expect["step"] = expected_launches(
+                cfg, main_path_shapes(cfg, 64), False, False, 1)
+            expect["eval"] = forward_launches(
+                cfg, main_path_shapes(cfg, 64, mae=False))
+            expect["cfg"] = cfg
+        with open(tmp / exp / "result.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        for r in rows:
+            bad = {k: v for k, v in r.items() if k.startswith(("loss",
+                   "eval_loss")) and v and not math.isfinite(float(v))}
+            if bad:
+                raise AssertionError(f"{label} {what}: non-finite losses in "
+                                     f"result.csv row {r['epoch']}: {bad}")
+        epochs = out["timing"]["epochs"]
+        steps = sum(e["steps"] for e in epochs)
+        evals = sum(e["eval_batches"] for e in epochs)
+        want = {k: steps * n + evals * expect["eval"][k]
+                for k, n in expect["step"].items()}
+        if launches != want:
+            raise AssertionError(f"{label} {what}: launches {launches} != "
+                                 f"{want} ({steps} steps, {evals} eval "
+                                 f"batches)")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        restore = out["timing"]["restore_s"]
+        log(f"  {label} {what}: {wall:.1f} s, peak {peak:.2f} GiB "
+            f"allocated" + ("" if restore is None else
+                             f", restore {restore:.2f} s") + "; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+            + " as expected")
+        for e in epochs:
+            pst, dst = e["per_sample_time"], e["per_sample_data_time"]
+            log(f"    epoch {e['epoch']}: {e['steps']} steps, "
+                f"{1 / pst:.1f} clips/s (per_sample_time {1e3 * pst:.2f} "
+                f"ms), data share {100 * dst / pst:.1f}%; validation "
+                + (f"{1e3 * e['eval_s'] / e['eval_batches']:.1f} ms a batch "
+                   f"x{e['eval_batches']}" if e["eval_batches"] else "none")
+                + "; saves " + ", ".join(f"{n} {t:.2f} s"
+                                         for n, t in e["saves"].items()))
+        runs[what] = dict(wall_s=wall, peak_gib=peak, restore_s=restore,
+                          launches=launches, epochs=epochs, rows=rows,
+                          best_epoch=out["best_epoch"])
+        return out
+
+    try:
+        a = run("a", "a", "--n-epochs", "1")
+        del a
+        b = run("b", "a", "--n-epochs", "2", "--resume")
+        state_b = b["state"]
+        lr = state_b.lr
+        if not all(g["lr"] is lr for opt in (state_b.opt1, state_b.opt2)
+                   for g in opt.param_groups):
+            raise AssertionError(f"{label}: after (b)'s restore the Adams "
+                                 f"read more than one lr tensor")
+        del b
+        c = run("c", "c", "--n-epochs", "2", "--save_model", "False")
+        errs = state_diffs(state_b, c["state"])
+        equal = sum(d == 0.0 for d in errs.values())
+        row_err = max(abs(float(rb[k]) - float(rc[k]))
+                      / max(abs(float(rc[k])), 1e-30)
+                      for rb, rc in zip(runs["b"]["rows"], runs["c"]["rows"],
+                                        strict=True)
+                      for k in rc if k != "epoch")
+        worst = max(errs, key=errs.get)
+        log(f"  {label} resumed (b) against straight (c): {len(errs)} "
+            f"tensors, {equal} equal bit for bit, max rel {errs[worst]:.2e} "
+            f"({worst}); rows max rel {row_err:.2e} (<= {CLI_TOL})")
+        if errs[worst] > CLI_TOL or row_err > CLI_TOL:
+            raise AssertionError(f"{label}: resumed against straight: "
+                                 f"{errs[worst]} at {worst}, rows {row_err}")
+        del c
+        exp_a = str(tmp / "a")
+        best = runs["b"]["best_epoch"]
+        saved = ck.restore_params(exp_a, "best_audio_model")
+        epoch_model = ck.restore_params(exp_a, f"audio_model.{best}")
+        dev = next(state_b.model.parameters()).device
+        fresh = init_state(expect["cfg"], torch.Generator(
+            device=dev).manual_seed(seed + 1), dev)
+        ck.restore_train_state(exp_a, "train_state.2", fresh)
+        same = (saved.keys() == epoch_model.keys()
+                and all(torch.equal(saved[k], epoch_model[k]) for k in saved)
+                and not any(state_diffs(fresh, state_b).values())
+                and fresh.opt1.param_groups[0]["lr"]
+                is fresh.opt2.param_groups[0]["lr"])
+        listing = {d: sorted(os.listdir(tmp / d / "models")) for d in "ac"}
+        log(f"  {label} checkpoints: {listing}; best_audio_model (epoch "
+            f"{best}) and train_state.2 load back bit for bit: {same}")
+        if not same or listing != {
+                "a": ["audio_model.1", "audio_model.2", "best_audio_model",
+                      "train_state.2"],
+                "c": ["best_audio_model", "train_state.2"]}:
+            raise AssertionError(f"{label}: checkpoints {listing}, loaded "
+                                 f"back {same}")
+        del fresh, state_b
+        report.setdefault("steps", {})[label] = dict(
+            batch=64, runs=runs, resume_max_rel=errs[worst],
+            resume_equal=equal, resume_tensors=len(errs), rows_max_rel=row_err,
+            per_step=expect["step"], per_eval=expect["eval"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
     """Two states from one seed: ``n_steps`` eager steps of one against as
     many calls of the graphed step (warm-up, capture, replay) of the other,
@@ -1998,25 +2268,9 @@ def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
         torch.cuda.synchronize()
         runs.append((state, metrics))
     (se, me), (sg, mg) = runs
-    diffs = {}
-
-    def hold(name, got, want):
-        got, want = got.detach().float(), want.detach().float()
-        scale = max(float(want.abs().max()), 1e-30)
-        diffs[name] = float((got - want).abs().max()) / scale
-
-    for i, (e, g) in enumerate(zip(me, mg)):
-        for k in e:
-            hold(f"step {i} {k}", g[k], e[k])
-    for (name, pe), pg in zip(se.model.named_parameters(),
-                              sg.model.parameters()):
-        hold(name, pg, pe)
-    for which, oe, og in (("adam1", se.opt1, sg.opt1),
-                          ("adam2", se.opt2, sg.opt2)):
-        names = {id(p): n for n, p in se.model.named_parameters()}
-        for (pe, ste), (_, stg) in zip(oe.state.items(), og.state.items()):
-            for key in ("exp_avg", "exp_avg_sq", "step"):
-                hold(f"{which} {key} {names[id(pe)]}", stg[key], ste[key])
+    diffs = {f"step {i} {k}": max_rel(g[k], e[k])
+             for i, (e, g) in enumerate(zip(me, mg)) for k in e}
+    diffs.update(state_diffs(sg, se))
     worst = max(diffs, key=diffs.get)
     n_equal = sum(d == 0.0 for d in diffs.values())
     log(f"  {len(diffs)} tensors compared, {n_equal} equal bit for bit; "

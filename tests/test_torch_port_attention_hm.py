@@ -146,17 +146,19 @@ def test_auto_route_is_the_kernel_or_xla(C, H, route):
     assert pat.attention_route("auto", C, H) == route
 
 
-@pytest.mark.parametrize("case", ["d128", "d16", "d8", "d128_off_the_cpu",
-                                  "unknown_impl"])
+@pytest.mark.parametrize("case", ["d128", "d16", "d8", "d256",
+                                  "d128_off_the_cpu", "unknown_impl"])
 def test_pallas_route_refuses_a_width_no_kernel_takes(case):
-    """Under 'pallas' only a kernel refuses a head width: on the CPU the
+    """Under 'pallas' no route refuses a head width: on the CPU the
     token-major route takes its plain version at every D the JAX
     ``attention_qkv`` runs, D=128 (C=256), D=16 (C=128) and D=8 (C=128)
-    here, held against it (its Pallas kernel in interpret mode; float32,
-    with masked keys): output to 1e-5, d(xqkv) to 1e-4. Off the CPU K1/K2
-    take each of those widths; the one width no kernel of the port takes
-    is a head-major D above 128 (D=256 at C=256), which K5 refuses, where
-    the JAX head-major kernel runs it. An unknown ``attn_impl`` raises."""
+    here, and the head-major route D=256 (C=256, one head), each held
+    against it (its Pallas kernel in interpret mode; float32, with masked
+    keys): output to 1e-5, d(xqkv) to 1e-4. Off the CPU K1/K2 take each
+    of the token-major widths, and K5/K6 every head-major D, D=256 at
+    C=256 included, as the JAX head-major kernel does: a tensor on no card
+    is refused for its device alone. What is refused is an unknown
+    ``attn_impl``."""
     if case == "unknown_impl":
         with pytest.raises(ValueError, match="attn_impl"):
             pat.attention_route("cudnn", 768, 12)
@@ -166,11 +168,13 @@ def test_pallas_route_refuses_a_width_no_kernel_takes(case):
         C, H = 256, 1
         assert pat.attention_route("pallas", C, H) == "head_major"
         x = torch.empty((2, 5, 3 * C), device="meta")
-        with pytest.raises(ValueError, match="head dims"):
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
             pat.attention_qkv(x, H, impl="pallas")
         return
-    C, H = {"d16": (128, 8), "d8": (128, 16), "d128": (256, 2)}[case]
-    assert pat.attention_route("pallas", C, H) == "token_major"
+    C, H = {"d16": (128, 8), "d8": (128, 16), "d128": (256, 2),
+            "d256": (256, 1)}[case]
+    assert pat.attention_route("pallas", C, H) == (
+        "head_major" if case == "d256" else "token_major")
     B, N = 2, 37
     rs = np.random.RandomState(C + H)
     x = rs.randn(B, N, 3 * C).astype(np.float32)

@@ -1051,11 +1051,13 @@ def test_attention_kernels_at_every_token_major_width(gen, C, H, masked,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
-@pytest.mark.parametrize("D", [1, 7, 8, 16, 20, 48, 96, 100, 112, 128])
+@pytest.mark.parametrize("D", [1, 7, 8, 16, 20, 48, 96, 100, 112, 128, 136,
+                               192, 256])
 def test_attention_hm_kernels_at_every_width(gen, D, masked, dtype):
-    """K5/K6 at head widths up to 128 (16-byte rows and not, every tile
-    width, the split dk/dv tiles of the 128 tile) on the views of a packed qkv,
-    against the plain versions in float32; D > 128 raises."""
+    """K5/K6 at head widths from 1 to 256 (16-byte rows and not, every tile
+    width, the split dk/dv tiles of the 128 tile, and above 128 the wide
+    path's chunks and slices, a part slice at 136 and 192) on the views of a
+    packed qkv, against the plain versions in float32; D=0 raises."""
     B, N, H = 2, 91, 3
     x = torch.randn((B, N, 3 * H * D), generator=gen, device="cuda").to(dtype)
     do = torch.randn((B, N, H, D), generator=gen, device="cuda").to(dtype)
@@ -1072,9 +1074,9 @@ def test_attention_hm_kernels_at_every_width(gen, D, masked, dtype):
     for got, want in zip(grads, pat.attention_hm_bwd_reference(
             *f, do.float(), kv), strict=True):
         assert _rel(got, want) <= TOL
-    wide = torch.zeros((B, N, H, 136), device="cuda", dtype=dtype)
-    with pytest.raises(ValueError, match="head dims"):
-        pat.attention_hm_fwd_kernel(wide, wide, wide)
+    empty = torch.zeros((B, N, H, 0), device="cuda", dtype=dtype)
+    with pytest.raises(ValueError, match="non-empty heads"):
+        pat.attention_hm_fwd_kernel(empty, empty, empty)
 
 
 def test_fbank_and_transform_on_the_card(gen):
