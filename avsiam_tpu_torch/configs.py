@@ -1,8 +1,9 @@
 """Configuration dataclasses of the port.
 
 Field names and defaults are those of ``avsiam_tpu/configs.py`` (ViTConfig,
-DecoderConfig, CAVMAEConfig, AudioConfig, OptimizerConfig, MeshConfig,
-PretrainConfig), with torch dtypes in place of jnp ones. The port keeps its
+DecoderConfig, CAVMAEConfig, CAVMAEFTConfig, AudioConfig, OptimizerConfig,
+MeshConfig, PretrainConfig, FinetuneConfig), with torch dtypes in place of
+jnp ones. The port keeps its
 own copy so that it imports nothing of the JAX package.
 
 The port takes every value the JAX package takes (``ViTConfig.gelu``:
@@ -102,6 +103,21 @@ class CAVMAEConfig:
 
 
 @dataclass(frozen=True)
+class CAVMAEFTConfig:
+    """Finetune model config (``models/cavmae_ft.py``); the eval forward
+    runs ``num_eval_frames`` frames a clip."""
+
+    vit: ViTConfig = field(default_factory=ViTConfig)
+    label_dim: int = 527
+    embed_double: bool = True
+    num_eval_frames: int = 10
+    dtype: Any = torch.float32
+    attn_impl: str = "auto"
+    mlp_impl: str = "auto"
+    remat_blocks: bool = False
+
+
+@dataclass(frozen=True)
 class AudioConfig:
     """Audio front-end settings, read by the data layer's transforms
     (``data/dataset.py``: the fbank's geometry, SpecAugment's ``freqm`` and
@@ -166,6 +182,41 @@ class PretrainConfig:
     keep_train_states: int = 1
     train_state_every: int = 1
     val_interval: int = 1
+
+
+@dataclass(frozen=True)
+class FinetuneConfig:
+    """Finetune run settings. ``head_lr`` and ``mm_lr`` multiply the rate of
+    the ``mlp_head*`` and ``mm_layer*`` parameter groups, ``freeze_base``
+    gives the rest rate 0; ``ftmode`` is the training forward's mode and
+    ``ftmode_test`` the eval's (None: ``ftmode``). With ``parity_optimizer`` (the
+    default) and ``ftmode`` 'mm_grad' the step's Adam skips every parameter
+    the routed loss does not reach, as torch's Adam does with gradients
+    cleared to None and as the JAX package's gated Adam does; otherwise
+    every parameter steps, the unreached ones on a zero gradient, as the
+    JAX package's plain Adam does (``train/finetune.py``)."""
+
+    model: CAVMAEFTConfig = field(default_factory=CAVMAEFTConfig)
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    opt: OptimizerConfig = field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    batch_size: int = 4
+    n_epochs: int = 15
+    head_lr: float = 100.0
+    mm_lr: float = 100.0
+    freeze_base: bool = False
+    ftmode: str = "mm_grad"
+    ftmode_test: Any = None
+    parity_optimizer: bool = True
+    loss: str = "BCE"  # 'BCE' | 'CE'
+    metrics: str = "mAP"  # 'mAP' | 'acc'
+    label_smooth: float = 0.1
+    n_print_steps: int = 100
+    seed: int = 87
+    exp_dir: str = "./exp/ft"
+    save_model: bool = True
+    keep_train_states: int = 1
+    train_state_every: int = 1
 
 
 def replace(cfg, **kwargs):

@@ -3,14 +3,13 @@
 Counterpart of ``avsiam_tpu/models/variants.py``: the reference's backbones
 (CAV-MAE ViT-B, LARGE, HUGE, CLIP, DINO) differ only in encoder geometry and
 init checkpoint, so they are ``ViTConfig`` presets plus a checkpoint tag;
-'tiny' is the test preset at toy widths. ``finetune_config`` waits for the
-finetune model's config, which the port does not have yet.
+'tiny' is the test preset at toy widths.
 """
 
 from __future__ import annotations
 
-from avsiam_tpu_torch.configs import (CAVMAEConfig, DecoderConfig, ViTConfig,
-                                      replace)
+from avsiam_tpu_torch.configs import (CAVMAEConfig, CAVMAEFTConfig,
+                                      DecoderConfig, ViTConfig, replace)
 
 VIT_PRESETS = {
     "tiny": ViTConfig(dim=32, depth=2, num_heads=2, patch_size=16,
@@ -63,3 +62,9 @@ def pretrain_config(model_name: str, **overrides) -> CAVMAEConfig:
     return replace(CAVMAEConfig(vit=vit_config(model_name),
                                 decoder=decoder_config(model_name)),
                    **overrides)
+
+
+def finetune_config(model_name: str, label_dim: int, **overrides
+                    ) -> CAVMAEFTConfig:
+    return replace(CAVMAEFTConfig(vit=vit_config(model_name),
+                                  label_dim=label_dim), **overrides)

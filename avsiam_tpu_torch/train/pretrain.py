@@ -51,6 +51,9 @@ class PretrainState:
         """The 0-d learning-rate tensor both Adams read at their step."""
         return self.opt1.param_groups[0]["lr"]
 
+    def optimizers(self) -> Dict[str, torch.optim.Adam]:
+        return {"opt1": self.opt1, "opt2": self.opt2}
+
 
 def make_optimizers(model: CAVMAEPretrain, cfg: PretrainConfig):
     """The two masked Adams, sharing one learning-rate tensor."""

@@ -6,7 +6,9 @@ the port's ``state_dict``. It imports no flax: the tree is plain dicts.
 
 Path mapping, flax -> port:
 - ``blocks_3`` -> ``blocks.3``;
-- ``norm1/ln/scale`` -> ``norm1.weight``, ``norm1/ln/bias`` -> ``norm1.bias``;
+- ``norm1/ln/scale`` -> ``norm1.weight``, ``norm1/ln/bias`` -> ``norm1.bias``
+  (the ``ln`` scope right above a LayerNorm's leaves is dropped, so a head's
+  LayerNorm named ``ln``, ``mlp_head/ln/ln/scale``, is ``mlp_head.ln.weight``);
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in] (transposed);
 - everything else keeps its name (``pos_embed``, ``mask_token``, ...).
 """
@@ -35,14 +37,17 @@ def _walk(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
 def port_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     """(port parameter name, whether the array is transposed) of a flax
     path such as ('vit', 'blocks_3', 'attn', 'qkv', 'kernel')."""
+    leaf = path[-1]
+    scopes = path[:-1]
+    if leaf in ("scale", "bias") and scopes and scopes[-1] == "ln":
+        scopes = scopes[:-1]
     parts = []
-    for p in path[:-1]:
+    for p in scopes:
         m = _BLOCK.match(p)
         if m:
             parts += ["blocks", m.group(1)]
-        elif p != "ln":
+        else:
             parts.append(p)
-    leaf = path[-1]
     transpose = leaf == "kernel"
     parts.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
     return ".".join(parts), transpose

@@ -57,7 +57,8 @@ Phases (any failure raises and the script exits non-zero):
    A64. A at the JAX bench's batch of 64 (``bench.py:81-84``);
    P64. A64 in the 'padded' form, the JAX config's default (K1/K2 with a
       key mask per sample at full length, K3);
-   H64. E at B=64 with ``remat_blocks`` (K5, K6; K1, K2 in the decoder;
+   H64. E at B=64 with ``remat_blocks``, at encoder depth 16 of 32 (K5,
+      K6; K1, K2 in the decoder;
       K4, K7, K9; the encoders' forward kernels run again in the backward);
    F. A in the 'tconcat', 'bucketed' and 'packed' forms ('packed' runs
       K4, not K3, in the encoders).
@@ -96,11 +97,24 @@ Phases (any failure raises and the script exits non-zero):
    resumed against straight within 1e-5 (the same bits expected), one lr
    tensor for both Adams after the restore, the checkpoints loading back
    (``run_cli``).
+   FT64. The port's finetune runner (``python -m avsiam_tpu_torch.cli.
+   finetune``'s ``main``, in this process) on the VGGSound finetune
+   recipe's command line (``recipes/ft_vggsound.sh``: ViT-B, 'mm_grad',
+   CE, B=64, 309 classes; 'synthetic' clips, 8 steps an epoch, 2 epochs,
+   64 validation and eval clips of 10 frames, ``--wa``), from CLI64's
+   ``best_audio_model``: finite losses and metrics in every
+   ``result.csv`` row, each kernel launched as often as the steps'
+   branches (26 K1 and 26 K3 a forward, 26 or 12 K2 a backward) and the
+   10-frame eval batches imply (``run_ft_cli``). The kernels phase holds
+   K1/K2 at the fusion layers' (2, 708, 12, 64) and K3 at their rows in
+   a step (64 x 708), and at the end of the script in the eval (640 x
+   708, its plain version and composite untimed).
 4. reference: for configurations A-E, P64 and H64, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
    from the same weights and draws: losses and gradients must agree within
-   the stated tolerances.
+   the stated tolerances. FTR: the finetune step in each 'mm_grad' branch
+   the same way (``run_ft_reference``).
 
 Before the last lines comes a JSON object of each step phase's eager and
 graphed steady step, busy share, kernels, Adam's device time and peak
@@ -567,11 +581,12 @@ def fmt_passes(split):
     return " ".join(f"{k} {v:.4f}" for k, v in split.items() if v)
 
 
-def check_ln_mlp(shapes, gen, eps: float = 1e-5):
+def check_ln_mlp(shapes, gen, eps: float = 1e-5, timed: bool = True):
     """K3 at each (rows, D, H) of ``shapes`` ({(rows, D, H, impl): calls
     per step}) against its plain version; times of kernel (and of its
     passes), plain version and the composite 'dense' yardstick (not one
-    call), and their sums over a phase-A step."""
+    call; neither unless ``timed``), and their sums over a phase-A
+    step."""
     from avsiam_tpu_torch.ops.mlp import ln_mlp_fwd_kernel, ln_mlp_reference
     rows = []
     for (t, d, h, _), calls in shapes.items():
@@ -596,25 +611,31 @@ def check_ln_mlp(shapes, gen, eps: float = 1e-5):
         if orel > MLP_TOL or hrel > MLP_TOL:
             raise AssertionError(f"ln_mlp T={t} D={d}: out rel err {orel:.3e},"
                                  f" hidden rel err {hrel:.3e} > {MLP_TOL}")
+        del ref, href
         parts = time_ms(lambda: ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, b2,
                                                   eps), by_kernel=True)
         ms, split = sum(parts.values()), fwd_pass_ms(parts)
-        plain = time_ms(lambda: ln_mlp_reference(x.float(), g, bl, w1.float(),
-                                                 b1, w2.float(), b2, eps))
-        composite = time_ms(lambda: dense_ln_mlp(x, g, bl, w1, b1, w2, b2,
-                                                 eps))
+        plain = composite = None
+        if timed:
+            plain = time_ms(lambda: ln_mlp_reference(
+                x.float(), g, bl, w1.float(), b1, w2.float(), b2, eps))
+            composite = time_ms(lambda: dense_ln_mlp(x, g, bl, w1, b1, w2,
+                                                     b2, eps))
         bd = bound_ms(4 * t * d * h, 2 * (2 * t * d + 2 * d * h + t * h))
         rows.append(dict(T=t, D=d, H=h, calls=calls, out_err=oerr,
                          out_rel=orel, hpre_err=herr, hpre_rel=hrel, ms=ms,
                          pass_ms=split, plain_ms=plain,
                          composite_ms=composite, bound=bd))
+        yardsticks = ("plain, composite not timed" if plain is None else
+                      f"plain {plain:.4f} composite {composite:.4f} "
+                      f"({ms / composite:.2f}x)")
         log(f"  ln_mlp T={t:5d} D={d} H={h} x{calls:3d}/step  err out "
             f"{oerr:.2e} (rel {orel:.1e} <= {MLP_TOL}) hidden {herr:.2e} "
             f"(rel {hrel:.1e})  {ms:.4f} ms [{fmt_passes(split)}]"
-            f" plain {plain:.4f} composite {composite:.4f} "
-            f"({ms / composite:.2f}x) bound {bd[0]:.4f} "
-            f"({100 * bd[0] / ms:.1f}%)")
-    tot = {k: sum(r[k] * r["calls"] for r in rows)
+            f" {yardsticks} bound {bd[0]:.4f} ({100 * bd[0] / ms:.1f}%)")
+    if not any(r["calls"] for r in rows):
+        return rows
+    tot = {k: sum(r[k] * r["calls"] for r in rows if r["calls"])
            for k in ("ms", "composite_ms", "plain_ms")}
     split = {k: sum(r["pass_ms"][k] * r["calls"] for r in rows)
              for k, _ in FWD_PASSES}
@@ -1395,7 +1416,7 @@ def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
     and carry ``composite_ms``, the 'dense' form's GEMMs and elementwise ops
     on the same operands (not one call)."""
     def total(rows, key):
-        return sum(r[key] * r["calls"] for r in rows)
+        return sum(r[key] * r["calls"] for r in rows if r["calls"])
 
     fwd_bound = total([dict(r, b_=r["fwd_bound"][0]) for r in attn_rows], "b_")
     bwd_bound = total([dict(r, b_=r["bwd_bound"][0]) for r in attn_rows], "b_")
@@ -1464,6 +1485,9 @@ PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5, 8),
            64),
           *((f"F-{form}", dict(mmixed_impl=form), False, False, 2, 8)
             for form in ("tconcat", "bucketed", "packed")))
+# the encoder depth a step phase is cut to (H64 runs 16 of ViT-H's 32
+# blocks, to leave the script's time for the finetune phases)
+PHASE_DEPTH = {"H64": 16}
 # the phases the depth-1 reference phase runs (A64 and F's forms share A's
 # configuration but for the batch and the contrastive form)
 REFERENCE_PHASES = ("A", "B", "C", "D", "E", "P64", "H64")
@@ -1487,7 +1511,7 @@ def phase_config(impls, depth=None, dec_depth=None, batch: int = 8):
     """A phase's configuration at ``batch``: ``bench_config`` with ``impls``, or
     with ``impls['model']`` that variant's ``pretrain_config`` (bf16,
     'exact' unless ``impls`` says otherwise) in the other impls;
-    ``depth``/``dec_depth`` cut the depths."""
+    ``depth`` cuts the encoders' depth and ``dec_depth`` the decoder's."""
     from avsiam_tpu_torch.configs import PretrainConfig, replace
     from avsiam_tpu_torch.models.variants import pretrain_config
     impls = dict(impls)
@@ -1498,8 +1522,9 @@ def phase_config(impls, depth=None, dec_depth=None, batch: int = 8):
         m = pretrain_config(name, dtype=torch.bfloat16,
                             **dict(dict(mmixed_impl="exact"), **impls))
     if depth is not None:
-        m = replace(m, vit=replace(m.vit, depth=depth),
-                    decoder=replace(m.decoder, depth=dec_depth))
+        m = replace(m, vit=replace(m.vit, depth=depth))
+    if dec_depth is not None:
+        m = replace(m, decoder=replace(m.decoder, depth=dec_depth))
     return PretrainConfig(model=m, batch_size=batch)
 
 
@@ -1551,7 +1576,7 @@ def main(argv=None) -> int:
 
     phases = {}
     for label, impls, split, ln, n_steps, batch in PHASES:
-        cfg = phase_config(impls, batch=batch)
+        cfg = phase_config(impls, depth=PHASE_DEPTH.get(label), batch=batch)
         phases[label] = dict(impls=impls, cfg=cfg, split=split, ln=ln,
                              n_steps=n_steps,
                              shapes=main_path_shapes(cfg, cfg.batch_size))
@@ -1562,14 +1587,18 @@ def main(argv=None) -> int:
     # beyond the B=8 step's shapes: the B=64 step's shortest chunks, and
     # random key masks
     extra = [((2, 102, 12, 64), False), ((2, 39, 12, 64), False),
-             ((2, 177, 12, 64), True), ((2, 708, 16, 32), True)]
+             ((2, 177, 12, 64), True), ((2, 708, 16, 32), True),
+             ((2, 708, 12, 64), False)]  # the finetune fusion layers
     attn_rows = check_attention(attn_shapes, extra, gen)
     # K3 also at ViT-L's (D 1024, H 4096) and ViT-H's (1280, 5120) encoder
     # shapes, which no step phase runs under 'lnfres'; the MLP family at
     # ViT-L's beside phase E's ViT-H shapes
     wide = [(t, d, 4 * d) for d in (1024, 1280) for t in (156, 1024, 1416)]
+    # and at the rows of the finetune fusion layers in FT64's steps (64 x
+    # 708); the 10-frame eval's (640 x 708) come last, below
     mlp_rows = check_ln_mlp({**mlp_shapes, **{
-        (t, d, h, "lnfres"): 0 for t, d, h in wide}}, gen)
+        (t, d, h, "lnfres"): 0 for t, d, h in wide + [(64 * 708, 768,
+                                                       3072)]}}, gen)
     fam_rows = check_mlp_family(
         {p: mlp_shape_launches(phases[p]["shapes"][1], phases[p]["split"])
          for p in "BCE"}, [k for k in wide if k[1] == 1024], gen)
@@ -1633,15 +1662,30 @@ def main(argv=None) -> int:
         "PD64", p64["cfg"], expected_launches(p64["cfg"], p64["shapes"],
                                               False, False, 1),
         args.seed, report)
-    launches["CLI64"] = run_cli("CLI64", args.seed, report)
-    log(f"runner phase done at {time.time() - t0:.0f} s")
+    pretrain_params = kernels.BUILD_DIR.parent / "chip_smoke_pretrain_params"
+    launches["CLI64"] = run_cli("CLI64", args.seed, report,
+                                keep_params=pretrain_params)
+    try:
+        launches["FT64"] = run_ft_cli("FT64", args.seed, report,
+                                      pretrain_params)
+    finally:
+        pretrain_params.unlink(missing_ok=True)
+    log(f"runner phases done at {time.time() - t0:.0f} s")
     report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
     for label in REFERENCE_PHASES:
         p = phases[label]
         with env_flags(p["split"], p["ln"]):
             run_reference(label, p["impls"], args.seed, report)
-
+    run_ft_reference(args.seed, report)
     log(f"reference phases done at {time.time() - t0:.0f} s")
+    # K3 at the 10-frame eval's fusion rows (640 x 708, which cross every
+    # row tile and reach the largest row index FT64 gives it), last, and
+    # its plain version and composite not timed: their profiler sessions
+    # would run for seconds, and after such a session every later one on
+    # the card came back one device record short, each then run three times
+    log("phase kernels at the eval's fusion rows: K3 at 453,120 rows")
+    report["ln_mlp_ft_eval"] = check_ln_mlp(
+        {(640 * 708, 768, 3072, "lnfres"): 0}, gen, timed=False)
     if args.report:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)
@@ -1657,13 +1701,18 @@ def main(argv=None) -> int:
         "forms_vs_exact_max_rel": report["forms_vs_exact"],
         "cli64": {k: report["steps"]["CLI64"][k] for k in (
             "resume_max_rel", "resume_equal", "resume_tensors",
-            "rows_max_rel")}}))
+            "rows_max_rel")},
+        "ft64": {k: report["steps"]["FT64"][k] for k in (
+            "wall_s", "peak_gib", "branches", "wa_s", "eval_acc")},
+        "ftr": {b: {k: r[k] for k in ("rel", "grad_cos")}
+                for b, r in report["reference"]["FTR"].items()}}))
     log(card)
     entries = kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
                              launches)
     for e in entries:  # the data-fed and runner phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
         e["cli64_launches"] = launches["CLI64"].get(e["name"], 0)
+        e["ft64_launches"] = launches["FT64"].get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2016,16 +2065,16 @@ CLI_VAL_CLIPS = 128     # the --data-val index
 CLI_TOL = 1e-5          # resumed against straight, as graphed against eager
 
 
-def recipe_argv(**paths):
-    """The argument words of ``recipes/pretrain_audioset.sh``'s command
-    line, word for word, its variables (DATA_TRAIN, DATA_VAL, LABEL_CSV,
-    EXP_DIR) replaced by ``paths``."""
+def recipe_argv(recipe="pretrain_audioset.sh", runner="pretrain", **paths):
+    """The argument words of ``recipes/<recipe>``'s command line (``python
+    -m avsiam_tpu.cli.<runner> ...``), word for word, its variables
+    (DATA_TRAIN, DATA_VAL, LABEL_CSV, EXP_DIR, ...) replaced by
+    ``paths``."""
     import re
     import shlex
     from pathlib import Path
-    text = (Path(__file__).resolve().parent / "recipes"
-            / "pretrain_audioset.sh").read_text()
-    cmd = text[text.index("python -m avsiam_tpu.cli.pretrain"):]
+    text = (Path(__file__).resolve().parent / "recipes" / recipe).read_text()
+    cmd = text[text.index(f"python -m avsiam_tpu.cli.{runner}"):]
     words = shlex.split(cmd.replace("\\\n", " "))[3:]
     return [re.sub(r"\$(\w+)", lambda m: paths[m.group(1)], w)
             for w in words if w != "$@"]
@@ -2056,7 +2105,7 @@ def state_diffs(got, want) -> dict:
     return diffs
 
 
-def run_cli(label, seed, report):
+def run_cli(label, seed, report, keep_params=None):
     """Phase CLI64: the port's runner, ``avsiam_tpu_torch.cli.pretrain.main``,
     on the AudioSet pretrain recipe's command line word for word
     (``recipes/pretrain_audioset.sh``: ViT-B, B=64, lr 2e-4, mask 0.25,
@@ -2080,7 +2129,9 @@ def run_cli(label, seed, report):
     (b) left it, bit for bit. Printed per run: steps, clips/s from the
     loop's ``per_sample_time`` meter, the data share from
     ``per_sample_data_time``, ms per validation batch, seconds per
-    checkpoint save and per restore, and the peak allocated GiB."""
+    checkpoint save and per restore, and the peak allocated GiB. With
+    ``keep_params`` (a path) (b)'s ``best_audio_model`` is copied there
+    before the directories go."""
     import csv
     import gc
     import shutil
@@ -2228,6 +2279,9 @@ def run_cli(label, seed, report):
             raise AssertionError(f"{label}: checkpoints {listing}, loaded "
                                  f"back {same}")
         del fresh, state_b
+        if keep_params is not None:
+            shutil.copyfile(tmp / "a" / "models" / "best_audio_model",
+                            keep_params)
         report.setdefault("steps", {})[label] = dict(
             batch=64, runs=runs, resume_max_rel=errs[worst],
             resume_equal=equal, resume_tensors=len(errs), rows_max_rel=row_err,
@@ -2237,6 +2291,259 @@ def run_cli(label, seed, report):
         gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+# ------------------------------------------------------- finetune phases
+FT_RECIPE = "ft_vggsound.sh"
+FT_CLASSES = 309        # the VGGSound recipe's --n_class
+FT_STEPS = 8            # --max_steps_per_epoch
+FT_EPOCHS = 2
+FT_TRAIN_BATCHES = 10   # the train index: 640 clips, two batches spare
+FT_EVAL_CLIPS = 64      # the --data_val and --data_eval indices: one batch
+
+
+def ft_part_shapes(cfg, batch: int, frames: int = 1):
+    """The attention and MLP shapes of one finetune forward by part:
+    {'a': audio trunk, 'v': video trunk over batch x frames, 'mm': the
+    fusion layers over the concatenated streams} -> (attn {(b, N, H, D):
+    calls}, mlp {(rows, D, H, impl): calls})."""
+    from avsiam_tpu_torch.models.layers import mlp_route
+    m = cfg.model
+    v = m.vit
+    La, Lv = v.num_audio_tokens, v.num_video_tokens
+    H = v.dim * int(v.mlp_ratio)
+    impl = mlp_route(m.mlp_impl, v.dim, H)
+    hd = v.dim // v.num_heads
+    out = {}
+    for part, b, n, calls in (("a", batch, La, v.depth),
+                              ("v", batch * frames, Lv, v.depth),
+                              ("mm", batch * frames, La + Lv, 2)):
+        out[part] = ({(b, n, v.num_heads, hd): calls},
+                     {(b * n, v.dim, H, impl): calls})
+    return out
+
+
+FT_BRANCH_PARTS = {"av": ("a", "v", "mm"), "a": ("a",), "v": ("v",)}
+
+
+def ft_launches(cfg, batch: int, frames: int = 1, branch=None) -> dict:
+    """Each kernel's launches of one finetune forward (all three parts, as
+    'mm_grad' runs them) and, with ``branch``, the backward of that
+    branch's parts only (``expected_launches`` of them less their
+    forward)."""
+    parts = ft_part_shapes(cfg, batch, frames)
+
+    def shapes(names):
+        attn, mlp = {}, {}
+        for p in names:
+            for table, add in zip((attn, mlp), parts[p]):
+                for k, c in add.items():
+                    table[k] = table.get(k, 0) + c
+        return Shapes(attn, mlp, {}, {}, {}, set())
+
+    out = forward_launches(cfg, shapes(("a", "v", "mm")))
+    if branch is not None:
+        back = shapes(FT_BRANCH_PARTS[branch])
+        full, fwd = (expected_launches(cfg, back, False, False, 1),
+                     forward_launches(cfg, back))
+        for k in out:
+            out[k] += full[k] - fwd[k]
+    return out
+
+
+def run_ft_cli(label, seed, report, pretrain_path):
+    """Phase FT64: the port's finetune runner, ``avsiam_tpu_torch.cli.
+    finetune.main``, on the VGGSound recipe's command line word for word
+    (``recipes/ft_vggsound.sh``: ViT-B, 'mm_grad', CE, accuracy, B=64, 309
+    classes, lr 5e-5 with head and fusion rates x10, mixup 0.5, freqm 48,
+    timem 192, noise, label smoothing 0.1, bf16), on the card. Only these
+    differ: ``--frame_source synthetic`` over index files of 'synthetic'
+    clips labelled over 309 classes, ``--max_steps_per_epoch 8``,
+    ``--n_epochs 2``, ``--data_val`` and ``--data_eval`` over 64 clips (one
+    10-frame batch), ``--wa True --wa_start 1 --wa_end 2`` and
+    ``--pretrain_path`` the pretrain params file ``pretrain_path``; index,
+    labels and experiment directory are written under
+    ``build/chip_smoke_ft`` and removed at the end.
+
+    It must write finite losses, ``acc`` and ``mAP`` in every
+    ``result.csv`` row, and launch each kernel as often as the steps'
+    branches and the eval batches imply, counted from 0 just before the
+    run (``ft_launches``). Printed per epoch: the steps by branch, clips/s
+    from the loop's ``per_sample_time`` meter, the data share, ms per
+    10-frame validation batch and seconds per save; then the averaging's
+    seconds and the peak allocated GiB. Returns the run's launch
+    counts."""
+    import csv
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.cli import finetune as cli
+    from avsiam_tpu_torch.configs import FinetuneConfig
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ft"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root))
+    log(f"phase {label}: python -m avsiam_tpu_torch.cli.finetune on the "
+        f"{FT_RECIPE} recipe's flags, {FT_STEPS} steps an epoch, "
+        f"{FT_EPOCHS} epochs, {FT_EVAL_CLIPS} validation and eval clips of "
+        f"10 frames, from {pretrain_path}, under {tmp}")
+
+    def index(name, n):
+        path = tmp / name
+        path.write_text(json.dumps({"data": [
+            {"wav": f"synthetic/{name}/{i}.wav",
+             "labels": f"/m/{i % FT_CLASSES}"} for i in range(n)]}))
+        return str(path)
+
+    labels = tmp / "labels.csv"
+    labels.write_text("index,mid,display_name\n" + "".join(
+        f"{i},/m/{i},class {i}\n" for i in range(FT_CLASSES)))
+    exp = tmp / "exp"
+    argv = recipe_argv(
+        FT_RECIPE, "finetune", DATA_TRAIN=index("train.json",
+                                                64 * FT_TRAIN_BATCHES),
+        DATA_VAL=index("val.json", FT_EVAL_CLIPS), LABEL_CSV=str(labels),
+        PRETRAIN=str(pretrain_path), EXP_DIR=str(exp)) + [
+        "--frame_source", "synthetic", "--max_steps_per_epoch",
+        str(FT_STEPS), "--n_epochs", str(FT_EPOCHS), "--data_eval",
+        index("eval.json", FT_EVAL_CLIPS), "--wa", "True", "--wa_start", "1",
+        "--wa_end", str(FT_EPOCHS)]
+    os.environ.pop("AVSIAM_PLATFORM", None)  # the card
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.time()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        state = out["state"]
+        cfg = FinetuneConfig(model=state.model.cfg, batch_size=64)
+        if (cfg.model.label_dim, cfg.model.vit.depth,
+                cfg.model.dtype) != (FT_CLASSES, 12, torch.bfloat16):
+            raise AssertionError(f"{label}: the recipe built {cfg.model}")
+        with open(exp / "result.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        if [int(r["epoch"]) for r in rows] != list(range(1, FT_EPOCHS + 1)):
+            raise AssertionError(f"{label}: result.csv epochs "
+                                 f"{[r['epoch'] for r in rows]}")
+        for r in rows:
+            vals = {k: float(r[k]) for k in ("train_loss", "val_loss", "acc",
+                                             "mAP", "mAUC")}
+            if not all(math.isfinite(x) for x in vals.values()):
+                raise AssertionError(f"{label}: non-finite values in "
+                                     f"result.csv row {r['epoch']}: {vals}")
+        epochs = out["timing"]["epochs"]
+        evals = sum(e["eval_batches"] for e in epochs) + 1  # --data_eval
+        want = ft_launches(cfg, 64, 10)
+        want = {k: n * evals for k, n in want.items()}
+        for branch, n in state.branches.items():
+            for k, c in ft_launches(cfg, 64, branch=branch).items():
+                want[k] += n * c
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches} != {want} "
+                                 f"(branches {state.branches}, {evals} eval "
+                                 f"batches)")
+        log(f"  {label}: {wall:.1f} s, peak {peak:.2f} GiB allocated; "
+            f"branches {state.branches}; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+            + " as expected")
+        for e, r in zip(epochs, rows):
+            pst, dst = e["per_sample_time"], e["per_sample_data_time"]
+            log(f"    epoch {e['epoch']}: {e['steps']} steps "
+                f"{e['branches']}, {1 / pst:.1f} clips/s (per_sample_time "
+                f"{1e3 * pst:.2f} ms), data share {100 * dst / pst:.1f}%; "
+                f"train loss {float(r['train_loss']):.4f}, val loss "
+                f"{float(r['val_loss']):.4f}, acc {float(r['acc']):.4f}, mAP "
+                f"{float(r['mAP']):.4f}; validation "
+                f"{1e3 * e['eval_s'] / e['eval_batches']:.1f} ms a 10-frame "
+                f"batch x{e['eval_batches']}; saves " + ", ".join(
+                    f"{n} {t:.2f} s" for n, t in e["saves"].items()))
+        wa_s = out["timing"]["wa_s"]
+        if wa_s is None or "wa_params" not in out:
+            raise AssertionError(f"{label}: no checkpoint average")
+        stats = out["eval_stats"]
+        acc = stats[0]["acc"]
+        log(f"  {label}: averaging epochs 1-{FT_EPOCHS} {wa_s:.2f} s; eval "
+            f"set acc {acc:.4f}, mAP "
+            f"{sum(s['AP'] for s in stats) / len(stats):.4f}")
+        report.setdefault("steps", {})[label] = dict(
+            batch=64, wall_s=wall, peak_gib=peak, launches=launches,
+            branches=dict(state.branches), epochs=epochs, rows=rows,
+            wa_s=wa_s, eval_acc=acc, best_epoch=out["best_epoch"])
+        del out, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_ft_reference(seed, report, batch: int = 2):
+    """Phase FTR: the finetune step in each 'mm_grad' branch (the routing
+    draw given), bf16 kernels on the card against the plain versions in
+    float32 on the CPU from the same parameters before the step: ViT-B
+    width, depth 1, the recipe's 309 classes and CE loss; the loss within
+    2e-2 relative and the gradients' cosine at least 0.99, over the
+    parameters the branch reaches (the same set on both)."""
+    from avsiam_tpu_torch.configs import (CAVMAEFTConfig, FinetuneConfig,
+                                          ViTConfig, replace)
+    from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
+    from avsiam_tpu_torch.train import finetune as ft
+    loss_tol, cos_tol = 2e-2, 0.99
+    cfg = FinetuneConfig(model=CAVMAEFTConfig(
+        vit=ViTConfig(depth=1), label_dim=FT_CLASSES, num_eval_frames=2,
+        dtype=torch.bfloat16), batch_size=batch, loss="CE")
+    log(f"phase FTR: the finetune step per branch, depth 1, batch {batch}: "
+        f"bf16 kernels on the card vs float32 plain versions on the CPU "
+        f"(loss rel err <= {loss_tol}, gradient cosine >= {cos_tol})")
+    state = ft.init_state(cfg, torch.Generator(device="cuda").manual_seed(
+        seed + 3), "cuda")
+    cpu = CAVMAEFinetune(replace(cfg.model, dtype=torch.float32), "cpu")
+    step = ft.make_finetune_step(cfg)
+    cgen = torch.Generator().manual_seed(seed + 4)
+    v = cfg.model.vit
+    a = torch.randn((batch, v.audio_length, v.mel_bins), generator=cgen)
+    imgs = torch.randn((batch, 1, 3, v.img_size, v.img_size), generator=cgen)
+    y = torch.softmax(torch.randn((batch, FT_CLASSES), generator=cgen), -1)
+    results = {}
+    for branch, u in (("av", 0.9), ("a", 0.1), ("v", 0.4)):
+        cpu.load_state_dict({k: t.cpu() for k, t in
+                             state.model.state_dict().items()})
+        cpu.zero_grad(set_to_none=True)
+        state, m = step(state, (a.cuda(), imgs.cuda(), y.cuda()), 1e-5, u)
+        outs = dict(zip(ft.BRANCHES, cpu(a, imgs, "mm_grad")))
+        loss = ft.ce_with_soft_targets(outs[branch], y)
+        loss.backward()
+        got = dict(state.model.named_parameters())
+        names = [n for n, p in cpu.named_parameters() if p.grad is not None]
+        if names != [n for n, p in got.items() if p.grad is not None]:
+            raise AssertionError(f"FTR {branch}: the card reached other "
+                                 f"parameters than the CPU")
+        gg = torch.cat([got[n].grad.double().cpu().flatten() for n in names])
+        gc_ = torch.cat([p.grad.double().flatten()
+                         for n, p in cpu.named_parameters()
+                         if p.grad is not None])
+        cos = float(torch.nn.functional.cosine_similarity(gg, gc_, dim=0))
+        lk, lc = float(m["loss"]), float(loss.detach())
+        rel = abs(lk - lc) / max(abs(lc), 1e-6)
+        log(f"  {branch}: kernel loss {lk:.6f} plain {lc:.6f} rel err "
+            f"{rel:.2e}; gradient cosine {cos:.6f} over {gg.numel()} values "
+            f"({len(names)} tensors)")
+        if rel > loss_tol or not cos >= cos_tol:
+            raise AssertionError(f"FTR {branch}: loss rel err {rel}, "
+                                 f"gradient cosine {cos}")
+        results[branch] = dict(kernel=lk, plain=lc, rel=rel, grad_cos=cos,
+                               tensors=len(names))
+    report.setdefault("reference", {})["FTR"] = results
+    del state, cpu
+    torch.cuda.empty_cache()
 
 
 def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):

@@ -364,7 +364,9 @@ def test_cli_pretrain_needs_a_card_or_the_cpu_flag(tmp_path, index_json,
                                                    monkeypatch):
     """Without ``AVSIAM_PLATFORM`` the runner asks for the card and raises
     where there is none; a mesh or process flag that asks for more than one
-    card is refused, naming the multi-card module."""
+    card is refused, naming the multi-card module. Probe datasets, which
+    the runner refused before the finetune model came, now run the
+    per-epoch linear probe on the CPU."""
     monkeypatch.delenv("AVSIAM_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -374,10 +376,12 @@ def test_cli_pretrain_needs_a_card_or_the_cpu_flag(tmp_path, index_json,
                   ["--mesh_model", "2"]):
         with pytest.raises(SystemExit, match="A10"):
             cli.main(_tiny_argv(index_json, tmp_path / "exp", *flags))
-    with pytest.raises(NotImplementedError, match="linear probe"):
-        cli.main(_tiny_argv(index_json, tmp_path / "exp2",
-                            "--probe_data_train", index_json[0],
-                            "--probe_data_val", index_json[0]))
+    out = cli.main(_tiny_argv(index_json, tmp_path / "exp2",
+                              "--probe_data_train", index_json[0],
+                              "--probe_data_val", index_json[0]))
+    row = out["rows"][0]
+    for mode in ("joint_av", "audioonly", "videoonly"):
+        assert 0.0 <= row[f"probe_{mode}_mAP"] <= 1.0
 
 
 def test_cli_pretrain_timm_init(tmp_path, index_json, monkeypatch):

@@ -153,6 +153,26 @@ def record_draws(monkeypatch, model, params, a, v, mae_w, con_w, rngs):
     return out, draws_from(rec, mae_w, con_w, model.cfg.mmixed_impl)
 
 
+@contextlib.contextmanager
+def process_local_compiles():
+    """Within the block JAX compiles in this process only: the persistent
+    compilation cache (``tests/conftest.py``), which the suite's xdist
+    workers write and read at once, is off, and is back on after it. A
+    JAX reference computed here never comes from an entry another worker
+    wrote."""
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    was = jax.config.jax_enable_compilation_cache
+    # JAX decides once per process whether it uses the cache; a reset
+    # makes it decide again at the next compile
+    jax.config.update("jax_enable_compilation_cache", False)
+    cc.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)
+        cc.reset_cache()
+
+
 def to_np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

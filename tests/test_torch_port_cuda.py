@@ -1145,3 +1145,88 @@ def test_graphed_step_captures_while_another_thread_copies(gen):
     assert not thread.is_alive() and len(copies) > 0
     assert all(math.isfinite(float(x)) for x in metrics.values())
     assert step.graph is not None
+
+
+def _ft_config(dtype=torch.bfloat16, **impls):
+    """The finetune model at ViT-B width, depth 2, 309 classes (the
+    VGGSound recipe's), batch 2, 'mm_grad'."""
+    from avsiam_tpu_torch.configs import (CAVMAEFTConfig, FinetuneConfig,
+                                          ViTConfig)
+    return FinetuneConfig(
+        model=CAVMAEFTConfig(vit=ViTConfig(depth=2), label_dim=309,
+                             num_eval_frames=2, dtype=dtype, **impls),
+        batch_size=2, loss="CE", ftmode="mm_grad")
+
+
+@pytest.mark.parametrize("impls,u,per_call", [
+    (dict(mlp_impl="fused", attn_impl="pallas"), 0.9,
+     dict(mlp_fwd=1, mlp_bwd=1, mlp_dw=2)),
+    (dict(mlp_impl="fused", attn_impl="pallas"), 0.1,
+     dict(mlp_fwd=1, mlp_bwd=1, mlp_dw=2)),
+    (dict(mlp_impl="fused", attn_impl="pallas"), 0.4,
+     dict(mlp_fwd=1, mlp_bwd=1, mlp_dw=2)),
+    (dict(), 0.9, dict(ln_mlp_fwd=1))],
+    ids=["fused-pallas-av", "fused-pallas-a", "fused-pallas-v", "lnfres-av"])
+def test_finetune_step_on_the_card(gen, impls, u, per_call):
+    """One 'mm_grad' step at depth 2 in bf16 through the kernels against
+    the plain versions in float32 on the CPU from the same parameters: the
+    loss within 2e-2 relative and the gradients' cosine at least 0.99. The
+    forward runs 6 attention and MLP calls (2 audio, 2 video, 2 fusion);
+    the backward only the routed branch's: 6 for the fused loss, 2 for the
+    audio or the video one."""
+    from avsiam_tpu_torch.configs import replace
+    from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
+    from avsiam_tpu_torch.train import finetune as ft
+    cfg = _ft_config(**impls)
+    state = ft.init_state(cfg, gen)
+    cpu = CAVMAEFinetune(replace(cfg.model, dtype=torch.float32), "cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in
+                         state.model.state_dict().items()})
+    a = torch.randn((2, 1024, 128), generator=gen, device="cuda")
+    v = torch.randn((2, 1, 3, 224, 224), generator=gen, device="cuda")
+    y = torch.softmax(torch.randn((2, 309), generator=gen, device="cuda"),
+                      dim=-1)
+    kernels.reset_launches()
+    state, metrics = ft.make_finetune_step(cfg)(state, (a, v, y), 1e-4, u)
+    launches = dict(kernels.LAUNCHES)
+    branch = ft.route(u)
+    back = 6 if branch == "av" else 2
+    want = dict(_NO_LAUNCHES, attention_fwd=6, attention_bwd=back)
+    for k, n in per_call.items():
+        want[k] = n * (6 if k in ("mlp_fwd", "ln_mlp_fwd") else back)
+    assert launches == want
+    outs = dict(zip(ft.BRANCHES, cpu(a.cpu(), v.cpu(), "mm_grad")))
+    loss = ft.ce_with_soft_targets(outs[branch], y.cpu())
+    loss.backward()
+    loss = float(loss.detach())
+    assert abs(float(metrics["loss"]) - loss) <= 2e-2 * loss
+    names = [n for n, p in cpu.named_parameters() if p.grad is not None]
+    got = dict(state.model.named_parameters())
+    assert names == [n for n, p in got.items() if p.grad is not None]
+    g = torch.cat([got[n].grad.double().cpu().flatten() for n in names])
+    w = torch.cat([p.grad.double().flatten() for n, p in
+                   cpu.named_parameters() if p.grad is not None])
+    assert float(torch.nn.functional.cosine_similarity(g, w, dim=0)) >= 0.99
+
+
+def test_finetune_eval_forward_on_the_card(gen):
+    """The 'mm_grad' eval form, the frames folded into the fusion layers'
+    batch, within 2e-2 of the plain versions: one K1 and one K3 per block
+    call (2 audio, 2 video over B x T frames, 2 fusion)."""
+    from avsiam_tpu_torch.configs import replace
+    from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
+    from avsiam_tpu_torch.train import finetune as ft
+    cfg = _ft_config()
+    model = CAVMAEFinetune(cfg.model, "cuda", gen)
+    cpu = CAVMAEFinetune(replace(cfg.model, dtype=torch.float32), "cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    a = torch.randn((2, 1024, 128), generator=gen, device="cuda")
+    v = torch.randn((2, 2, 3, 224, 224), generator=gen, device="cuda")
+    kernels.reset_launches()
+    out = ft.make_ft_eval_step(cfg)(model, (a, v, None))
+    assert dict(kernels.LAUNCHES) == dict(_NO_LAUNCHES, attention_fwd=6,
+                                          ln_mlp_fwd=6)
+    with torch.no_grad():
+        ref = cpu(a.cpu(), v.cpu(), "mm_grad", True)
+    assert out.shape == ref.shape == (2, 2, 309)
+    assert _rel(out.cpu(), ref) <= TOL

@@ -1,9 +1,12 @@
 """The port stands alone: ``avsiam_tpu_torch`` and ``chip_smoke.py`` import
-no JAX, flax, optax and nothing of the JAX package ``avsiam_tpu``.
+no JAX, flax, optax, scikit-learn (the card's host has none) and nothing
+of the JAX package ``avsiam_tpu``.
 
 Two checks: no import statement of the port's sources names those modules;
 and, in a fresh interpreter whose import system refuses them, every module
-of the port imports and a tiny CPU forward and two-pass step run.
+of the port imports, a tiny CPU forward and two-pass pretrain step run, a
+finetune step of each routing branch runs, and the classification
+statistics are computed.
 """
 
 import ast
@@ -13,10 +16,10 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "avsiam_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sklearn", "avsiam_tpu")
 
 SCRIPT = r'''
-import importlib, importlib.abc, math, pkgutil, sys
+import importlib, importlib.abc, importlib.util, math, pkgutil, sys
 
 BLOCKED = %r
 for name in list(sys.modules):  # e.g. loaded by a site hook
@@ -24,10 +27,22 @@ for name in list(sys.modules):  # e.g. loaded by a site hook
         del sys.modules[name]
 
 
+class RefusingLoader(importlib.abc.Loader):
+    def create_module(self, spec):
+        raise ImportError(f"refused: {spec.name}")
+
+    def exec_module(self, module):
+        raise ImportError(f"refused: {module.__name__}")
+
+
 class Refuse(importlib.abc.MetaPathFinder):
+    """A blocked module has a spec with no origin, so that a probe of
+    whether it is installed (torch's optimizer asks for scikit-learn's
+    spec) passes, and an import of it raises."""
+
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
-            raise ImportError(f"refused: {name}")
+            return importlib.util.spec_from_loader(name, RefusingLoader())
         return None
 
 
@@ -58,6 +73,22 @@ step = make_pretrain_step(cfg)
 for _ in range(2):
     state, metrics = step(state, (a, v), gen, 1e-3)
 assert all(math.isfinite(float(x)) for x in metrics.values()), metrics
+from avsiam_tpu_torch.eval.metrics import calculate_stats, mean_ap
+from avsiam_tpu_torch.train import finetune as ft
+fcfg = pc.FinetuneConfig(model=pc.CAVMAEFTConfig(
+    vit=vit, label_dim=5, num_eval_frames=2), batch_size=6)
+fstate = ft.init_state(fcfg, gen, device="cpu")
+y = (torch.rand((6, 5), generator=gen) < 0.4).float()
+fstep = ft.make_finetune_step(fcfg)
+for u in (0.9, 0.1, 0.4):  # the fused, the audio and the video loss
+    fstate, fm = fstep(fstate, (a, v[:, None], y), 1e-4, u)
+    assert math.isfinite(float(fm["loss"]))
+assert fstate.branches == {"av": 1, "a": 1, "v": 1}
+logits = ft.make_ft_eval_step(fcfg)(
+    fstate.model, (a, torch.stack([v, v], dim=1), y))
+stats = calculate_stats(torch.sigmoid(logits).mean(dim=1).numpy(),
+                        y.numpy())
+assert 0.0 <= mean_ap(stats) <= 1.0
 shapes = chip_smoke.main_path_shapes(chip_smoke.bench_config(), 8)
 attn, mlp, ln = shapes.attn, shapes.mlp, shapes.ln
 assert sum(attn.values()) == sum(mlp.values()) == 130

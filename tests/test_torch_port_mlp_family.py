@@ -30,10 +30,19 @@ from avsiam_tpu_torch.models import layers as players
 from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain
 from avsiam_tpu_torch.ops import mlp as pmlp
 from avsiam_tpu_torch.utils.weights import params_from_jax
-from test_torch_port_common import batch, configs
+from test_torch_port_common import batch, configs, process_local_compiles
 
 D, H = 128, 256
 NAMES = ("x", "w1", "b1", "w2", "b2")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _process_local_compiles():
+    """The JAX kernels of this file compile in its own process
+    (``process_local_compiles``), not from the compile cache the suite's
+    workers share."""
+    with process_local_compiles():
+        yield
 
 
 def _inputs(shape, seed):
