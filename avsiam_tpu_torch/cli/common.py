@@ -8,8 +8,10 @@ counterpart here. The device: ``AVSIAM_PLATFORM=cpu`` runs a runner on the
 CPU (the plain PyTorch versions of the kernels), the counterpart of
 ``apply_platform_override``; without it the runner runs on the card
 (``device.resolve_device``, which raises where there is none). The mesh and
-process flags parse; a value that asks for more than one process or card
-is refused, until the multi-card module (ROADMAP A10) comes.
+process flags: ``mesh_from_args`` makes the process group (torchrun's
+environment or the JAX-named flags, ``parallel/dist.py``) and checks the
+mesh against it (``parallel/mesh.py``); a 'model' axis above 1 is refused
+(ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -110,10 +112,10 @@ def add_common_args(p: argparse.ArgumentParser, ft: bool = False):
     arg("--mlp_impl", type=str, default="auto",
         choices=["auto", "dense", "remat_g", "remat_all", "fused", "fbwd",
                  "fres", "lnfres"])
-    # the JAX package's device-mesh and multi-process flags: parsed, and
-    # held to one process on one card (check_single_card)
+    # the JAX package's device-mesh and multi-process flags
+    # (mesh_from_args); under torchrun its environment names the world
     arg("--mesh_data", type=int, default=-1,
-        help="mesh 'data' axis size; -1 = every card (one here)")
+        help="mesh 'data' axis size; -1 = every process")
     arg("--mesh_model", type=int, default=1,
         help="mesh 'model' axis size (tensor parallelism)")
     arg("--num_processes", type=int, default=None,
@@ -125,25 +127,28 @@ def add_common_args(p: argparse.ArgumentParser, ft: bool = False):
     return p
 
 
-def check_single_card(args) -> None:
-    """Refuse mesh and process flags that ask for more than one process or
-    card: the port runs one process on one card until ROADMAP A10."""
-    asks = []
-    if args.mesh_data not in (-1, 1):
-        asks.append(f"--mesh_data {args.mesh_data}")
-    if args.mesh_model != 1:
-        asks.append(f"--mesh_model {args.mesh_model}")
-    if args.num_processes not in (None, 1):
-        asks.append(f"--num_processes {args.num_processes}")
-    if args.process_id not in (None, 0):
-        asks.append(f"--process_id {args.process_id}")
-    if args.coordinator_address:
-        asks.append(f"--coordinator_address {args.coordinator_address}")
-    if asks:
-        raise SystemExit(
-            f"{', '.join(asks)}: the port runs one process on one card; "
-            f"meshes and processes come with the multi-card module "
-            f"(ROADMAP A10)")
+def mesh_from_args(args):
+    """Initialise the process group where the run asks for one and resolve
+    the mesh every runner trains over, the counterpart of the JAX
+    package's ``mesh_from_args`` (torchrun + init_distributed_mode,
+    run_cavmae_pretrain_base.py:114 / utils.py:283-299): rank-0 printing
+    installed, the mesh printed. The mesh is checked before any group
+    comes up, so a 'model' axis (A10b) is refused at once."""
+    from avsiam_tpu_torch.configs import MeshConfig
+    from avsiam_tpu_torch.parallel.dist import (initialize_multihost,
+                                                setup_rank0_printing)
+    from avsiam_tpu_torch.parallel.mesh import make_mesh
+    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model)
+    if mesh_cfg.model != 1:
+        make_mesh(mesh_cfg)  # raises, naming A10b
+    info = initialize_multihost(
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id)
+    setup_rank0_printing()
+    mesh = make_mesh(mesh_cfg)
+    print(f"mesh: data={mesh.data} model={mesh.model} "
+          f"processes={info['process_count']}")
+    return mesh
 
 
 def audio_config_from_args(args, train: bool,

@@ -9,7 +9,8 @@ On the card (the default):
       --frame_source synthetic --max_steps_per_epoch 2 --exp_dir ./exp/ft
 
 On the CPU (the plain versions of the kernels): the same with
-``AVSIAM_PLATFORM=cpu`` in the environment.
+``AVSIAM_PLATFORM=cpu`` in the environment. Data-parallel under torchrun
+or the JAX-named process flags, as ``cli/pretrain.py`` says.
 
 ``--pretrain_path`` names a reference-format ``.pth`` (a finetune or a
 pretrain model's state_dict, loaded non-strictly) or a params file a
@@ -30,12 +31,14 @@ import torch
 from avsiam_tpu_torch.cli.common import (add_common_args,
                                          audio_config_from_args,
                                          balance_weights_from_args,
-                                         check_single_card, dataset_from_args,
-                                         dump_args, optimizer_from_args,
+                                         dataset_from_args, dump_args,
+                                         mesh_from_args, optimizer_from_args,
                                          platform_device, setup_wandb,
                                          torch_dtype)
 from avsiam_tpu_torch.configs import FinetuneConfig, replace
 from avsiam_tpu_torch.models.variants import finetune_config
+from avsiam_tpu_torch.parallel.dist import is_main_process
+from avsiam_tpu_torch.parallel.mesh import local_batch
 from avsiam_tpu_torch.train.loops import run_finetune
 
 
@@ -102,9 +105,11 @@ def _load_init_params(args, cfg: FinetuneConfig):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_single_card(args)
     device = platform_device()
-    dump_args(args, args.exp_dir)
+    mesh = mesh_from_args(args)
+    local_batch(args.batch_size, mesh.data)  # the world must divide it
+    if is_main_process():
+        dump_args(args, args.exp_dir)
     setup_wandb(args)
     model_cfg = finetune_config(args.model, label_dim=args.n_class,
                                 dtype=torch_dtype(args.dtype),
@@ -143,7 +148,8 @@ def main(argv=None):
                        wa_start=args.wa_start, wa_end=args.wa_end,
                        resume=args.resume,
                        max_steps_per_epoch=args.max_steps_per_epoch,
-                       device=device)
+                       # read now: the rank-0 print mesh_from_args set up
+                       log=print, device=device)
     print("finetune done:", {k: out.get(k) for k in ("best_epoch", "best")})
     if args.data_eval and not out.get("diverged"):
         # the held-out set with the best checkpoint (the reference's

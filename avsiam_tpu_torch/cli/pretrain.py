@@ -10,6 +10,15 @@ On the card (the default; the graphed step):
 
 On the CPU (the plain versions of the kernels, the eager step): the same
 with ``AVSIAM_PLATFORM=cpu`` in the environment.
+
+Data-parallel, one process a card (``--batch-size`` is the global batch,
+which the world must divide):
+  torchrun --standalone --nproc_per_node=N -m avsiam_tpu_torch.cli.pretrain \
+      <the same flags>
+or on each process the JAX-named flags, ``--num_processes N --process_id r
+--coordinator_address host:port`` (``recipes/pretrain_audioset_multihost.sh``
+passes them); under ``AVSIAM_PLATFORM=cpu`` the processes run on the CPU
+over gloo.
 """
 
 from __future__ import annotations
@@ -22,12 +31,14 @@ import torch
 from avsiam_tpu_torch.cli.common import (add_common_args,
                                          audio_config_from_args,
                                          balance_weights_from_args,
-                                         check_single_card, dataset_from_args,
-                                         dump_args, optimizer_from_args,
+                                         dataset_from_args, dump_args,
+                                         mesh_from_args, optimizer_from_args,
                                          platform_device, setup_wandb,
                                          torch_dtype)
 from avsiam_tpu_torch.configs import PretrainConfig, replace
 from avsiam_tpu_torch.models.variants import pretrain_config
+from avsiam_tpu_torch.parallel.dist import is_main_process
+from avsiam_tpu_torch.parallel.mesh import local_batch
 from avsiam_tpu_torch.train.loops import run_pretrain
 
 
@@ -92,9 +103,11 @@ def _load_init_params(args, cfg: PretrainConfig):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_single_card(args)
     device = platform_device()
-    dump_args(args, args.exp_dir)
+    mesh = mesh_from_args(args)
+    local_batch(args.batch_size, mesh.data)  # the world must divide it
+    if is_main_process():
+        dump_args(args, args.exp_dir)
     setup_wandb(args)
     model_cfg = pretrain_config(args.model, dtype=torch_dtype(args.dtype),
                                 attn_impl=args.attn_impl,
@@ -136,7 +149,8 @@ def main(argv=None):
                        init_params=_load_init_params(args, cfg),
                        balance_weights=weights, resume=args.resume,
                        max_steps_per_epoch=args.max_steps_per_epoch,
-                       device=device)
+                       # read now: the rank-0 print mesh_from_args set up
+                       log=print, device=device)
     print("pretrain done:", {k: out[k] for k in ("best_epoch",)
                              if k in out})
     return out

@@ -156,7 +156,8 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device layout (kept for field parity; this slice runs on one card)."""
+    """Device layout: ``data`` processes (-1: every one), ``model`` 1
+    (``parallel/mesh.py:make_mesh``)."""
 
     data: int = -1
     model: int = 1

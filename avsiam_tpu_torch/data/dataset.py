@@ -339,27 +339,38 @@ def make_train_transform(cfg: AudioConfig, im_res: int = 224,
     wav_len [B]) -> (fbank [B, target_length, mel bins], image, labels), on
     the inputs' device: mixup (where ``cfg.mixup`` > 0), fbank, SpecAugment,
     normalisation, noise and roll. ``draws`` is the batch's
-    ``TransformDraws`` (``ops/augment.py:draw_transform``)."""
+    ``TransformDraws`` (``ops/augment.py:draw_transform``). The mixup
+    partners are the batch's rows at ``draws.perm``, or else ``partners``,
+    the partners' (wav, frames_u8, labels) row by row (a process's block
+    of a global batch, whose partners may lie in other blocks)."""
 
-    def f(draws: aug.TransformDraws, wav, frames_u8, labels, wav_len=None):
+    def images(frames):
+        img = _images_from_u8(frames, im_res)
+        return img[:, 0] if single_frame else img
+
+    def f(draws: aug.TransformDraws, wav, frames_u8, labels, wav_len=None,
+          partners=None):
         B = wav.shape[0]
-        img = _images_from_u8(frames_u8, im_res)
-        if single_frame:
-            img = img[:, 0]
+        img = images(frames_u8)
         if cfg.mixup > 0:
-            perm = draws.perm
+            if partners is None:
+                perm = draws.perm
+                wav2, img2, labels2 = wav[perm], img[perm], labels[perm]
+            else:
+                wav2, frames2, labels2 = partners
+                img2 = images(frames2)
             coin = draws.coin < cfg.mixup
             one = torch.ones_like(draws.lam)
             lam = torch.where(coin, draws.lam, one)
-            wav = aug.mixup_waveform(lam, wav, wav[perm])
+            wav = aug.mixup_waveform(lam, wav, wav2)
             # the mixed clip keeps the FIRST clip's length (the reference
             # pads or crops the partner to waveform1's, dataloader.py:314-325)
             w_img = torch.where(coin, draws.img_w, one)
             bshape = (B,) + (1,) * (img.dim() - 1)
             img = (w_img.reshape(bshape) * img
-                   + (1.0 - w_img.reshape(bshape)) * img[perm])
+                   + (1.0 - w_img.reshape(bshape)) * img2)
             lam_l = lam[:, None]
-            labels = lam_l * labels + (1.0 - lam_l) * labels[perm]
+            labels = lam_l * labels + (1.0 - lam_l) * labels2
         fb = _fbank_with_ref_padding(cfg, wav, wav_len)
         fb = aug.spec_augment(fb, cfg.freqm, cfg.timem, draws.freq_u,
                               draws.time_u)

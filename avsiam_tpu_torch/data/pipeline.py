@@ -15,6 +15,15 @@ Counterpart of ``avsiam_tpu/data/pipeline.py``:
   batch. Each train batch's draws (``ops/augment.py:draw_transform``) come
   from a generator keyed on (draw seed, batch index), the counterpart of
   ``jax.random.fold_in(rng_key, i)``.
+
+Under a process group (``parallel/dist.py``) each process loads its block
+of every global batch, and a train batch's draws are the global batch's,
+of which it takes its block's rows, so the processes' batches together are
+the one-process batch. The mixup partners (``TransformDraws.perm``) index
+the global batch: where mixup is on, the processes' raw batches are
+gathered in rank order, and each takes its partners from the gathered one.
+JAX gets this for free, its transform running on the global sharded
+array.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from avsiam_tpu_torch.ops.augment import draw_transform
+from avsiam_tpu_torch.ops.augment import TransformDraws, draw_transform
+from avsiam_tpu_torch.parallel import dist as pdist
 
 
 class Prefetcher:
@@ -154,8 +164,13 @@ def device_loader(dataset, index_batches, transform: Callable,
     Train: batch i's draws come from a generator on ``device`` seeded with
     ``batch_generator_seed(draw_seed, i)`` and go to ``transform(draws,
     wav, frames, labels, wav_len)``; eval: ``transform(wav, frames, labels,
-    wav_len)``. ``seed`` keys the host's per-sample streams."""
+    wav_len)``. ``seed`` keys the host's per-sample streams. Under a
+    process group the index batches are this process's blocks, the draws
+    are made for the global batch and cut to the block, and with mixup on
+    the transform also takes ``partners``, the (wav, frames, labels) of
+    each row's partner, from the processes' gathered batches."""
     device = torch.device(device)
+    world, rank = pdist.world_size(), pdist.rank()
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     it = Prefetcher(
         host_batches(dataset, index_batches, seed, frames_per_sample,
@@ -169,8 +184,18 @@ def device_loader(dataset, index_batches, transform: Callable,
                 continue
             gen = torch.Generator(device=device)
             gen.manual_seed(batch_generator_seed(draw_seed, i))
-            draws = draw_transform(dataset.audio_conf, batch[0].shape[0], gen)
-            yield transform(draws, *batch)
+            b = batch[0].shape[0]
+            draws = draw_transform(dataset.audio_conf, b * world, gen)
+            if not pdist.active():
+                yield transform(draws, *batch)
+                continue
+            draws = TransformDraws(*(t[rank * b:(rank + 1) * b]
+                                     for t in draws))
+            partners = None
+            if dataset.audio_conf.mixup > 0:
+                partners = tuple(g[draws.perm]
+                                 for g in pdist.gather_batch(batch[:3]))
+            yield transform(draws, *batch, partners=partners)
     finally:
         # reached at the end and when the consumer breaks early: stops the
         # worker instead of leaving it blocked on a full queue

@@ -21,6 +21,13 @@ first four take the same draws; 'padded' draws its own. With
 ``forward_feat`` and ``forward_inpaint`` are the feature and reconstruction
 entry points.
 
+Data parallelism: draws with a ``block`` are the global batch's, and the
+forward computes that block of its rows (one process's). Every sample's
+encoding depends on its own inputs and draws alone, so the block takes its
+rows of the MAE noise and of the 'padded' keep masks, and of each chunk of
+the chunked forms its members (``_block_chunks``); the InfoNCE gathers the
+blocks' embeddings (``info_nce_gathered``) and is the global batch's.
+
 The MAE decoder runs at its true length (La + Lv = 708 at ViT-B): the JAX
 package pads it to 720 for the TPU's tiling, while the port's attention
 kernel masks the ragged edge itself.
@@ -28,7 +35,7 @@ kernel masks the ragged edge itself.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import torch
@@ -70,7 +77,9 @@ class MaskDraws:
     audio noise, and ``chunk_v[i]`` [b_i, Lv], chunk i's video noise; in
     'padded' ``padded_a`` = (base [B, f, t], r_t [B, t], r_f [B, f]) and
     ``padded_v`` [B, Lv], the same uniforms over the whole batch in input
-    order."""
+    order. ``block`` (lo, hi): these are a global batch's draws, of which
+    the forward computes rows [lo, hi) (one process's under data
+    parallelism); None: the batch is the whole one."""
 
     noise_a: Optional[torch.Tensor] = None
     noise_v: Optional[torch.Tensor] = None
@@ -82,6 +91,7 @@ class MaskDraws:
     padded_a: Optional[Tuple[torch.Tensor, torch.Tensor,
                              torch.Tensor]] = None
     padded_v: Optional[torch.Tensor] = None
+    block: Optional[Tuple[int, int]] = None
 
     def map(self, fn) -> "MaskDraws":
         """The draws with ``fn`` applied to every tensor."""
@@ -97,7 +107,7 @@ class MaskDraws:
                 fn(t) for t in self.chunk_v],
             padded_a=None if self.padded_a is None else tuple(
                 fn(t) for t in self.padded_a),
-            padded_v=opt(self.padded_v))
+            padded_v=opt(self.padded_v), block=self.block)
 
     def tensors(self) -> List[Optional[torch.Tensor]]:
         """The single fields (None where not drawn), every chunk tensor in
@@ -115,9 +125,9 @@ class MaskDraws:
             return [None if t is None else (t.shape, t.dtype)
                     for t in d.tensors()]
 
-        if layout(self) != layout(src):
+        if layout(self) != layout(src) or self.block != src.block:
             raise ValueError("the draws differ from the buffers in their "
-                             "fields, chunks, shapes or dtypes")
+                             "fields, chunks, shapes, dtypes or block")
         for t, s in zip(self.tensors(), src.tensors()):
             if t is not None:
                 t.copy_(s)
@@ -190,6 +200,36 @@ def exact_keep_masks(cfg: CAVMAEConfig, draws: MaskDraws
             draws.chunk_v[i], mk.len_keep_for(Lv, ratio))
         off += size
     return keep_a, keep_v
+
+
+def _block_chunks(draws: MaskDraws) -> MaskDraws:
+    """The chunked forms' draws of the rows [lo, hi) = ``draws.block`` of
+    their global batch: of each chunk, per modality, the members in those
+    rows, in chunk order, numbered from lo, with their noise rows. A chunk
+    may keep no member of one modality or both. The local permutations
+    are the members' concatenation. Reads the permutations on the host,
+    unless the block is the whole batch (one process): then the draws as
+    they are."""
+    lo, hi = draws.block
+    if hi - lo == draws.perm_a.shape[0]:
+        return replace(draws, block=None)
+
+    def pick(perm, chunks, rows_of):
+        members, picked, off = [], [], 0
+        for chunk in chunks:
+            n = rows_of(chunk).shape[0]
+            ids = perm[off:off + n]
+            keep = torch.nonzero((ids >= lo) & (ids < hi)).squeeze(1)
+            members.append(ids[keep] - lo)
+            picked.append(tuple(t[keep] for t in chunk)
+                          if isinstance(chunk, tuple) else chunk[keep])
+            off += n
+        return torch.cat(members), picked
+
+    perm_a, chunk_a = pick(draws.perm_a, draws.chunk_a, lambda c: c[0])
+    perm_v, chunk_v = pick(draws.perm_v, draws.chunk_v, lambda c: c)
+    return MaskDraws(perm_a=perm_a, perm_v=perm_v, chunk_a=chunk_a,
+                     chunk_v=chunk_v)
 
 
 def _pool_chunk_rows(x: torch.Tensor, chunk_shapes) -> torch.Tensor:
@@ -323,48 +363,59 @@ class CAVMAEPretrain(nn.Module):
         """Chunk i of the permuted batch is masked at ratio 0.2*i (structured
         'tf' for audio) and encoded in the form ``cfg.mmixed_impl`` names;
         returns the pooled outputs [B, 1, C] of each modality in input
-        order."""
+        order (of the rows ``draws.block`` names, where it is set)."""
         c = self.cfg
         a = self.vit.embed_audio(audio)
         v = self.vit.embed_video(imgs)
         if c.mmixed_impl == "padded":
             keep_a, keep_v = padded_keep_masks(c, draws)
+            if draws.block is not None:
+                lo, hi = draws.block
+                keep_a, keep_v = keep_a[lo:hi], keep_v[lo:hi]
             return (self._encode_contrastive(a, "a", keep_a),
                     self._encode_contrastive(v, "v", keep_v))
-        sizes = chunk_sizes(a.shape[0], c.mmixed_num_chunks)
-        ratios = [c.mmixed_ratio_step * i for i in range(len(sizes))]
+        if draws.block is not None:
+            draws = _block_chunks(draws)
+        ratios = [c.mmixed_ratio_step * i for i in range(len(draws.chunk_a))]
         chunks = self._masked_chunks(
-            a, v, draws, sizes, ratios,
-            128 if c.mmixed_impl == "bucketed" else None)
+            a, v, draws, ratios, 128 if c.mmixed_impl == "bucketed" else None)
         encode = getattr(self, f"_mmixed_{c.mmixed_impl}")
         ca, cv = encode(chunks)
         return (take_batch(ca, torch.argsort(draws.perm_a)),
                 take_batch(cv, torch.argsort(draws.perm_v)))
 
-    def _masked_chunks(self, a, v, draws: MaskDraws, sizes, ratios,
+    def _masked_chunks(self, a, v, draws: MaskDraws, ratios,
                        lane: Optional[int]):
         """Each chunk's gathered and masked audio and video [b_i, n_i, C]
-        with their keep counts: [(a_i, keep_a, v_i, keep_v)]. With ``lane``
-        each n_i is the keep count rounded up to a multiple of it, the tail
-        rows inert (``random_masking``'s ``pad_to``)."""
+        with their keep counts: [(a_i, keep_a, v_i, keep_v)], a_i or v_i
+        None where the chunk has no member of that modality (a block's).
+        The chunk sizes are the draws' rows. With ``lane`` each n_i is the
+        keep count rounded up to a multiple of it, the tail rows inert
+        (``random_masking``'s ``pad_to``)."""
         f, t = self.cfg.vit.audio_grid
         La, Lv = a.shape[1], v.shape[1]
-        out, off = [], 0
-        for i, size in enumerate(sizes):
-            keep_a = mk.len_keep_for(La, ratios[i])
-            keep_v = mk.len_keep_for(Lv, ratios[i])
+        out, off_a, off_v = [], 0, 0
+        for i, ratio in enumerate(ratios):
+            keep_a = mk.len_keep_for(La, ratio)
+            keep_v = mk.len_keep_for(Lv, ratio)
             pad_a = pad_v = None
             if lane:
                 pad_a = -(-keep_a // lane) * lane
                 pad_v = -(-keep_v // lane) * lane
-            a_i = take_batch(a, draws.perm_a[off:off + size])
-            v_i = take_batch(v, draws.perm_v[off:off + size])
-            a_i, _, _ = mk.random_masking_structured(
-                a_i, ratios[i], t, f, *draws.chunk_a[i], pad_to=pad_a)
-            v_i, _, _ = mk.random_masking(v_i, keep_v, draws.chunk_v[i],
-                                          pad_to=pad_v)
+            size_a, size_v = (draws.chunk_a[i][0].shape[0],
+                              draws.chunk_v[i].shape[0])
+            a_i = v_i = None
+            if size_a:
+                a_i = take_batch(a, draws.perm_a[off_a:off_a + size_a])
+                a_i, _, _ = mk.random_masking_structured(
+                    a_i, ratio, t, f, *draws.chunk_a[i], pad_to=pad_a)
+            if size_v:
+                v_i = take_batch(v, draws.perm_v[off_v:off_v + size_v])
+                v_i, _, _ = mk.random_masking(v_i, keep_v, draws.chunk_v[i],
+                                              pad_to=pad_v)
             out.append((a_i, keep_a, v_i, keep_v))
-            off += size
+            off_a += size_a
+            off_v += size_v
         return out
 
     def _encode_contrastive(self, x, modality: str,
@@ -394,8 +445,12 @@ class CAVMAEPretrain(nn.Module):
         mask ``valid(x, keep count)``: the pooled outputs in chunk order."""
         a_parts, v_parts = [], []
         for a, keep_a, v, keep_v in chunks:
-            a_parts.append(self._encode_contrastive(a, "a", valid(a, keep_a)))
-            v_parts.append(self._encode_contrastive(v, "v", valid(v, keep_v)))
+            if a is not None:
+                a_parts.append(self._encode_contrastive(a, "a",
+                                                        valid(a, keep_a)))
+            if v is not None:
+                v_parts.append(self._encode_contrastive(v, "v",
+                                                        valid(v, keep_v)))
         return torch.cat(a_parts), torch.cat(v_parts)
 
     def _mmixed_tconcat(self, chunks):
@@ -408,8 +463,8 @@ class CAVMAEPretrain(nn.Module):
             x = self.vit.run_blocks_tconcat(x, modality, shapes)
             return _pool_chunk_rows(self.vit.final_norm(x, modality), shapes)
 
-        return (encode([a for a, _, _, _ in chunks], "a"),
-                encode([v for _, _, v, _ in chunks], "v"))
+        return (encode([a for a, _, _, _ in chunks if a is not None], "a"),
+                encode([v for _, _, v, _ in chunks if v is not None], "v"))
 
     def _mmixed_packed(self, chunks):
         """Both modalities' chunks as one [T, C] row array
@@ -418,9 +473,10 @@ class CAVMAEPretrain(nn.Module):
         GEMMs and the MLP (``Mlp``, not the LN-folded sub-block) once over
         all rows, attention per chunk. The final norms are routed as
         ``norm_a`` and ``norm``."""
-        parts = [a for a, _, _, _ in chunks] + [v for _, _, v, _ in chunks]
+        parts_a = [a for a, _, _, _ in chunks if a is not None]
+        parts = parts_a + [v for _, _, v, _ in chunks if v is not None]
         shapes = [tuple(p.shape[:2]) for p in parts]
-        n_audio = sum(b * n for b, n in shapes[:len(chunks)])
+        n_audio = sum(b * n for b, n in shapes[:len(parts_a)])
         x = torch.cat([p.reshape(-1, p.shape[-1]) for p in parts])
 
         def routed(x, norm_a, norm_v):
@@ -432,7 +488,7 @@ class CAVMAEPretrain(nn.Module):
             x = x + blk.mlp(routed(x, blk.norm2_a, blk.norm2_v))
         pooled = _pool_chunk_rows(routed(x, self.vit.norm_a, self.vit.norm),
                                   shapes)
-        n_a = sum(b for b, _ in shapes[:len(chunks)])
+        n_a = sum(b for b, _ in shapes[:len(parts_a)])
         return pooled[:n_a], pooled[n_a:]
 
     # ------------------------------------------ features and inpainting
@@ -503,11 +559,19 @@ class CAVMAEPretrain(nn.Module):
                                mae=mae_loss_weight != 0,
                                contrast=contrast_loss_weight != 0)
         zero = torch.zeros((), dtype=torch.float32, device=audio.device)
+        noise_a, noise_v = draws.noise_a, draws.noise_v
+        if draws.block is not None:
+            lo, hi = draws.block
+            if hi - lo != B:
+                raise ValueError(f"draws for rows [{lo}, {hi}) of a batch "
+                                 f"given {B} rows")
+            if noise_a is not None:
+                noise_a, noise_v = noise_a[lo:hi], noise_v[lo:hi]
 
         if mae_loss_weight != 0:
             x, mask_a, ids_ra, mask_v, ids_rv = self.forward_encoder(
                 audio, imgs, c.mae_mask_ratio, c.mae_mask_ratio,
-                draws.noise_a, draws.noise_v)
+                noise_a, noise_v)
             x = self.mm_layer_1(x, "a")
             x = self.mm_layer_2(x, "a")
             pred_a, pred_v = self.decoder(
@@ -527,7 +591,7 @@ class CAVMAEPretrain(nn.Module):
             ca, cv = self.forward_encoder_mmixed(audio, imgs, draws)
             loss_c, c_acc = info_nce_gathered(
                 ca.mean(dim=1), cv.mean(dim=1), temperature=c.contrast_temp,
-                bidirect=True)
+                bidirect=True, gather=draws.block is not None)
             loss_c = contrast_loss_weight * loss_c
             # the reference overwrites the masks with the contrastive
             # encoder's returns, which are None

@@ -25,6 +25,14 @@ Step n's u comes from a CPU generator keyed on (seed, n)
 (``pretrain.step_generator``), so a resumed run routes as the straight run
 does; a caller may pass u (the tests hand the port JAX's draws). The step
 runs eagerly.
+
+Under a process group (``parallel/dist.py``) the batch is this process's
+block of the global batch; u is drawn on the host and is the same on every
+process, so every process backpropagates the same loss and reaches the
+same parameters. The gradients that exist are averaged over the processes
+(flat buckets in a fixed order) before Adam, and the loss is averaged: the
+per-process means over equal blocks average to the global batch's mean.
+The eval step has no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch.nn.functional as F
 
 from avsiam_tpu_torch.configs import FinetuneConfig
 from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
+from avsiam_tpu_torch.parallel import dist as pdist
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import lr_tensor, multistep_lr_factor
 from avsiam_tpu_torch.train.pretrain import step_generator
@@ -135,9 +144,10 @@ def make_finetune_step(cfg: FinetuneConfig):
     ``lr`` (a float) times each group's multiplier is written into the
     groups' rate tensors; under 'mm_grad' the routing draw is ``u`` or
     else ``draw_route(cfg.seed, state.step)``. Metrics: the loss, a device
-    tensor."""
+    tensor (the global batch's under a process group)."""
     loss_fn = loss_fn_for(cfg)
     gated = cfg.parity_optimizer and cfg.ftmode == "mm_grad"
+    dp = pdist.active()
 
     def step(state: FinetuneState, batch, lr, u: Optional[float] = None):
         a, v, y = batch
@@ -158,9 +168,14 @@ def make_finetune_step(cfg: FinetuneConfig):
             for p in model.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if dp:
+            pdist.all_reduce_mean_([p.grad for p in model.parameters()
+                                    if p.grad is not None])
+            pdist.all_reduce_mean_([loss])
         state.opt.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     return step
 

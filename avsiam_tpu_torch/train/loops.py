@@ -29,6 +29,20 @@ from a seed keyed on (seed, e), the counterpart of ``fold_in(rng,
 epoch)``. Validation runs the same model eagerly between the graph's
 replays. The finetune step runs eagerly on either device
 (``train/finetune.py``); step n's routing draw is keyed on (seed, n).
+
+Under a process group (``parallel/dist.py``; the JAX loop's multi-process
+parts, avsiam_tpu/train/loops.py:97-200,232-244,402-403,441-454,641-646,
+684-689): each process loads its contiguous block of every global batch
+(the samplers' ``world``/``rank``) and steps on it (the steps average the
+gradients); rank 0's initial parameters are broadcast, and a resume
+restores the same checkpoint on every process; validation runs each
+process's contiguous slab of the set, the pretrain metrics averaged over
+the processes and the finetune predictions gathered in rank order before
+the statistics, so every checkpoint decision is the same on every process;
+rank 0 alone writes the files (checkpoints, ``result.csv``,
+``progress.pkl``, the stats pickles, the metrics log), and a barrier
+follows each epoch's writes. The graphed pretrain step over more than one
+process takes the 'padded' form; the other forms step eagerly there.
 """
 
 from __future__ import annotations
@@ -55,6 +69,8 @@ from avsiam_tpu_torch.data.samplers import (batched, eval_shard_indices,
 from avsiam_tpu_torch.device import resolve_device
 from avsiam_tpu_torch.eval.metrics import (AverageMeter, calculate_stats,
                                            mean_ap, mean_auc)
+from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.parallel.mesh import local_batch
 from avsiam_tpu_torch.train import finetune as ft
 from avsiam_tpu_torch.train import pretrain as pt
 from avsiam_tpu_torch.utils.checkpoint import (average_checkpoints,
@@ -127,25 +143,30 @@ def _epoch_loader(ds: AVDataset, cfg_batch: int, epoch: int, seed: int,
     epoch positions, which key each sample's host stream; batch i's draws
     come from a generator keyed on (``draw_seed``, i). Eval: the indices in
     order, padded to a batch multiple by repeating the last one (every
-    batch one shape, and the averages those of the JAX loop). One process:
-    ranks come with the multi-card module."""
+    batch one shape, and the averages those of the JAX loop). Under a
+    process group: train, this process's contiguous block of each global
+    batch of ``cfg_batch``; eval, its contiguous slab of the set, in
+    batches of ``cfg_batch``."""
     n = len(ds)
+    world, rank = pdist.world_size(), pdist.rank()
     if train:
+        local = local_batch(cfg_batch, world)
         if weights is not None:
-            idx, pos = weighted_indices(weights, n, epoch, seed,
-                                        global_batch=cfg_batch,
+            idx, pos = weighted_indices(weights, n, epoch, seed, world=world,
+                                        rank=rank, global_batch=cfg_batch,
                                         with_positions=True)
         else:
-            idx, pos = shuffled_epoch_indices(n, epoch, seed,
+            idx, pos = shuffled_epoch_indices(n, epoch, seed, world=world,
+                                              rank=rank,
                                               global_batch=cfg_batch,
                                               with_positions=True)
-        return device_loader(ds, batched(idx, cfg_batch, drop_last=True),
+        return device_loader(ds, batched(idx, local, drop_last=True),
                              transform, draw_seed, seed=seed + epoch,
                              frames_per_sample=frames_per_sample,
                              device=device, train=True,
-                             position_batches=batched(pos, cfg_batch,
+                             position_batches=batched(pos, local,
                                                       drop_last=True))
-    idx = eval_shard_indices(n)
+    idx = eval_shard_indices(n, world, rank)
     rem = len(idx) % cfg_batch
     if rem:
         idx = np.concatenate([idx, np.full(cfg_batch - rem, idx[-1])])
@@ -153,6 +174,13 @@ def _epoch_loader(ds: AVDataset, cfg_batch: int, epoch: int, seed: int,
                          transform, draw_seed, seed=seed + epoch,
                          frames_per_sample=frames_per_sample, device=device,
                          train=False)
+
+
+def _replicate(model: torch.nn.Module) -> None:
+    """Under a process group, rank 0's parameters and buffers on every
+    process."""
+    if pdist.active():
+        pdist.broadcast_from_main_([*model.parameters(), *model.buffers()])
 
 
 def _latest_train_state_epoch(exp_dir: str) -> Optional[int]:
@@ -184,6 +212,8 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
     state = pt.init_state(cfg, gen, dev)
     if init_params is not None:
         state.model.load_state_dict(init_params)
+    _replicate(state.model)
+    main = pdist.is_main_process()
     timing = {"restore_s": None, "epochs": []}
     start_epoch = 1
     if resume:
@@ -194,15 +224,20 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
             timing["restore_s"] = time.time() - t0
             start_epoch = latest + 1
             log(f"resumed from epoch {latest}")
-    # the graph binds the state at its first call: after the restore
-    step_fn = (pt.make_graphed_pretrain_step(cfg) if dev.type == "cuda"
+    # the graph binds the state at its first call: after the restore; over
+    # more than one process it holds the 'padded' form only, whose shapes
+    # do not change from step to step
+    graphed = dev.type == "cuda" and (pdist.world_size() == 1 or
+                                      cfg.model.mmixed_impl == "padded")
+    step_fn = (pt.make_graphed_pretrain_step(cfg) if graphed
                else pt.make_pretrain_step(cfg))
     eval_fn = pt.make_eval_step(cfg)
     transform = make_train_transform(cfg.audio,
                                      im_res=cfg.model.vit.img_size)
 
-    os.makedirs(os.path.join(cfg.exp_dir, "models"), exist_ok=True)
-    mlog = MetricsLogger(cfg.exp_dir)
+    if main:
+        os.makedirs(os.path.join(cfg.exp_dir, "models"), exist_ok=True)
+    mlog = MetricsLogger(cfg.exp_dir, main_process=main)
     try:
         result_rows, progress = _resume_history(cfg.exp_dir, start_epoch)
         start_time = time.time()
@@ -312,8 +347,9 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                     {k: round(v, 5) for k, v in row.items()}))
                 if row.get("eval_loss", np.inf) < best_loss:
                     best_loss, best_epoch = row["eval_loss"], epoch
-                    _timed(saves, save_params, cfg.exp_dir,
-                           "best_audio_model", state.model)
+                    if main:
+                        _timed(saves, save_params, cfg.exp_dir,
+                               "best_audio_model", state.model)
                 if sched is not None and "eval_loss" in row:
                     sched.step(-row["eval_loss"])  # cavmae_base.py:236-237
             if probe_train_ds is not None and probe_val_ds is not None:
@@ -323,23 +359,27 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                                      max_steps_per_epoch=max_steps_per_epoch,
                                      log=log, device=dev)
                 row.update({f"probe_{k}": v for k, v in probe.items()})
-            if cfg.save_model:  # traintest_cavmae_base.py:232
+            if main and cfg.save_model:  # traintest_cavmae_base.py:232
                 _timed(saves, save_params, cfg.exp_dir,
                        f"audio_model.{epoch}", state.model)
-            if (epoch % max(cfg.train_state_every, 1) == 0
-                    or epoch == cfg.n_epochs):
+            if main and (epoch % max(cfg.train_state_every, 1) == 0
+                         or epoch == cfg.n_epochs):
                 _timed(saves, save_train_state, cfg.exp_dir,
                        f"train_state.{epoch}", state)
                 prune_train_states(cfg.exp_dir, cfg.keep_train_states)
             timing["epochs"].append(t_epoch)
             result_rows.append(row)
             mlog.log(row, step=global_step)
-            _write_csv(os.path.join(cfg.exp_dir, "result.csv"), result_rows)
             # progress.pkl parity (traintest_cavmae_base.py:47-51)
             progress.append([epoch, global_step, best_epoch, best_loss,
                              time.time() - start_time])
-            with open(os.path.join(cfg.exp_dir, "progress.pkl"), "wb") as f:
-                pickle.dump(progress, f)
+            if main:
+                _write_csv(os.path.join(cfg.exp_dir, "result.csv"),
+                           result_rows)
+                with open(os.path.join(cfg.exp_dir, "progress.pkl"),
+                          "wb") as f:
+                    pickle.dump(progress, f)
+            pdist.barrier("pretrain-epoch")
         return {"state": state, "best_epoch": best_epoch,
                 "rows": result_rows, "model": state.model, "timing": timing}
     finally:
@@ -358,8 +398,9 @@ def validate_pretrain(eval_fn, model, val_ds: AVDataset, cfg: PretrainConfig,
                       device="cuda") -> Dict:
     """The eval step over ``val_ds`` (padded to a batch multiple), batch i
     drawing from ``step_generator(None, i)``, the counterpart of
-    ``PRNGKey(i)``: each metric's mean over the batches as ``eval_*``, and
-    the number of batches as ``batches``."""
+    ``PRNGKey(i)``: each metric's mean over the batches as ``eval_*``
+    (under a process group, each process's over its slab, averaged over
+    the processes), and the number of batches as ``batches``."""
     transform = make_eval_transform(cfg.audio, im_res=cfg.model.vit.img_size,
                                     single_frame=True)
     loader = _epoch_loader(val_ds, cfg.batch_size, 0, cfg.seed, transform, 0,
@@ -376,7 +417,8 @@ def validate_pretrain(eval_fn, model, val_ds: AVDataset, cfg: PretrainConfig,
             n += 1
     finally:
         loader.close()
-    out = {f"eval_{k}": v / max(n, 1) for k, v in sums.items()}
+    out = pdist.average_across_processes(
+        {f"eval_{k}": v / max(n, 1) for k, v in sums.items()})
     out["batches"] = n
     return out
 
@@ -412,6 +454,8 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
         cfg.seed), dev)
     if init_params is not None:
         state.model.load_state_dict(init_params)
+    _replicate(state.model)
+    main = pdist.is_main_process()
     timing = {"restore_s": None, "wa_s": None, "epochs": []}
     start_epoch = 1
     if resume:
@@ -427,8 +471,9 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
     transform = make_train_transform(cfg.audio,
                                      im_res=cfg.model.vit.img_size)
 
-    os.makedirs(os.path.join(cfg.exp_dir, "models"), exist_ok=True)
-    mlog = MetricsLogger(cfg.exp_dir)
+    if main:
+        os.makedirs(os.path.join(cfg.exp_dir, "models"), exist_ok=True)
+    mlog = MetricsLogger(cfg.exp_dir, main_process=main)
     try:
         best_metric, best_epoch, non_improving = -np.inf, 0, 0
         rows, _ = _resume_history(cfg.exp_dir, start_epoch)
@@ -535,37 +580,44 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
                 metric = mAP if cfg.metrics == "mAP" else acc
                 log(f"FT eval epoch {epoch}: mAP {mAP:.4f} AUC {mAUC:.4f} "
                     f"acc {acc:.4f}")
-                with open(os.path.join(cfg.exp_dir, f"stats_{epoch}.pickle"),
-                          "wb") as f:
-                    pickle.dump(stats, f)
+                if main:
+                    with open(os.path.join(cfg.exp_dir,
+                                           f"stats_{epoch}.pickle"),
+                              "wb") as f:
+                        pickle.dump(stats, f)
                 if metric > best_metric:
                     best_metric, best_epoch, non_improving = metric, epoch, 0
-                    _timed(saves, save_params, cfg.exp_dir,
-                           "best_audio_model", state.model)
+                    if main:
+                        _timed(saves, save_params, cfg.exp_dir,
+                               "best_audio_model", state.model)
                 else:
                     non_improving += 1
                 if sched is not None:
                     sched.step(metric)  # traintest_ft_base.py:266-270
-            if cfg.save_model:  # traintest_ft_base.py:262
+            if main and cfg.save_model:  # traintest_ft_base.py:262
                 _timed(saves, save_params, cfg.exp_dir,
                        f"audio_model.{epoch}", state.model)
-            if (epoch % max(cfg.train_state_every, 1) == 0
-                    or epoch == cfg.n_epochs):
+            if main and (epoch % max(cfg.train_state_every, 1) == 0
+                         or epoch == cfg.n_epochs):
                 _timed(saves, save_train_state, cfg.exp_dir,
                        f"train_state.{epoch}", state)
                 prune_train_states(cfg.exp_dir, cfg.keep_train_states)
             timing["epochs"].append(t_epoch)
             rows.append(row)
             mlog.log(row, step=global_step)
-            _write_csv(os.path.join(cfg.exp_dir, "result.csv"), rows)
-            if non_improving >= 3:  # traintest_ft_base.py:249-251
+            if main:
+                _write_csv(os.path.join(cfg.exp_dir, "result.csv"), rows)
+            stop = non_improving >= 3  # traintest_ft_base.py:249-251
+            if stop:
                 log("early stop")
-                if epoch % max(cfg.train_state_every, 1) != 0:
+                if main and epoch % max(cfg.train_state_every, 1) != 0:
                     # the last epoch run always has a train state to resume
                     # from, early stop or not
                     _timed(saves, save_train_state, cfg.exp_dir,
                            f"train_state.{epoch}", state)
                     prune_train_states(cfg.exp_dir, cfg.keep_train_states)
+            pdist.barrier("finetune-epoch")
+            if stop:
                 break
 
         out = {"state": state, "best_epoch": best_epoch, "best": best_metric,
@@ -613,7 +665,11 @@ def validate_ft(eval_fn, model, val_ds: AVDataset, cfg: FinetuneConfig,
     frames a clip, padded to a batch multiple), then on the host the
     sigmoid, the frame mean and ``calculate_stats`` over the clips without
     the padding. Returns (stats, the mean of the batches' losses on the
-    frame-mean logits, the number of batches)."""
+    frame-mean logits, the number of batches). Under a process group each
+    process runs its slab of the set, and the predictions and targets are
+    gathered in rank order before the statistics, which are then the whole
+    set's on every process; the loss stays the process's own batch mean,
+    as in the JAX loop."""
     transform = make_eval_transform(cfg.audio, im_res=cfg.model.vit.img_size)
     loader = _epoch_loader(val_ds, cfg.batch_size, 0, cfg.seed, transform, 0,
                            frames_per_sample=cfg.model.num_eval_frames,
@@ -637,8 +693,11 @@ def validate_ft(eval_fn, model, val_ds: AVDataset, cfg: FinetuneConfig,
     finally:
         loader.close()
     n = len(val_ds)
-    stats = calculate_stats(np.concatenate(preds)[:n],
-                            np.concatenate(targets)[:n])
+    # this process's batch-alignment padding goes before the ordered gather
+    slab = len(eval_shard_indices(n, pdist.world_size(), pdist.rank()))
+    stats = calculate_stats(
+        pdist.gather_eval_outputs(np.concatenate(preds)[:slab], n),
+        pdist.gather_eval_outputs(np.concatenate(targets)[:slab], n))
     return stats, float(np.mean(losses)), len(losses)
 
 
@@ -655,7 +714,8 @@ def linear_probe(pretrain_params: Dict[str, torch.Tensor],
     ``pre_cfg.seed``) with the pretrain state_dict's trunk and fusion
     layers, base frozen, heads and fusion layers at 5e-5 x 100, trained
     ``epochs`` epochs in 'joint_av' without augmentation, then evaluated
-    in 'joint_av', 'audioonly' and 'videoonly': {mode_mAP, mode_AUC}."""
+    in 'joint_av', 'audioonly' and 'videoonly': {mode_mAP, mode_AUC}.
+    Under a process group it runs over the same group, as the loops do."""
     dev = resolve_device(device)
     ft_cfg = FinetuneConfig(
         model=CAVMAEFTConfig(vit=pre_cfg.model.vit, label_dim=n_class,

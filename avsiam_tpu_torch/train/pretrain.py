@@ -21,11 +21,22 @@ the same results from the same seed. ``step_generator`` gives the generator
 of step n, keyed on (seed, n) as the JAX step keys its masks on
 ``fold_in(rng, state.step)``: a resumed run draws what the run it continues
 would have drawn.
+
+Data parallelism (under a process group, ``parallel/dist.py``): each
+process holds the whole model and its block of the global batch. Every
+process draws the global batch's masks from the same generator and its
+forwards take its block of them (``MaskDraws.block``); the InfoNCE is the
+global batch's (``ops/contrastive.py:GatherLayer``); after each backward
+the gradients are averaged over the processes (flat buckets in a fixed
+order, ``all_reduce_mean_``) before that pass's Adam, so the parameters
+stay replicated; the step's metrics are the global ones, the same on every
+process. The graphed step captures these collectives. Without a group
+nothing of this runs.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,6 +45,7 @@ from avsiam_tpu_torch import kernels
 from avsiam_tpu_torch.configs import CAVMAEConfig, PretrainConfig
 from avsiam_tpu_torch.data.pipeline import batch_generator_seed
 from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain, MaskDraws, draw_masks
+from avsiam_tpu_torch.parallel import dist as pdist
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import (lr_tensor, masked_torch_adam,
                                           multistep_lr_factor)
@@ -81,11 +93,32 @@ def draw_step_masks(cfg: CAVMAEConfig, batch: int, generator: torch.Generator,
             draw_masks(cfg, batch, generator, device, mae=True, contrast=False))
 
 
-def _apply(opt: torch.optim.Adam) -> None:
+def process_block(draws: Tuple[MaskDraws, MaskDraws], batch: int
+                  ) -> Tuple[MaskDraws, MaskDraws]:
+    """Under a process group, the global batch's draws with this process's
+    block of rows, [rank * batch, (rank + 1) * batch), ``batch`` being the
+    local batch; without one, the draws as they are."""
+    if not pdist.active():
+        return draws
+    lo = pdist.rank() * batch
+    return tuple(replace(d, block=(lo, lo + batch)) for d in draws)
+
+
+# the pass-2 metrics that are per-process means under data parallelism
+MAE_METRICS = ("loss", "loss_mae", "loss_mae_a", "loss_mae_v")
+
+
+def _apply(opt: torch.optim.Adam, reduce: bool = False) -> None:
+    """``opt``'s step, its touched parameters' gradients averaged over the
+    processes first where ``reduce``."""
+    grads = []
     for group in opt.param_groups:
         for p in group["params"]:
             if p.grad is None:  # touched but unreached: a zero gradient, as
                 p.grad = torch.zeros_like(p)  # the masked optax Adam sees it
+            grads.append(p.grad)
+    if reduce:
+        pdist.all_reduce_mean_(grads)
     opt.step()
 
 
@@ -94,8 +127,12 @@ def pretrain_step_body(cfg: PretrainConfig, state: PretrainState,
                        draws2: MaskDraws) -> Dict[str, torch.Tensor]:
     """Both passes on the batch (a, v) with their draws, each Adam at the
     rate ``state.lr`` holds: the work of one step, with no host sync, which
-    the graphed step captures. Returns the metrics as device tensors."""
+    the graphed step captures. Returns the metrics as device tensors. Under
+    a process group (a and v this process's block of the batch, the draws
+    the global batch's with that block) the gradients are averaged over the
+    processes before each Adam, and the metrics are the global batch's."""
     model = state.model
+    dp = pdist.active()
 
     def run_pass(opt, mae_w, contrast_w, d):
         model.zero_grad(set_to_none=True)
@@ -103,12 +140,12 @@ def pretrain_step_body(cfg: PretrainConfig, state: PretrainState,
                     mae_loss_weight=mae_w, contrast_loss_weight=contrast_w,
                     mask_mode=cfg.mask_mode, draws=d)
         out[0].backward()
-        _apply(opt)
+        _apply(opt, dp)
         return out
 
     out1 = run_pass(state.opt1, 0.0, 1.0, draws1)  # contrastive only
     out2 = run_pass(state.opt2, 1.0, 0.0, draws2)  # MAE only, updated params
-    return {
+    metrics = {
         "loss": out2[0].detach(),  # the reference's meters track pass 2
         "loss_c": out1[4].detach(),
         "c_acc": out1[7].detach(),
@@ -116,6 +153,17 @@ def pretrain_step_body(cfg: PretrainConfig, state: PretrainState,
         "loss_mae_a": out2[2].detach(),
         "loss_mae_v": out2[3].detach(),
     }
+    if dp:
+        # each process's MAE loss is the masked mean over its block, and
+        # their mean over the processes is JAX's masked mean over the
+        # global batch only because every sample masks the same number of
+        # patches (len_keep_for at cfg.model.mae_mask_ratio), so every
+        # block's mask sums to the same count; the same holds for the
+        # gradient mean above. loss_c and c_acc are the global batch's
+        mae = torch.stack([metrics[k] for k in MAE_METRICS])
+        pdist.all_reduce_mean_([mae])
+        metrics.update(zip(MAE_METRICS, mae.unbind()))
+    return metrics
 
 
 def make_pretrain_step(cfg: PretrainConfig):
@@ -123,13 +171,17 @@ def make_pretrain_step(cfg: PretrainConfig):
     (state, metrics). ``batch`` is (fbank [B, T, F], frames [B, 3, H, W]);
     the masking draws of both passes come from ``generator`` unless
     ``draws`` gives them as (pass-1 MaskDraws, pass-2 MaskDraws). ``lr`` (a
-    float or a 0-d tensor) is written into ``state.lr``."""
+    float or a 0-d tensor) is written into ``state.lr``. Under a process
+    group ``batch`` is this process's block of the global batch, and the
+    draws (drawn or given) are the global batch's."""
 
     def step(state: PretrainState, batch, generator: Optional[torch.Generator],
              lr, draws: Optional[Tuple[MaskDraws, MaskDraws]] = None):
         a, v = batch
         if draws is None:
-            draws = draw_step_masks(cfg.model, a.shape[0], generator, a.device)
+            draws = draw_step_masks(cfg.model, a.shape[0] * pdist.world_size(),
+                                    generator, a.device)
+        draws = process_block(draws, a.shape[0])
         state.lr.fill_(lr)
         metrics = pretrain_step_body(cfg, state, a, v, *draws)
         state.step += 1
@@ -170,8 +222,9 @@ class _GraphedPretrainStep:
                     f"{name} {tuple(x.shape)} {x.dtype} on {x.device}: the "
                     f"step is captured for {tuple(s.shape)} {s.dtype} on "
                     f"{s.device}")
-        d1, d2 = draws if draws is not None else draw_step_masks(
-            self.cfg.model, self.a.shape[0], generator, self.a.device)
+        d1, d2 = process_block(draws if draws is not None else draw_step_masks(
+            self.cfg.model, self.a.shape[0] * pdist.world_size(), generator,
+            self.a.device), self.a.shape[0])
         if first:
             self.draws = (d1.map(torch.clone), d2.map(torch.clone))
         else:
@@ -205,6 +258,13 @@ class _GraphedPretrainStep:
             raise ValueError(f"fbank {tuple(a.shape)} on {a.device} and "
                              f"frames {tuple(v.shape)} on {v.device} are no "
                              f"batch for a state on {device}")
+        if pdist.world_size() > 1 and self.cfg.model.mmixed_impl != "padded":
+            raise ValueError(
+                f"mmixed_impl {self.cfg.model.mmixed_impl!r} over "
+                f"{pdist.world_size()} processes: a process's share of each "
+                f"chunk changes from step to step, which one graph cannot "
+                f"hold; 'padded' has one shape (the eager step takes every "
+                f"form)")
         self.state, self.a, self.v = state, a.clone(), v.clone()
 
     def _body(self):
@@ -229,6 +289,10 @@ class _GraphedPretrainStep:
         pool, with the eager blocks cached beside it released first, and
         keep the kernel launches the capture counted."""
         self.state.model.zero_grad(set_to_none=True)
+        if pdist.active():
+            # the communicator must exist before the capture starts: its
+            # creation cannot be captured
+            pdist.all_reduce_mean_([torch.zeros(1, device=self.a.device)])
         torch.cuda.synchronize(self.a.device)
         torch.cuda.empty_cache()
         before = dict(kernels.LAUNCHES)
@@ -272,7 +336,11 @@ def make_graphed_pretrain_step(cfg: PretrainConfig) -> _GraphedPretrainStep:
     frozen at capture: a later change of either does not reach the
     graph. The capture is thread-local, so a data loader's worker thread
     may copy the next batch to the card while it runs
-    (``data/pipeline.py:device_loader``)."""
+    (``data/pipeline.py:device_loader``), and so may NCCL's watchdog
+    thread. Under a process group the capture holds the step's collectives
+    (the gathers of the InfoNCE, the gradient and metric means); over more
+    than one process it takes the 'padded' form only, whose shapes do not
+    change from step to step."""
     return _GraphedPretrainStep(cfg)
 
 

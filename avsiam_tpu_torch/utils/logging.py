@@ -4,8 +4,8 @@ Counterpart of ``avsiam_tpu/utils/logging.py``: ``MetricsLogger`` appends
 one JSON object a call to ``{exp_dir}/metrics.jsonl``, and attaches wandb
 only when the package is importable and ``WANDB_PROJECT`` is set (hosts
 with no network get the JSONL alone). ``main_process`` is True unless the
-caller says otherwise: the port runs one process until the multi-card
-module brings ranks; another process's logger writes nothing.
+caller says otherwise: under data parallelism the loops pass rank 0's
+flag, and another process's logger writes nothing.
 """
 
 from __future__ import annotations

@@ -109,6 +109,25 @@ Phases (any failure raises and the script exits non-zero):
    K1/K2 at the fusion layers' (2, 708, 12, 64) and K3 at their rows in
    a step (64 x 708), and at the end of the script in the eval (640 x
    708, its plain version and composite untimed).
+   RET. The port's retrieval runner (``python -m avsiam_tpu_torch.cli.
+   retrieval``'s ``main``, in this process) on FT64's
+   ``best_audio_model`` over FT64's 64 eval clips, with the VGGSound
+   recipe's model, classes, target length and normalisation, batch 64:
+   R@1/R@5/R@10/MR each way, the launches of one 'retrieval' forward a
+   batch (24 K1, 24 K3); then the same clips' features through the
+   kernels against the float32 plain versions on the card, within 2e-2,
+   and the forward's device time each way (``run_retrieval``).
+   DP1. This script as its own worker (``--dp1-worker``) under ``python
+   -m torch.distributed.run --standalone --nproc_per_node=1``: one rank,
+   NCCL (the host has one card, and NCCL takes one rank a device). (a)
+   P64's graphed step with the collectives in the graph, three steps
+   from the eager-vs-graphed check's seed, state, batch and draws: every
+   parameter, Adam moment, step count and metric the same bits as that
+   check's single-process graphed run; five replays timed and one
+   profiled (the NCCL kernels' calls and device time). (b) The pretrain
+   runner on CLI64 (a)'s command line: ``result.csv`` and every
+   parameter the same bits as CLI64 (a)'s. Launch counts exact in both
+   (``run_dp1``).
 4. reference: for configurations A-E, P64 and H64, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
@@ -1550,10 +1569,15 @@ def main(argv=None) -> int:
     ap.add_argument("--report", default=None,
                     help="write per-shape measurements here as JSON")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp1-worker", default=None, metavar="PATH",
+                    help="run as phase DP1's worker under torch.distributed."
+                         "run, writing its results to PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    if args.dp1_worker:
+        return dp1_worker(args.dp1_worker, args.seed)
     from avsiam_tpu_torch import kernels
 
     # matmuls of the float32 plain versions run in full float32
@@ -1647,6 +1671,7 @@ def main(argv=None) -> int:
                              if label in ("A64", "P64", "H64")
                              or label.startswith("F-")})
     launches = {}
+    dp1_steps, dp1_cli = {}, {}  # DP1's references
     for label, p in phases.items():
         with env_flags(p["split"], p["ln"]):
             launches[label] = run_steps(
@@ -1655,7 +1680,8 @@ def main(argv=None) -> int:
                 args.seed, report, p["n_steps"])
         if label in ("A", "P64"):
             report.setdefault("eager_vs_graphed", {})[label] = \
-                compare_eager_graphed(p["cfg"], args.seed)
+                compare_eager_graphed(p["cfg"], args.seed, keep=dp1_steps
+                                      if label == "P64" else None)
     log(f"step phases done at {time.time() - t0:.0f} s")
     p64 = phases["P64"]
     launches["PD64"] = run_data_fed(
@@ -1664,12 +1690,17 @@ def main(argv=None) -> int:
         args.seed, report)
     pretrain_params = kernels.BUILD_DIR.parent / "chip_smoke_pretrain_params"
     launches["CLI64"] = run_cli("CLI64", args.seed, report,
-                                keep_params=pretrain_params)
+                                keep_params=pretrain_params,
+                                reference=dp1_cli)
+    ft_params = kernels.BUILD_DIR.parent / "chip_smoke_ft_params"
     try:
         launches["FT64"] = run_ft_cli("FT64", args.seed, report,
-                                      pretrain_params)
+                                      pretrain_params, keep_params=ft_params)
+        launches["RET"] = run_retrieval("RET", args.seed, report, ft_params)
     finally:
         pretrain_params.unlink(missing_ok=True)
+        ft_params.unlink(missing_ok=True)
+    launches["DP1"] = run_dp1("DP1", args.seed, report, dp1_steps, dp1_cli)
     log(f"runner phases done at {time.time() - t0:.0f} s")
     report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
     for label in REFERENCE_PHASES:
@@ -1705,14 +1736,19 @@ def main(argv=None) -> int:
         "ft64": {k: report["steps"]["FT64"][k] for k in (
             "wall_s", "peak_gib", "branches", "wa_s", "eval_acc")},
         "ftr": {b: {k: r[k] for k in ("rel", "grad_cos")}
-                for b, r in report["reference"]["FTR"].items()}}))
+                for b, r in report["reference"]["FTR"].items()},
+        "dp1": {k: report["steps"]["DP1"][k] for k in (
+            "graphed_steady_ms", "nccl_ms", "nccl_calls", "state_tensors",
+            "params_equal", "runner_s")},
+        "ret": {k: report["steps"]["RET"][k] for k in (
+            "rows", "feature_rel_err", "forward_ms", "plain_forward_ms")}}))
     log(card)
     entries = kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
                              launches)
-    for e in entries:  # the data-fed and runner phases' counts
+    for e in entries:  # the data-fed, runner and DP phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
-        e["cli64_launches"] = launches["CLI64"].get(e["name"], 0)
-        e["ft64_launches"] = launches["FT64"].get(e["name"], 0)
+        for phase in ("CLI64", "FT64", "RET", "DP1"):
+            e[f"{phase.lower()}_launches"] = launches[phase].get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2105,7 +2141,66 @@ def state_diffs(got, want) -> dict:
     return diffs
 
 
-def run_cli(label, seed, report, keep_params=None):
+def cli_paths(tmp) -> dict:
+    """CLI64's data under the directory ``tmp``: a 640-clip train and a
+    128-clip validation index of 'synthetic' clips over 527 classes and
+    their label CSV, as the recipe's variables (DATA_TRAIN, DATA_VAL,
+    LABEL_CSV)."""
+    def index(name, n):
+        path = tmp / name
+        path.write_text(json.dumps({"data": [
+            {"wav": f"synthetic/{name}/{i}.wav", "labels": f"/m/{i % 527}"}
+            for i in range(n)]}))
+        return str(path)
+
+    labels = tmp / "labels.csv"
+    labels.write_text("index,mid,display_name\n" + "".join(
+        f"{i},/m/{i},class {i}\n" for i in range(527)))
+    return dict(DATA_TRAIN=index("train.json", 64 * CLI_TRAIN_BATCHES),
+                DATA_VAL=index("val.json", CLI_VAL_CLIPS),
+                LABEL_CSV=str(labels))
+
+
+def cli_argv(paths, exp_dir, *extra):
+    """The pretrain recipe's words over ``paths`` into ``exp_dir``, with
+    'synthetic' frames, ``CLI_STEPS`` steps an epoch and ``extra``."""
+    return recipe_argv(**paths, EXP_DIR=str(exp_dir)) + [
+        "--frame_source", "synthetic", "--max_steps_per_epoch",
+        str(CLI_STEPS), *extra]
+
+
+def digests(tensors) -> dict:
+    """{name: blake2b of the tensor's bytes}: two equal digests mean the
+    same bits."""
+    import hashlib
+    return {name: hashlib.blake2b(
+        t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+        .tobytes(), digest_size=16).hexdigest() for name, t in tensors}
+
+
+def state_tensors(state, moments: bool = True):
+    """(name, tensor) of every parameter and, with ``moments``, of each
+    Adam's moments and step counts of a pretrain state."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    yield from state.model.named_parameters()
+    if moments:
+        for which, opt in state.optimizers().items():
+            for p, st in opt.state.items():
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    yield f"{which} {k} {names[id(p)]}", st[k]
+
+
+def same_bits(label, got: dict, want: dict) -> int:
+    """The number of equal digests; raises unless every one is."""
+    diff = sorted(k for k in want if got.get(k) != want[k])
+    if got.keys() != want.keys() or diff:
+        raise AssertionError(f"{label}: {len(diff)} of {len(want)} tensors "
+                             f"differ (first: {diff[:3]}), names equal "
+                             f"{got.keys() == want.keys()}")
+    return len(want)
+
+
+def run_cli(label, seed, report, keep_params=None, reference=None):
     """Phase CLI64: the port's runner, ``avsiam_tpu_torch.cli.pretrain.main``,
     on the AudioSet pretrain recipe's command line word for word
     (``recipes/pretrain_audioset.sh``: ViT-B, B=64, lr 2e-4, mask 0.25,
@@ -2131,7 +2226,9 @@ def run_cli(label, seed, report, keep_params=None):
     ``per_sample_data_time``, ms per validation batch, seconds per
     checkpoint save and per restore, and the peak allocated GiB. With
     ``keep_params`` (a path) (b)'s ``best_audio_model`` is copied there
-    before the directories go."""
+    before the directories go; with ``reference`` (a dict) (a)'s
+    ``result.csv`` rows and its parameters' digests are kept there (for
+    DP1)."""
     import csv
     import gc
     import shutil
@@ -2150,27 +2247,13 @@ def run_cli(label, seed, report, keep_params=None):
         f"pretrain recipe's flags, {CLI_STEPS} steps an epoch, "
         f"{CLI_VAL_CLIPS} validation clips, under {tmp}")
 
-    def index(name, n):
-        path = tmp / name
-        path.write_text(json.dumps({"data": [
-            {"wav": f"synthetic/{name}/{i}.wav", "labels": f"/m/{i % 527}"}
-            for i in range(n)]}))
-        return str(path)
-
-    labels = tmp / "labels.csv"
-    labels.write_text("index,mid,display_name\n" + "".join(
-        f"{i},/m/{i},class {i}\n" for i in range(527)))
-    paths = dict(DATA_TRAIN=index("train.json", 64 * CLI_TRAIN_BATCHES),
-                 DATA_VAL=index("val.json", CLI_VAL_CLIPS),
-                 LABEL_CSV=str(labels))
+    paths = cli_paths(tmp)
     expect = {}
     runs = {}
     total = {}
 
     def run(what, exp, *extra):
-        argv = recipe_argv(**paths, EXP_DIR=str(tmp / exp)) + [
-            "--frame_source", "synthetic", "--max_steps_per_epoch",
-            str(CLI_STEPS), *extra]
+        argv = cli_argv(paths, tmp / exp, *extra)
         os.environ.pop("AVSIAM_PLATFORM", None)  # the card
         gc.collect()
         torch.cuda.empty_cache()
@@ -2231,6 +2314,9 @@ def run_cli(label, seed, report, keep_params=None):
 
     try:
         a = run("a", "a", "--n-epochs", "1")
+        if reference is not None:
+            reference.update(rows=runs["a"]["rows"], params=digests(
+                a["model"].named_parameters()))
         del a
         b = run("b", "a", "--n-epochs", "2", "--resume")
         state_b = b["state"]
@@ -2351,7 +2437,7 @@ def ft_launches(cfg, batch: int, frames: int = 1, branch=None) -> dict:
     return out
 
 
-def run_ft_cli(label, seed, report, pretrain_path):
+def run_ft_cli(label, seed, report, pretrain_path, keep_params=None):
     """Phase FT64: the port's finetune runner, ``avsiam_tpu_torch.cli.
     finetune.main``, on the VGGSound recipe's command line word for word
     (``recipes/ft_vggsound.sh``: ViT-B, 'mm_grad', CE, accuracy, B=64, 309
@@ -2371,8 +2457,9 @@ def run_ft_cli(label, seed, report, pretrain_path):
     run (``ft_launches``). Printed per epoch: the steps by branch, clips/s
     from the loop's ``per_sample_time`` meter, the data share, ms per
     10-frame validation batch and seconds per save; then the averaging's
-    seconds and the peak allocated GiB. Returns the run's launch
-    counts."""
+    seconds and the peak allocated GiB. With ``keep_params`` (a path) the
+    run's ``best_audio_model`` is copied there before the directory goes.
+    Returns the run's launch counts."""
     import csv
     import gc
     import shutil
@@ -2477,7 +2564,336 @@ def run_ft_cli(label, seed, report, pretrain_path):
             batch=64, wall_s=wall, peak_gib=peak, launches=launches,
             branches=dict(state.branches), epochs=epochs, rows=rows,
             wa_s=wa_s, eval_acc=acc, best_epoch=out["best_epoch"])
+        if keep_params is not None:
+            shutil.copyfile(exp / "models" / "best_audio_model", keep_params)
         del out, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------- data-parallel phase
+DP1_STEPS = 3      # graphed steps held bit for bit against one process's
+DP1_TIMED = 5      # more replays, timed
+DP1_TIMEOUT = 420  # seconds for the launcher and its worker
+
+
+def dp1_worker(out_path: str, seed: int) -> int:
+    """DP1's worker, one rank under ``torch.distributed.run`` on the card
+    (NCCL): (a) P64's graphed step (ViT-B, 'padded', B=64) under the
+    process group, the collectives in the graph, ``DP1_STEPS`` steps from
+    ``compare_eager_graphed``'s seed, state, batch and draws, then
+    ``DP1_TIMED`` timed replays and one profiled; (b) the pretrain runner
+    on CLI64's (a) command line. Writes the digests, metrics, rows,
+    timings and launch counts to ``out_path`` as JSON."""
+    import csv
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.cli import pretrain as cli
+    from avsiam_tpu_torch.configs import PretrainConfig
+    from avsiam_tpu_torch.parallel import dist as pdist
+    from avsiam_tpu_torch.train.pretrain import (init_state,
+                                                 make_graphed_pretrain_step)
+    info = pdist.initialize_multihost()
+    if not (pdist.active() and torch.distributed.get_backend() == "nccl"):
+        raise AssertionError(f"DP1: no NCCL process group ({info})")
+    out = {"info": info}
+    impls, batch = next((i, b) for label, i, _, _, _, b in PHASES
+                        if label == "P64")
+    cfg = phase_config(impls, depth=PHASE_DEPTH.get("P64"), batch=batch)
+    per_step = expected_launches(cfg, main_path_shapes(cfg, cfg.batch_size),
+                                 False, False, 1)
+    kernels.library()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_state(cfg, gen, "cuda")
+    batch = step_batch(cfg, gen)
+    step = make_graphed_pretrain_step(cfg)
+    kernels.reset_launches()
+    metrics = []
+    for i in range(DP1_STEPS):
+        state, m = step(state, batch, gen, cfg.opt.lr * 0.5 ** i)
+        metrics.append({k: float(x).hex() for k, x in m.items()})
+    torch.cuda.synchronize()
+    out.update(metrics=metrics, state=digests(state_tensors(state)))
+    steps = timed_steps("DP1 replay", step, state, batch, gen, cfg.opt.lr,
+                        DP1_TIMED, first=DP1_STEPS)
+    steady = median_after_first(steps)
+    prof = profile_step(step, state, batch, gen, cfg.opt.lr, steady)
+    n_calls = DP1_STEPS + DP1_TIMED + 1
+    launches_a = dict(kernels.LAUNCHES)
+    check_launches("DP1 (a)", launches_a, per_step, n_calls)
+    nccl_ms = None if prof is None else prof["groups"].get(
+        "NCCL collectives", 0.0)
+    nccl_calls = None if prof is None else prof["group_calls"].get(
+        "NCCL collectives", 0)
+    out.update(steady_ms=steady, nccl_ms=nccl_ms, nccl_calls=nccl_calls,
+               busy_ms=None if prof is None else prof["busy_ms"],
+               launches_a=launches_a, calls_a=n_calls)
+    del step, state
+    torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_dp1"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root))
+    try:
+        kernels.reset_launches()
+        t0 = time.time()
+        run = cli.main(cli_argv(cli_paths(tmp), tmp / "exp", "--n-epochs",
+                                "1"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches_b = dict(kernels.LAUNCHES)
+        rcfg = PretrainConfig(model=run["state"].model.cfg, batch_size=64)
+        epochs = run["timing"]["epochs"]
+        n_steps = sum(e["steps"] for e in epochs)
+        n_evals = sum(e["eval_batches"] for e in epochs)
+        step_l = expected_launches(rcfg, main_path_shapes(rcfg, 64), False,
+                                   False, 1)
+        eval_l = forward_launches(rcfg, main_path_shapes(rcfg, 64,
+                                                         mae=False))
+        want = {k: n_steps * n + n_evals * eval_l[k]
+                for k, n in step_l.items()}
+        if launches_b != want:
+            raise AssertionError(f"DP1 (b): launches {launches_b} != {want}")
+        with open(tmp / "exp" / "result.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        files = sorted(str(p.relative_to(tmp / "exp"))
+                       for p in (tmp / "exp").rglob("*") if p.is_file())
+        out.update(rows=rows, params=digests(
+            run["model"].named_parameters()), runner_s=wall,
+            launches_b=launches_b, runner_steps=n_steps,
+            runner_evals=n_evals, files=files, epochs=epochs)
+        del run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_dp1(label, seed, report, ref_steps, ref_cli):
+    """Phase DP1: ``chip_smoke.py --dp1-worker`` launched through
+    ``python -m torch.distributed.run --standalone --nproc_per_node=1`` (one
+    rank, NCCL; the card's host has one card, and NCCL takes one rank a
+    device). (a) against ``ref_steps``, the single-process graphed P64 run
+    of ``compare_eager_graphed``: every parameter, Adam moment and step
+    count (digests) and every metric of the ``DP1_STEPS`` steps the same
+    bits (a mean over one rank and a gather of one are exact); the steady
+    replay, the NCCL kernels' device time in a profiled replay, K1-K3's
+    launches. (b) against ``ref_cli``, CLI64's run (a): ``result.csv`` and
+    every parameter the same bits; the files rank 0 wrote. Returns the
+    worker's launch counts, (a)'s and (b)'s summed."""
+    import signal
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    out_path = root / "build" / "chip_smoke_dp1.json"
+    out_path.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", str(root / "chip_smoke.py"), "--dp1-worker",
+           str(out_path), "--seed", str(seed)]
+    log(f"phase {label}: {' '.join(cmd[1:])}: (a) P64's graphed step with "
+        f"its collectives over one NCCL rank, {DP1_STEPS} steps against the "
+        f"single-process graphed run, {DP1_TIMED} replays timed; (b) the "
+        f"pretrain runner on CLI64 (a)'s command line")
+    env = dict(os.environ)
+    env.pop("AVSIAM_PLATFORM", None)
+    # torchrun would set 1 thread where the variable is unset
+    env.setdefault("OMP_NUM_THREADS", str(torch.get_num_threads()))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DP1_TIMEOUT)
+    finally:
+        if proc.poll() is None:  # the launcher and its worker, on timeout
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.time() - t0
+    for line in text.splitlines():
+        if line.startswith(("  ", "phase", "Epoch", "Eval", "mesh", "pretrain",
+                            "resumed")):
+            log(f"  | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: the worker exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    with open(out_path) as f:
+        got = json.load(f)
+    n_state = same_bits(f"{label} (a) state", got["state"], ref_steps["state"])
+    if got["metrics"] != ref_steps["metrics"]:
+        raise AssertionError(f"{label} (a): metrics {got['metrics']} != "
+                             f"{ref_steps['metrics']}")
+    n_params = same_bits(f"{label} (b) params", got["params"],
+                         ref_cli["params"])
+    if got["rows"] != ref_cli["rows"]:
+        raise AssertionError(f"{label} (b): result.csv {got['rows']} != "
+                             f"{ref_cli['rows']}")
+    launches = {k: got["launches_a"][k] + got["launches_b"][k]
+                for k in got["launches_a"]}
+    nccl = got["nccl_ms"]
+    log(f"  {label} (a): {n_state} tensors and "
+        f"{DP1_STEPS * len(got['metrics'][0])} metrics equal bit for bit to "
+        f"the single-process graphed step; steady replay "
+        f"{got['steady_ms']:.1f} ms, NCCL kernels "
+        + ("not measured" if nccl is None else
+           f"{got['nccl_calls']} calls, {nccl:.2f} ms")
+        + " of device time a step; launches "
+        + ", ".join(f"{k} {n}" for k, n in got["launches_a"].items() if n)
+        + f" as expected ({got['calls_a']} calls)")
+    log(f"  {label} (b): {got['runner_steps']} steps, {got['runner_evals']} "
+        f"validation batches in {got['runner_s']:.1f} s; result.csv and "
+        f"{n_params} parameters equal bit for bit to CLI64 (a); rank 0 "
+        f"wrote {got['files']}; launches "
+        + ", ".join(f"{k} {n}" for k, n in got["launches_b"].items() if n)
+        + " as expected")
+    log(f"  {label}: {wall:.1f} s with the launcher")
+    report.setdefault("steps", {})[label] = dict(
+        batch=64, wall_s=wall, graphed_steady_ms=got["steady_ms"],
+        nccl_ms=nccl, nccl_calls=got["nccl_calls"], busy_ms=got["busy_ms"],
+        state_tensors=n_state,
+        runner_s=got["runner_s"], params_equal=n_params,
+        launches=launches, files=got["files"], epochs=got["epochs"])
+    return launches
+
+
+# ------------------------------------------------------- retrieval phase
+RET_TOL = 2e-2  # bf16 kernels against float32 plain versions
+
+
+def retrieval_launches(cfg, batch: int) -> dict:
+    """Each kernel's launches of one 'retrieval' forward: the audio trunk
+    and the video trunk over one frame, no fusion layers."""
+    parts = ft_part_shapes(cfg, batch)
+    attn, mlp = {}, {}
+    for p in ("a", "v"):
+        for table, add in zip((attn, mlp), parts[p]):
+            for k, c in add.items():
+                table[k] = table.get(k, 0) + c
+    return forward_launches(cfg, Shapes(attn, mlp, {}, {}, {}, set()))
+
+
+def run_retrieval(label, seed, report, ft_params):
+    """Phase RET: the port's retrieval runner, ``avsiam_tpu_torch.cli.
+    retrieval.main``, on FT64's ``best_audio_model`` (``ft_params``) over
+    FT64's 64 eval clips, with the VGGSound recipe's model, classes,
+    target length and normalisation, batch 64, on the card: R@1, R@5,
+    R@10 and MR in both directions, the launches one 'retrieval' forward a
+    batch implies (counted from 0 just before). Then the features of the
+    same clips through the kernels (the recipe's bf16 model) against the
+    plain versions (float32, attention 'xla', MLP 'dense', no kernel
+    launched) on the card, from the same parameters: within ``RET_TOL``
+    relative; and the forward's device time a batch, each way. Returns
+    the runner's launch counts."""
+    import csv
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.cli import finetune as ft_cli
+    from avsiam_tpu_torch.cli import retrieval as cli
+    from avsiam_tpu_torch.cli.common import (audio_config_from_args,
+                                             dataset_from_args)
+    from avsiam_tpu_torch.configs import FinetuneConfig, replace
+    from avsiam_tpu_torch.data.dataset import make_eval_transform
+    from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ret"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root))
+    rec = ft_cli.build_parser().parse_args(recipe_argv(
+        FT_RECIPE, "finetune", DATA_TRAIN="", DATA_VAL="", LABEL_CSV="",
+        PRETRAIN="None", EXP_DIR=""))
+    index = tmp / "eval.json"
+    index.write_text(json.dumps({"data": [
+        {"wav": f"synthetic/eval.json/{i}.wav",
+         "labels": f"/m/{i % FT_CLASSES}"} for i in range(FT_EVAL_CLIPS)]}))
+    labels = tmp / "labels.csv"
+    labels.write_text("index,mid,display_name\n" + "".join(
+        f"{i},/m/{i},class {i}\n" for i in range(FT_CLASSES)))
+    argv = ["--data-val", str(index), "--label-csv", str(labels),
+            "--n_class", str(rec.n_class), "--model", rec.model,
+            "--target_length", str(rec.target_length), "--dataset_mean",
+            str(rec.dataset_mean), "--dataset_std", str(rec.dataset_std),
+            "--batch-size", "64", "--frame_source", "synthetic",
+            "--exp-dir", str(tmp / "exp"), "--pretrain_path", str(ft_params)]
+    log(f"phase {label}: python -m avsiam_tpu_torch.cli.retrieval "
+        f"{' '.join(argv)}")
+    os.environ.pop("AVSIAM_PLATFORM", None)  # the card
+    try:
+        kernels.reset_launches()
+        t0 = time.time()
+        rows = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        args = cli.build_parser().parse_args(argv)
+        model = CAVMAEFinetune(cli.model_config(args), "cuda")
+        cli.load_params(str(ft_params), model)
+        n_batches = -(-FT_EVAL_CLIPS // 64)
+        want = {k: n * n_batches for k, n in retrieval_launches(
+            FinetuneConfig(model=model.cfg), 64).items()}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches} != {want}")
+        for r in rows:
+            log(f"  {label} {r['direction']}: R@1 {r['R1']:.4f} R@5 "
+                f"{r['R5']:.4f} R@10 {r['R10']:.4f} MR {r['MR']:.1f}")
+        with open(tmp / "exp" / "retrieval_result.csv", newline="") as f:
+            written = [r["direction"] for r in csv.DictReader(f)]
+        if written != ["audio", "video"]:
+            raise AssertionError(f"{label}: retrieval_result.csv {written}")
+        ds = dataset_from_args(args, str(index), train=False,
+                               num_mel_bins=model.cfg.vit.mel_bins,
+                               im_res=model.cfg.vit.img_size,
+                               frame_use=args.frame_use)
+        plain = CAVMAEFinetune(replace(model.cfg, dtype=torch.float32,
+                                       attn_impl="xla", mlp_impl="dense"),
+                               "cuda")
+        plain.load_state_dict(model.state_dict())
+        feats = {}
+        for name, m in (("kernels", model), ("plain", plain)):
+            kernels.reset_launches()
+            feats[name] = cli.extract_features(args, m, ds)
+            if name == "plain" and any(kernels.LAUNCHES.values()):
+                raise AssertionError(f"{label}: the plain model launched "
+                                     f"{kernels.LAUNCHES}")
+        errs = [float(np.abs(k - p).max() / np.abs(p).max()) for k, p in
+                zip(feats["kernels"], feats["plain"])]
+        host = ds.batch(list(range(64)), np.random.RandomState(0),
+                        frames_per_sample=1)
+        fb, img, _ = make_eval_transform(audio_config_from_args(
+            args, train=False, num_mel_bins=model.cfg.vit.mel_bins),
+            im_res=model.cfg.vit.img_size)(*(torch.from_numpy(
+                np.ascontiguousarray(x)).cuda() for x in host))
+        times = {}
+        with torch.no_grad():
+            for name, m in (("kernels", model), ("plain", plain)):
+                times[name] = time_ms(lambda m=m: m(fb, img, "retrieval"),
+                                      iters=5, warmup=2)
+        log(f"  {label}: features of {FT_EVAL_CLIPS} clips, kernels (bf16) "
+            f"against plain (float32) on the card: audio rel err "
+            f"{errs[0]:.2e}, video {errs[1]:.2e} (<= {RET_TOL}); forward "
+            f"{times['kernels']:.2f} ms a batch of 64 (plain "
+            f"{times['plain']:.2f} ms), device time; the runner {wall:.1f} s "
+            f"with its host batch; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+            + " as expected")
+        if not max(errs) <= RET_TOL:
+            raise AssertionError(f"{label}: features differ from the plain "
+                                 f"versions by {errs}")
+        report.setdefault("steps", {})[label] = dict(
+            batch=64, rows=rows, wall_s=wall, feature_rel_err=errs,
+            forward_ms=times["kernels"], plain_forward_ms=times["plain"],
+            launches=launches)
+        del model, plain
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
@@ -2546,7 +2962,8 @@ def run_ft_reference(seed, report, batch: int = 2):
     torch.cuda.empty_cache()
 
 
-def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
+def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5,
+                          keep=None):
     """Two states from one seed: ``n_steps`` eager steps of one against as
     many calls of the graphed step (warm-up, capture, replay) of the other,
     with draws from generators of one seed and the learning rate halved
@@ -2554,7 +2971,9 @@ def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
     step's metrics and, at the end, every parameter and both Adams' moments
     must agree within ``tol`` relative (max |delta| / max |eager| per
     tensor); identical bits are expected. Returns the largest difference
-    and where it was."""
+    and where it was. With ``keep`` (a dict) the graphed run's end state
+    (``digests``) and each step's metrics (``float.hex``) are kept there:
+    DP1 holds the step under a process group against them."""
     from avsiam_tpu_torch.train.pretrain import (init_state,
                                                  make_graphed_pretrain_step,
                                                  make_pretrain_step)
@@ -2575,6 +2994,9 @@ def compare_eager_graphed(cfg, seed, n_steps: int = 3, tol: float = 1e-5):
         torch.cuda.synchronize()
         runs.append((state, metrics))
     (se, me), (sg, mg) = runs
+    if keep is not None:
+        keep.update(state=digests(state_tensors(sg)), metrics=[
+            {k: float(x).hex() for k, x in m.items()} for m in mg])
     diffs = {f"step {i} {k}": max_rel(g[k], e[k])
              for i, (e, g) in enumerate(zip(me, mg)) for k in e}
     diffs.update(state_diffs(sg, se))
@@ -2749,6 +3171,7 @@ KERNEL_GROUPS = (
     ("K7/K8 dx pass", ("mlp_dx_kernel",)),
     ("K9 mlp dw", ("mlp_dw_",)),
     ("K3/K4/K7/K8 partial-sum epilogue", ("mlp_epilogue",)),
+    ("NCCL collectives", ("nccl",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("Adam", ("multi_tensor_apply", "adam")),
 )
@@ -2768,7 +3191,7 @@ def profile_step(step, state, batch, gen, lr, steady_ms, top: int = 8):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(state, batch, gen, lr)
         torch.cuda.synchronize()
-    groups, kernels_run, per_kernel = {}, 0, []
+    groups, group_calls, kernels_run, per_kernel = {}, {}, 0, []
     for e in prof.key_averages():
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or e.is_user_annotation):
@@ -2779,6 +3202,7 @@ def profile_step(step, state, batch, gen, lr, steady_ms, top: int = 8):
                      "reductions, copies)")
         ms = e.self_device_time_total / 1e3
         groups[group] = groups.get(group, 0.0) + ms
+        group_calls[group] = group_calls.get(group, 0) + e.count
         kernels_run += e.count
         per_kernel.append((e.key, e.count, ms, group))
     per_kernel.sort(key=lambda k: -k[2])
@@ -2801,7 +3225,8 @@ def profile_step(step, state, batch, gen, lr, steady_ms, top: int = 8):
         if group.startswith("K"):
             calls[name] = calls.get(name, 0) + n
     return dict(busy_ms=busy, steady_ms=steady_ms, kernels=kernels_run,
-                groups=groups, top=shown, calls=calls)
+                groups=groups, group_calls=group_calls, top=shown,
+                calls=calls)
 
 
 def check_replay_calls(eager, graphed):

@@ -363,18 +363,21 @@ def test_cli_pretrain_smoke_on_the_cpu(tmp_path, index_json, monkeypatch):
 def test_cli_pretrain_needs_a_card_or_the_cpu_flag(tmp_path, index_json,
                                                    monkeypatch):
     """Without ``AVSIAM_PLATFORM`` the runner asks for the card and raises
-    where there is none; a mesh or process flag that asks for more than one
-    card is refused, naming the multi-card module. Probe datasets, which
-    the runner refused before the finetune model came, now run the
-    per-epoch linear probe on the CPU."""
+    where there is none; with no process group, a data axis or a process
+    count other than the world of one process is refused for the
+    mismatch, and a 'model' axis naming tensor parallelism's module
+    (A10b). Probe datasets, which the runner refused before the finetune
+    model came, now run the per-epoch linear probe on the CPU."""
     monkeypatch.delenv("AVSIAM_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(_tiny_argv(index_json, tmp_path / "exp"))
     monkeypatch.setenv("AVSIAM_PLATFORM", "cpu")
-    for flags in (["--mesh_data", "2"], ["--num_processes", "4"],
-                  ["--mesh_model", "2"]):
-        with pytest.raises(SystemExit, match="A10"):
+    for flags, refusal in ((["--mesh_data", "2"], "does not match the world"),
+                           (["--num_processes", "4"],
+                            "does not match the world"),
+                           (["--mesh_model", "2"], "A10b")):
+        with pytest.raises(SystemExit, match=refusal):
             cli.main(_tiny_argv(index_json, tmp_path / "exp", *flags))
     out = cli.main(_tiny_argv(index_json, tmp_path / "exp2",
                               "--probe_data_train", index_json[0],

@@ -4,9 +4,11 @@ of the JAX package ``avsiam_tpu``.
 
 Two checks: no import statement of the port's sources names those modules;
 and, in a fresh interpreter whose import system refuses them, every module
-of the port imports, a tiny CPU forward and two-pass pretrain step run, a
-finetune step of each routing branch runs, and the classification
-statistics are computed.
+of the port (``parallel/`` and the retrieval modules among them) imports,
+a tiny CPU forward and two-pass pretrain step run, a finetune step of each
+routing branch runs, the classification statistics and the retrieval
+metrics are computed, and the distributed helpers run as one process
+without a group.
 """
 
 import ast
@@ -20,6 +22,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "sklearn", "avsiam_tpu")
 
 SCRIPT = r'''
 import importlib, importlib.abc, importlib.util, math, pkgutil, sys
+import numpy as np
 
 BLOCKED = %r
 for name in list(sys.modules):  # e.g. loaded by a site hook
@@ -89,6 +92,17 @@ logits = ft.make_ft_eval_step(fcfg)(
 stats = calculate_stats(torch.sigmoid(logits).mean(dim=1).numpy(),
                         y.numpy())
 assert 0.0 <= mean_ap(stats) <= 1.0
+from avsiam_tpu_torch.configs import MeshConfig
+from avsiam_tpu_torch.eval.retrieval import retrieval_metrics
+from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.parallel.mesh import make_mesh
+info = pdist.initialize_multihost()
+assert info["process_count"] == 1 and not pdist.active(), info
+assert make_mesh(MeshConfig()).data == 1
+assert pdist.gather_eval_outputs(np.arange(5), 3).tolist() == [0, 1, 2]
+assert pdist.average_across_processes({"x": 2.5}) == {"x": 2.5}
+feats = np.random.RandomState(0).randn(6, 4)
+assert retrieval_metrics(feats, feats)["R1"] == 1.0
 shapes = chip_smoke.main_path_shapes(chip_smoke.bench_config(), 8)
 attn, mlp, ln = shapes.attn, shapes.mlp, shapes.ln
 assert sum(attn.values()) == sum(mlp.values()) == 130
