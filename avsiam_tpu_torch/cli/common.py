@@ -9,9 +9,9 @@ CPU (the plain PyTorch versions of the kernels), the counterpart of
 ``apply_platform_override``; without it the runner runs on the card
 (``device.resolve_device``, which raises where there is none). The mesh and
 process flags: ``mesh_from_args`` makes the process group (torchrun's
-environment or the JAX-named flags, ``parallel/dist.py``) and checks the
-mesh against it (``parallel/mesh.py``); a 'model' axis above 1 is refused
-(ROADMAP A10b).
+environment or the JAX-named flags, ``parallel/dist.py``) and resolves the
+mesh against it (``parallel/mesh.py``): ``--mesh_model`` ranks a model
+replica (tensor parallelism), ``--mesh_data`` -1 or world / model replicas.
 """
 
 from __future__ import annotations
@@ -127,27 +127,31 @@ def add_common_args(p: argparse.ArgumentParser, ft: bool = False):
     return p
 
 
-def mesh_from_args(args):
+def mesh_from_args(args, model_cfg=None):
     """Initialise the process group where the run asks for one and resolve
     the mesh every runner trains over, the counterpart of the JAX
     package's ``mesh_from_args`` (torchrun + init_distributed_mode,
     run_cavmae_pretrain_base.py:114 / utils.py:283-299): rank-0 printing
-    installed, the mesh printed. The mesh is checked before any group
-    comes up, so a 'model' axis (A10b) is refused at once."""
+    installed, the mesh printed with the group's backend (rank 0's first
+    line). ``model_cfg``: the model a 'model' axis must be able to split
+    (``mesh.tp_refusal``), checked before any group comes up."""
     from avsiam_tpu_torch.configs import MeshConfig
-    from avsiam_tpu_torch.parallel.dist import (initialize_multihost,
+    from avsiam_tpu_torch.parallel.dist import (backend,
+                                                initialize_multihost,
                                                 setup_rank0_printing)
-    from avsiam_tpu_torch.parallel.mesh import make_mesh
+    from avsiam_tpu_torch.parallel.mesh import make_mesh, tp_refusal
     mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model)
-    if mesh_cfg.model != 1:
-        make_mesh(mesh_cfg)  # raises, naming A10b
+    if mesh_cfg.model > 1 and model_cfg is not None:
+        why = tp_refusal(mesh_cfg.model, model_cfg)
+        if why:
+            raise SystemExit(why)
     info = initialize_multihost(
         coordinator_address=args.coordinator_address,
         num_processes=args.num_processes, process_id=args.process_id)
     setup_rank0_printing()
-    mesh = make_mesh(mesh_cfg)
+    mesh = make_mesh(mesh_cfg, model_cfg)
     print(f"mesh: data={mesh.data} model={mesh.model} "
-          f"processes={info['process_count']}")
+          f"processes={info['process_count']} backend={backend()}")
     return mesh
 
 

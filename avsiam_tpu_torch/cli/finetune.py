@@ -106,17 +106,18 @@ def _load_init_params(args, cfg: FinetuneConfig):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = platform_device()
-    mesh = mesh_from_args(args)
-    local_batch(args.batch_size, mesh.data)  # the world must divide it
-    if is_main_process():
-        dump_args(args, args.exp_dir)
-    setup_wandb(args)
     model_cfg = finetune_config(args.model, label_dim=args.n_class,
                                 dtype=torch_dtype(args.dtype),
                                 attn_impl=args.attn_impl,
                                 mlp_impl=args.mlp_impl)
     model_cfg = replace(model_cfg, vit=replace(
         model_cfg.vit, audio_length=args.target_length))
+    mesh = mesh_from_args(args, model_cfg)
+    # the data axis must divide the global batch
+    local_batch(args.batch_size, mesh.data)
+    if is_main_process():
+        dump_args(args, args.exp_dir)
+    setup_wandb(args)
     mel, im_res = model_cfg.vit.mel_bins, model_cfg.vit.img_size
     nf = model_cfg.num_eval_frames
     cfg = FinetuneConfig(
@@ -157,12 +158,13 @@ def main(argv=None):
         from avsiam_tpu_torch.eval.metrics import mean_ap, mean_auc
         from avsiam_tpu_torch.train.finetune import make_ft_eval_step
         from avsiam_tpu_torch.train.loops import validate_ft
+        from avsiam_tpu_torch.parallel.tp import load_full_state_dict
         from avsiam_tpu_torch.utils.checkpoint import restore_params
         model = out["model"]
         if os.path.exists(os.path.join(cfg.exp_dir, "models",
                                        "best_audio_model")):
             model = copy.deepcopy(model)  # the run's state stays the final
-            model.load_state_dict(restore_params(
+            load_full_state_dict(model, restore_params(
                 cfg.exp_dir, "best_audio_model", map_location=device))
         else:
             # best_audio_model exists only where --data_val chose one

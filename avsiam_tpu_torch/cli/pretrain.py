@@ -104,11 +104,6 @@ def _load_init_params(args, cfg: PretrainConfig):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = platform_device()
-    mesh = mesh_from_args(args)
-    local_batch(args.batch_size, mesh.data)  # the world must divide it
-    if is_main_process():
-        dump_args(args, args.exp_dir)
-    setup_wandb(args)
     model_cfg = pretrain_config(args.model, dtype=torch_dtype(args.dtype),
                                 attn_impl=args.attn_impl,
                                 mmixed_impl=args.mmixed_impl,
@@ -117,6 +112,12 @@ def main(argv=None):
     # 1024)
     model_cfg = replace(model_cfg, vit=replace(
         model_cfg.vit, audio_length=args.target_length))
+    mesh = mesh_from_args(args, model_cfg)
+    # the data axis must divide the global batch
+    local_batch(args.batch_size, mesh.data)
+    if is_main_process():
+        dump_args(args, args.exp_dir)
+    setup_wandb(args)
     mel, im_res = model_cfg.vit.mel_bins, model_cfg.vit.img_size
     cfg = PretrainConfig(
         model=model_cfg,

@@ -165,12 +165,13 @@ def device_loader(dataset, index_batches, transform: Callable,
     ``batch_generator_seed(draw_seed, i)`` and go to ``transform(draws,
     wav, frames, labels, wav_len)``; eval: ``transform(wav, frames, labels,
     wav_len)``. ``seed`` keys the host's per-sample streams. Under a
-    process group the index batches are this process's blocks, the draws
+    process group the index batches are this replica's blocks (the data
+    axis's: the ranks of a model group load the same block), the draws
     are made for the global batch and cut to the block, and with mixup on
     the transform also takes ``partners``, the (wav, frames, labels) of
-    each row's partner, from the processes' gathered batches."""
+    each row's partner, from the replicas' gathered batches."""
     device = torch.device(device)
-    world, rank = pdist.world_size(), pdist.rank()
+    world, rank = pdist.data_size(), pdist.data_rank()
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     it = Prefetcher(
         host_batches(dataset, index_batches, seed, frames_per_sample,

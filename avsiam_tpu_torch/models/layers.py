@@ -36,6 +36,8 @@ from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_fp32
 from avsiam_tpu_torch.ops.mlp import (FUSED_IMPLS, fused_ln_mlp, fused_mlp,
                                       kernel_takes)
 from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
+from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.parallel.tp import ColumnLinear, RowLinear
 
 MLP_IMPLS = ("dense", "remat_g", "remat_all", "fused", "fbwd", "fres", "auto",
              "lnfres")
@@ -74,12 +76,16 @@ def trunc_normal_(w: torch.Tensor, std: float, generator) -> torch.Tensor:
 
 class Dense(nn.Module):
     """Linear layer with float32 parameters computed in ``dtype``;
-    ``weight`` is [out, in] (nn.Linear's layout), lecun-normal, zero bias."""
+    ``weight`` is [out, in] (nn.Linear's layout), lecun-normal, zero bias.
+    ``parallel`` ('column' or 'row', set by ``shard_model_``): the weight
+    is this rank's shard, and the layer runs ``parallel/tp.py``'s
+    column- or row-parallel form over the model group."""
 
     def __init__(self, in_features: int, out_features: int, dtype, device,
                  bias: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.parallel: Optional[str] = None
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device))
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
@@ -93,7 +99,10 @@ class Dense(nn.Module):
     def forward(self, x):
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return nn.functional.linear(x.to(dt), self.weight.to(dt), b)
+        if self.parallel is None:
+            return nn.functional.linear(x.to(dt), self.weight.to(dt), b)
+        fn = ColumnLinear if self.parallel == "column" else RowLinear
+        return fn.apply(x.to(dt), self.weight.to(dt), b, pdist.model_group())
 
 
 class LayerNormFP32(nn.Module):
@@ -138,6 +147,10 @@ class Mlp(nn.Module):
       (``mlp_route``), as on the TPU; 'dense' elsewhere and on the CPU;
     * 'lnfres': 'fres' here (the LN fold happens one level up, in
       ``ModalityBlock._mlp_res``; this is the 'av' tail's MLP).
+
+    ``tp`` (set by ``shard_model_``): fc1 and fc2 hold this rank's shards
+    of the hidden width, and the fused forms sum fc2's partial products
+    and fc1's partial dx over the model group (``group``).
     """
 
     def __init__(self, dim: int, hidden_dim: int, dtype, gelu: str, device,
@@ -148,8 +161,14 @@ class Mlp(nn.Module):
         self.dtype = dtype
         self.gelu = gelu
         self.impl = impl
+        self.tp = False
         self.fc1 = Dense(dim, hidden_dim, dtype, device)
         self.fc2 = Dense(hidden_dim, dim, dtype, device)
+
+    @property
+    def group(self):
+        """The model group the fused forms reduce over, or None."""
+        return pdist.model_group() if self.tp else None
 
     def _act(self, x):
         return gelu_op(self.fc1(x), self.gelu)
@@ -165,7 +184,7 @@ class Mlp(nn.Module):
         if impl in FUSED_IMPLS:
             return fused_mlp(x.to(self.dtype), self.fc1.weight, self.fc1.bias,
                              self.fc2.weight, self.fc2.bias, gelu=self.gelu,
-                             impl=impl)
+                             impl=impl, group=self.group)
         if impl == "remat_all":
             return checkpoint(lambda x: self.fc2(self._act(x)), x,
                               use_reentrant=False)
@@ -176,7 +195,9 @@ class Mlp(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection; ``attn_impl``
-    picks the attention path (``ops.attention.attention_route``)."""
+    picks the attention path (``ops.attention.attention_route``). Under
+    tensor parallelism ``num_heads`` are this rank's heads, of ``shards``
+    times as many."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, dtype,
                  device, attn_impl: str = "auto"):
@@ -184,6 +205,7 @@ class Attention(nn.Module):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.num_heads = num_heads
+        self.shards = 1  # the model ranks its heads are split over
         self.attn_impl = attn_impl
         self.qkv = Dense(dim, 3 * dim, dtype, device, bias=qkv_bias)
         self.proj = Dense(dim, dim, dtype, device)
@@ -191,7 +213,8 @@ class Attention(nn.Module):
     def attend(self, qkv, key_valid: Optional[torch.Tensor] = None):
         """The attention core alone: the fused projection [B, N, 3C] ->
         [B, N, C], before ``proj``."""
-        return attention_qkv(qkv, self.num_heads, key_valid, self.attn_impl)
+        return attention_qkv(qkv, self.num_heads, key_valid, self.attn_impl,
+                             shards=self.shards)
 
     def attend_rows(self, qkv, chunk_shapes):
         """The attention core over the [T, 3C] rows of chunks [B_i, N_i]
@@ -295,7 +318,8 @@ class ModalityBlock(nn.Module):
             return x + self.mlp(n2(x))
         return fused_ln_mlp(x, n2.weight, n2.bias, fc1.weight, fc1.bias,
                             self.mlp.fc2.weight, self.mlp.fc2.bias,
-                            eps=self.ln_eps, gelu=self.gelu)
+                            eps=self.ln_eps, gelu=self.gelu,
+                            group=self.mlp.group)
 
 
 class PatchEmbed(nn.Module):

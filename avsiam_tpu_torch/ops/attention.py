@@ -405,13 +405,16 @@ def pallas_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_qkv(xqkv: torch.Tensor, num_heads: int,
                   key_valid: Optional[torch.Tensor] = None,
-                  impl: str = "auto") -> torch.Tensor:
+                  impl: str = "auto", shards: int = 1) -> torch.Tensor:
     """Attention on the packed qkv projection [B, N, 3C] -> [B, N, C] by
     ``attention_route``: K1/K2 (the plain version on a CPU tensor), K5/K6 on
-    the [B, N, 3, H, D] views of xqkv, or ``xla_attention``."""
+    the [B, N, 3, H, D] views of xqkv, or ``xla_attention``. ``shards``:
+    xqkv holds one model rank's ``num_heads`` of ``shards * num_heads``
+    (tensor parallelism); the route is the whole attention's, whose kernels
+    take the rank's heads (the head width is the same)."""
     B, N, C3 = xqkv.shape
     C = C3 // 3
-    route = attention_route(impl, C, num_heads)
+    route = attention_route(impl, C * shards, num_heads * shards)
     if route == "token_major":
         if xqkv.device.type == "cpu":
             return attention_reference(xqkv, num_heads, key_valid)

@@ -5,16 +5,16 @@ Counterpart of ``avsiam_tpu/ops/contrastive.py``: log-softmax over dim 0 of
 ``a @ v.T / temp``, the diagonal's mean, both directions averaged; accuracy is
 the share of columns whose argmax over dim 0 is the diagonal.
 
-Across processes the embeddings are gathered in rank order through
-``GatherLayer`` (src/models/gather_layer.py:21-37), and every process
-computes the same loss on the global batch. JAX writes the loss on the
-logical global batch, where the transpose of the all-gather is a
-reduce-scatter; here the backward sums the gathered gradient over the
-processes (all-reduce) and takes this process's block, which is ``world``
-times the global loss's gradient of that block, and the step's mean over
-the processes' parameter gradients (``parallel.dist.all_reduce_mean_``)
-brings it back to JAX's gradient. A backward that only sliced would leave
-it ``world`` times too small.
+Across the replicas of the data axis the embeddings are gathered in data
+rank order through ``GatherLayer`` (src/models/gather_layer.py:21-37), and
+every rank computes the same loss on the global batch. JAX writes the loss
+on the logical global batch, where the transpose of the all-gather is a
+reduce-scatter; here the backward sums the gathered gradient over the data
+group (all-reduce) and takes this rank's block, which is ``data`` times the
+global loss's gradient of that block, and the step's mean over the data
+group's parameter gradients (``parallel.dist.all_reduce_mean_``) brings it
+back to JAX's gradient. A backward that only sliced would leave it
+``data`` times too small.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from typing import Tuple
 
 import torch
 import torch.distributed as dist
+
+from avsiam_tpu_torch.parallel import dist as pdist
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12
@@ -56,23 +58,29 @@ def info_nce(audio_rep: torch.Tensor, video_rep: torch.Tensor,
 
 
 class GatherLayer(torch.autograd.Function):
-    """[B_local, ...] on each process -> [world * B_local, ...] in rank
-    order, differentiable: the backward all-reduces (sums) the gathered
-    gradient, then takes this process's block."""
+    """[B_local, ...] on each rank of the data group -> [data * B_local,
+    ...] in data rank order, differentiable: the backward all-reduces
+    (sums) the gathered gradient over the data group, then takes this
+    rank's block. Under tensor parallelism the data group is one model
+    rank's ranks across the replicas: the ranks of a model group hold the
+    same block, and a gather over the world would count each sample
+    ``model`` times."""
 
     @staticmethod
     def forward(ctx, x):
-        world = dist.get_world_size()
-        out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous())
+        group = pdist.data_group()
+        size = dist.get_world_size(group)
+        ctx.group, ctx.size = group, size
+        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        n = grad.shape[0] // dist.get_world_size()
-        r = dist.get_rank()
+        dist.all_reduce(grad, group=ctx.group)
+        n = grad.shape[0] // ctx.size
+        r = pdist.data_rank()
         return grad[r * n:(r + 1) * n]
 
 

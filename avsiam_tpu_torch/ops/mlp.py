@@ -40,6 +40,17 @@ multiple of 128 and every H that is a multiple of 64 (K7 of 128, K9's
 tiles), as the Pallas kernels take multiples of 128
 (``avsiam_tpu/ops/mlp.py:533,580``). On a CPU tensor each kernel's wrapper
 takes its plain version; on a CUDA tensor it launches the kernel or raises.
+
+Tensor parallelism (``group``, the model group; ``parallel/tp.py``): w1
+and b1 are this rank's rows of the hidden width and w2 its columns. The
+fc2 pass then gives a partial product, which the kernels write in float32
+with no bias and no residual (``partial``); it is summed over the group in
+float32, and b2 and the residual are added once, after the sum, as the
+unsharded kernels add them to their float32 accumulator (b2) and to its
+cast (the residual). The backward's partial dx of the MLP's input is
+likewise written in float32 (``dx_dtype``) and summed before its cast, the
+residual's gradient and the LayerNorm backward. Without a group every
+route is as it is unsharded.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from avsiam_tpu_torch import kernels
@@ -108,14 +120,17 @@ def weight_grad_tile(m: int, n: int, num_sms: int):
 
 
 def ln_mlp_reference(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
-                     gelu: str = "erf"):
+                     gelu: str = "erf", partial: bool = False):
     """Plain version on [T, D] rows: returns (out, pre-GELU hidden), both in
-    x2's dtype; products in float32 from the given values."""
+    x2's dtype; products in float32 from the given values. With
+    ``partial`` out is the float32 act w2^T alone (no b2, no residual)."""
     dt = x2.dtype
     f32 = torch.float32
     n = layer_norm(x2, ln_scale, ln_bias, eps)
     hpre = n.to(f32) @ w1.to(f32).T + b1.to(f32)
     act = gelu_f32(hpre, kernel_impl(gelu)).to(dt)
+    if partial:
+        return act.to(f32) @ w2.to(f32).T, hpre.to(dt)
     y = act.to(f32) @ w2.to(f32).T + b2.to(f32)
     return x2 + y.to(dt), hpre.to(dt)
 
@@ -185,8 +200,11 @@ def mlp_fc1_reference(x2, w1, b1, gelu: str = "erf"):
 
 def mlp_fc2_reference(act, w2, b2, resid=None):
     """Plain version of the fc2 pass: act @ w2^T + b2 in float32, rounded
-    to act's dtype, then ``resid +`` that in that dtype (K3) where given."""
+    to act's dtype, then ``resid +`` that in that dtype (K3) where given;
+    with b2 None the float32 act @ w2^T alone (the partial form)."""
     f32 = torch.float32
+    if b2 is None:
+        return act.to(f32) @ w2.to(f32).T
     y = (act.to(f32) @ w2.to(f32).T + b2.to(f32)).to(act.dtype)
     return y if resid is None else resid + y
 
@@ -213,10 +231,17 @@ def _fc1_pass(x16, w1, b1, dtype, save_hpre: bool, gelu: str = "erf"):
 def _fc2_pass(act, w2, b2, dtype, splits: int, resid=None):
     """The fc2 pass on the card: act [T, H] (bf16) @ w2^T + b2 in
     ``dtype``, plus ``resid`` [T, D] where given (K3), H split into
-    ``splits`` ranges."""
+    ``splits`` ranges. b2 None: the partial form, act @ w2^T in float32
+    (``dtype`` must be float32; the kernel adds a zero bias, which leaves
+    every float32 sum as it is)."""
     T, H = act.shape
     D = w2.shape[0]
     dev = act.device
+    if b2 is None:
+        if dtype != torch.float32 or resid is not None:
+            raise ValueError("the fc2 pass's partial form is float32, with "
+                             "no residual")
+        b2 = torch.zeros((D,), dtype=torch.float32, device=dev)
     out = torch.empty((T, D), dtype=dtype, device=dev)
     partial = (torch.empty((splits, T, D), dtype=torch.float32, device=dev)
                if splits > 1 else None)
@@ -233,24 +258,27 @@ def _fwd_passes(x16, w1, b1, w2, b2, dtype, save_hpre: bool, resid=None,
                 gelu: str = "erf"):
     """The fc1 and fc2 passes, the fc2 pass splitting H as the dx pass
     does (``dx_splits``: the same [T, H] by [H, D] product): (out, hpre or
-    None) in ``dtype``."""
+    None) in ``dtype``; b2 None: out is the float32 partial product."""
     T, D = x16.shape
     H = w1.shape[0]
     hpre, act = _fc1_pass(x16, w1, b1, dtype, save_hpre, gelu)
     splits = dx_splits(T, D, H, kernels.num_sms(x16.device))
-    return _fc2_pass(act, w2, b2, dtype, splits, resid), hpre
+    out_dtype = torch.float32 if b2 is None else dtype
+    return _fc2_pass(act, w2, b2, out_dtype, splits, resid), hpre
 
 
 def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
-                      gelu: str = "erf"):
+                      gelu: str = "erf", partial: bool = False):
     """K3 on [T, D] rows of float32 or bfloat16: returns (out, pre-GELU
     hidden) in x2's dtype, GELU in ``kernel_impl(gelu)``'s form. Weights bf16, LN parameters and biases f32. The
     LN rows kernel writes LN(x) in bf16, the fc1 pass reads it, and the fc2
-    pass adds the residual x."""
+    pass adds the residual x. With ``partial`` (a model rank's shard, b2
+    None) out is the float32 act w2^T, with no b2 and no residual."""
     T, D, H = _rows_geometry("LN-MLP", x2, w1)
     f32 = torch.float32
     _check_aligned("LN-MLP", x2)
-    _check_operands("LN-MLP", x2.device, *_weight_specs(w1, b1, w2, D, H, b2),
+    _check_operands("LN-MLP", x2.device,
+                    *_weight_specs(w1, b1, w2, D, H, None if partial else b2),
                     ("ln_scale", ln_scale, (D,), f32),
                     ("ln_bias", ln_bias, (D,), f32))
     n16 = torch.empty((T, D), dtype=torch.bfloat16, device=x2.device)
@@ -258,7 +286,8 @@ def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), n16.data_ptr(),
         T, D, kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
     kernels.check(err, "LN-MLP LayerNorm rows")
-    out, hpre = _fwd_passes(n16, w1, b1, w2, b2, x2.dtype, True, resid=x2,
+    out, hpre = _fwd_passes(n16, w1, b1, w2, None if partial else b2,
+                            x2.dtype, True, resid=None if partial else x2,
                             gelu=gelu)
     kernels.LAUNCHES["ln_mlp_fwd"] += 1
     return out, hpre
@@ -275,35 +304,56 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(f32) @ b.to(f32)
 
 
-def _saved_hidden_bwd(inp, w1, w2, hpre, do, gelu: str):
+def _saved_hidden_bwd(inp, w1, w2, hpre, do, gelu: str, group=None):
     """Backward of ``fc2(gelu(fc1(inp)))`` from its saved pre-GELU hidden
     (``_fres_mlp_bwd``): (d inp in inp's dtype, dw1, db1, dw2, db2). dh =
-    do @ w2 stays in float32 until it meets gelu', as in the JAX package."""
+    do @ w2 stays in float32 until it meets gelu', as in the JAX package.
+    With a model ``group`` d inp is the float32 sum of the ranks' partial
+    products, cast after the sum."""
     dt = inp.dtype
     f32 = torch.float32
     act, grad = gelu_act_grad_f32(hpre.to(f32), kernel_impl(gelu))
     gh = (mm_f32(do, w2) * grad).to(dt)
-    return ((gh @ w1).to(dt), gh.T @ inp, gh.to(f32).sum(dim=0),
+    if group is None:
+        dinp = (gh @ w1).to(dt)
+    else:
+        dinp = mm_f32(gh, w1)
+        dist.all_reduce(dinp, group=group)
+        dinp = dinp.to(dt)
+    return (dinp, gh.T @ inp, gh.to(f32).sum(dim=0),
             do.T @ act.to(dt), do.to(f32).sum(dim=0))
+
+
+def _row_parallel_out(partial, b2, group, dtype):
+    """The fc2 output from the ranks' float32 partial products: summed over
+    the group, b2 added in float32, then cast to ``dtype``."""
+    dist.all_reduce(partial, group=group)
+    return (partial + b2.to(torch.float32)).to(dtype)
 
 
 class _LnMlp(torch.autograd.Function):
     """Forward: K3 (CUDA) or its plain version (CPU). Backward: PyTorch ops
-    mirroring ``_lnfres_mlp_bwd``."""
+    mirroring ``_lnfres_mlp_bwd``. With a model ``group``: K3's partial
+    form, the sum over the group, then b2 and the residual once."""
 
     @staticmethod
-    def forward(ctx, x2, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu):
+    def forward(ctx, x2, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu,
+                group):
+        partial = group is not None
         if x2.device.type == "cpu":
             out, hpre = ln_mlp_reference(x2, ln_scale, ln_bias, w1, b1, w2,
-                                         b2, eps, gelu)
+                                         b2, eps, gelu, partial)
         else:
             f32 = torch.float32
             w1k, b1k, w2k, b2k = _kernel_weights(w1, b1, w2, b2)
             out, hpre = ln_mlp_fwd_kernel(
                 x2, ln_scale.to(f32).contiguous(), ln_bias.to(f32).contiguous(),
-                w1k, b1k, w2k, b2k, eps, gelu)
+                w1k, b1k, w2k, b2k, eps, gelu, partial)
+        if partial:
+            out = x2 + _row_parallel_out(out, b2, group, x2.dtype)
         ctx.save_for_backward(x2, ln_scale, ln_bias, w1, w2, hpre)
         ctx.eps, ctx.gelu, ctx.b1_dtype = eps, gelu, b1.dtype
+        ctx.group = group
         return out
 
     @staticmethod
@@ -311,26 +361,29 @@ class _LnMlp(torch.autograd.Function):
         x2, g, bln, w1, w2, hpre = ctx.saved_tensors
         n = layer_norm(x2, g, bln, ctx.eps)  # recompute the LN output
         dn, dw1, db1, dw2, db2 = _saved_hidden_bwd(n, w1, w2, hpre, do,
-                                                   ctx.gelu)
+                                                   ctx.gelu, ctx.group)
         dx_ln, dgamma, dbeta = layer_norm_vjp(x2, g, dn, ctx.eps)
         dx = do + dx_ln  # the residual branch's cotangent joins here
         return (dx, dgamma.to(g.dtype), dbeta.to(bln.dtype), dw1.to(w1.dtype),
                 db1.to(ctx.b1_dtype), dw2.to(w2.dtype), db2.to(ctx.b1_dtype),
-                None, None)
+                None, None, None)
 
 
 def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
-                 eps: float = 1e-5, gelu: str = "erf") -> torch.Tensor:
+                 eps: float = 1e-5, gelu: str = "erf",
+                 group=None) -> torch.Tensor:
     """``x + fc2(gelu(fc1(LN(x))))`` over x [..., D]. Parameters may be f32
     masters: the weights and biases are cast to x's dtype here (outside the
     autograd Function, so their gradients reach the masters in f32) and the
-    LN parameters to f32."""
+    LN parameters to f32. ``group``: the model group whose rank holds w1
+    and b1's rows and w2's columns of the hidden width (module
+    docstring)."""
     shape = x.shape
     dt = x.dtype
     f32 = torch.float32
     out = _LnMlp.apply(x.reshape(-1, shape[-1]), ln_scale.to(f32),
                        ln_bias.to(f32), w1.to(dt), b1.to(dt), w2.to(dt),
-                       b2.to(dt), float(eps), gelu)
+                       b2.to(dt), float(eps), gelu, group)
     return out.reshape(shape)
 
 
@@ -339,12 +392,13 @@ def mlp_fwd_reference(x2, w1, b1, w2, b2, gelu: str = "erf",
                       save_hpre: bool = False):
     """Plain version of K4 on [T, D] rows: out, or (out, pre-GELU hidden)
     with ``save_hpre``, in x2's dtype; products in float32 from the given
-    values."""
+    values. b2 None: out is the float32 act w2^T alone (the partial
+    form)."""
     dt = x2.dtype
     f32 = torch.float32
     hpre = x2.to(f32) @ w1.to(f32).T + b1.to(f32)
     act = gelu_f32(hpre, kernel_impl(gelu)).to(dt)
-    out = (act.to(f32) @ w2.to(f32).T + b2.to(f32)).to(dt)
+    out = mlp_fc2_reference(act, w2, b2)
     return (out, hpre.to(dt)) if save_hpre else out
 
 
@@ -354,7 +408,8 @@ def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False,
     hidden) with ``save_hpre``, in x2's dtype, GELU in
     ``kernel_impl(gelu)``'s form. Weights bf16, biases f32. An
     f32 call feeds the fc1 pass x cast to bf16 (the operand it multiplies
-    in either storage)."""
+    in either storage). b2 None (a model rank's shard): out is the float32
+    partial product act w2^T, with no bias."""
     T, D, H = _rows_geometry("MLP forward", x2, w1)
     _check_aligned("MLP forward", x2)
     _check_operands("MLP forward", x2.device,
@@ -365,13 +420,22 @@ def mlp_fwd_kernel(x2, w1, b1, w2, b2, save_hpre: bool = False,
     return (out, hpre) if save_hpre else out
 
 
-def mlp_fwd(x2, w1, b1, w2, b2, gelu: str = "erf", save_hpre: bool = False):
+def mlp_fwd(x2, w1, b1, w2, b2, gelu: str = "erf", save_hpre: bool = False,
+            group=None):
     """K4 on a CUDA tensor (weights cast to bf16, biases to f32), its plain
-    version on a CPU tensor."""
+    version on a CPU tensor. With a model ``group``: the partial form, the
+    sum over the group, then b2 once."""
+    b2k = None if group is not None else b2
     if x2.device.type == "cpu":
-        return mlp_fwd_reference(x2, w1, b1, w2, b2, gelu, save_hpre)
-    return mlp_fwd_kernel(x2, *_kernel_weights(w1, b1, w2, b2), save_hpre,
-                          gelu)
+        res = mlp_fwd_reference(x2, w1, b1, w2, b2k, gelu, save_hpre)
+    else:
+        w1k, b1k, w2k, b2k = _kernel_weights(w1, b1, w2, b2k)
+        res = mlp_fwd_kernel(x2, w1k, b1k, w2k, b2k, save_hpre, gelu)
+    if group is None:
+        return res
+    out, hpre = res if save_hpre else (res, None)
+    out = _row_parallel_out(out, b2, group, x2.dtype)
+    return (out, hpre) if save_hpre else out
 
 
 # ---------------------------------------------------------- K7, K8, K9
@@ -411,29 +475,33 @@ def mlp_gh_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
     return gh.to(dt), act.to(dt), row_tile_sums(gh)
 
 
-def mlp_dx_reference(gh, w1):
+def mlp_dx_reference(gh, w1, dtype=None):
     """Plain version of the dx pass: gh [T, H] @ w1 [H, D] in float32 from
-    the given values, in gh's dtype."""
+    the given values, in ``dtype`` (gh's by default; float32 for a model
+    rank's partial dx)."""
     f32 = torch.float32
-    return (gh.to(f32) @ w1.to(f32)).to(gh.dtype)
+    return (gh.to(f32) @ w1.to(f32)).to(dtype or gh.dtype)
 
 
-def mlp_bwd_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
+def mlp_bwd_reference(x2, w1, b1, w2, do, gelu: str = "erf", dx_dtype=None):
     """Plain version of K7 (``_bwd_fused_kernel``), composed as the kernels
-    compose it: dx in x2's dtype; dw1 [H, D], db1 [H], dw2 [D, H], db2 [D]
-    in float32. dx and dw1 take gh in x2's dtype; db1 is the fold of the
-    float32 gh's row-tile sums; dw2 and db2 are K9's on (act, do)."""
+    compose it: dx in ``dx_dtype`` (x2's by default); dw1 [H, D], db1 [H],
+    dw2 [D, H], db2 [D] in float32. dx and dw1 take gh in x2's dtype; db1
+    is the fold of the float32 gh's row-tile sums; dw2 and db2 are K9's on
+    (act, do)."""
     gh, act, parts = mlp_gh_reference(x2, w1, b1, w2, do, gelu)
     dw1, _ = weight_grads_reference(x2, gh)
     dw2, db2 = weight_grads_reference(act, do)
-    return mlp_dx_reference(gh, w1), dw1, fold_rows(parts), dw2, db2
+    return (mlp_dx_reference(gh, w1, dx_dtype), dw1, fold_rows(parts), dw2,
+            db2)
 
 
-def mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu: str = "erf"):
-    """Plain version of K8 (``_bwd_dx_kernel``): (dx, gh, act), all in x2's
-    dtype."""
+def mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu: str = "erf",
+                         dx_dtype=None):
+    """Plain version of K8 (``_bwd_dx_kernel``): (dx in ``dx_dtype``, gh,
+    act), gh and act in x2's dtype, as dx by default."""
     gh, act, _ = mlp_gh_reference(x2, w1, b1, w2, do, gelu)
-    return mlp_dx_reference(gh, w1), gh, act
+    return mlp_dx_reference(gh, w1, dx_dtype), gh, act
 
 
 def weight_grads_reference(a, g):
@@ -499,31 +567,32 @@ def _dx_pass(gh16, w1, dtype):
     return dx
 
 
-def mlp_bwd_kernel(x2, w1, b1, w2, do, gelu: str = "erf"):
+def mlp_bwd_kernel(x2, w1, b1, w2, do, gelu: str = "erf", dx_dtype=None):
     """K7 on [T, D] rows x2 and their cotangent do (float32 or bfloat16,
-    alike; H a multiple of 128): (dx in x2's dtype; dw1 [H, D], db1 [H],
-    dw2 [D, H], db2 [D] in float32). Weights bf16, b1 f32. The gh pass (db1
-    from the f32 gh), the dx pass, then K9 on (x, gh) and (act, do); K9's
-    db1, from the stored gh, is not K7's and is dropped."""
+    alike; H a multiple of 128): (dx in ``dx_dtype``, x2's by default;
+    dw1 [H, D], db1 [H], dw2 [D, H], db2 [D] in float32). Weights bf16, b1
+    f32. The gh pass (db1 from the f32 gh), the dx pass, then K9 on (x, gh)
+    and (act, do); K9's db1, from the stored gh, is not K7's and is
+    dropped."""
     T, D, H = _bwd_operands("MLP backward", x2, w1, b1, w2, do)
     if H % WEIGHT_GRAD_TILE:
         raise ValueError(f"MLP backward takes H a multiple of "
                          f"{WEIGHT_GRAD_TILE} (K9's tiles), got H={H}")
     gh, act, gh16, db1 = _gh_pass(x2, w1, b1, w2, do, True, gelu)
-    dx = _dx_pass(gh16, w1, x2.dtype)
+    dx = _dx_pass(gh16, w1, dx_dtype or x2.dtype)
     kernels.LAUNCHES["mlp_bwd"] += 1
     dw1, _ = weight_grads_kernel(x2, gh)
     dw2, db2 = weight_grads_kernel(act, do)
     return dx, dw1, db1, dw2, db2
 
 
-def mlp_bwd_dx_kernel(x2, w1, b1, w2, do, gelu: str = "erf"):
-    """K8 on [T, D] rows x2 and their cotangent do: (dx [T, D], gh [T, H],
-    act [T, H]), all in x2's dtype. Weights bf16, b1 f32. The gh pass, then
-    the dx pass."""
+def mlp_bwd_dx_kernel(x2, w1, b1, w2, do, gelu: str = "erf", dx_dtype=None):
+    """K8 on [T, D] rows x2 and their cotangent do: (dx [T, D] in
+    ``dx_dtype``, gh [T, H], act [T, H]), gh and act in x2's dtype, as dx
+    by default. Weights bf16, b1 f32. The gh pass, then the dx pass."""
     _bwd_operands("MLP backward dx", x2, w1, b1, w2, do)
     gh, act, gh16, _ = _gh_pass(x2, w1, b1, w2, do, False, gelu)
-    dx = _dx_pass(gh16, w1, x2.dtype)
+    dx = _dx_pass(gh16, w1, dx_dtype or x2.dtype)
     kernels.LAUNCHES["mlp_bwd_dx"] += 1
     return dx, gh, act
 
@@ -568,24 +637,34 @@ def weight_grads(a, g):
     return weight_grads_kernel(a, g)
 
 
-def _recompute_bwd(x2, w1, b1, w2, do, gelu: str):
+def _recompute_bwd(x2, w1, b1, w2, do, gelu: str, group=None):
     """The backward of 'fused' and 'fbwd' from the saved (x, w1, b1, w2):
     K7, or under ``AVSIAM_MLP_BWD=split`` (read per call, as ``_bwd_call``
     does) K8 and then K9 for (dw1, db1) and for (dw2, db2). On a CPU tensor
-    the plain versions. Returns (dx, dw1, db1, dw2, db2)."""
+    the plain versions. Returns (dx, dw1, db1, dw2, db2). With a model
+    ``group`` the passes write the float32 partial dx, which is summed over
+    the group and then cast to x2's dtype."""
     split = os.environ.get("AVSIAM_MLP_BWD") == "split"
+    dx_dtype = None if group is None else torch.float32
     if x2.device.type == "cpu":
         if not split:
-            return mlp_bwd_reference(x2, w1, b1, w2, do, gelu)
-        dx, gh, act = mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu)
+            grads = mlp_bwd_reference(x2, w1, b1, w2, do, gelu, dx_dtype)
+        else:
+            dx, gh, act = mlp_bwd_dx_reference(x2, w1, b1, w2, do, gelu,
+                                               dx_dtype)
     else:
         w1k, b1k, w2k, _ = _kernel_weights(w1, b1, w2)
         if not split:
-            return mlp_bwd_kernel(x2, w1k, b1k, w2k, do, gelu)
-        dx, gh, act = mlp_bwd_dx_kernel(x2, w1k, b1k, w2k, do, gelu)
-    dw1, db1 = weight_grads(x2, gh)
-    dw2, db2 = weight_grads(act, do)
-    return dx, dw1, db1, dw2, db2
+            grads = mlp_bwd_kernel(x2, w1k, b1k, w2k, do, gelu, dx_dtype)
+        else:
+            dx, gh, act = mlp_bwd_dx_kernel(x2, w1k, b1k, w2k, do, gelu,
+                                            dx_dtype)
+    if split:
+        grads = (dx, *weight_grads(x2, gh), *weight_grads(act, do))
+    if group is None:
+        return grads
+    dist.all_reduce(grads[0], group=group)
+    return (grads[0].to(x2.dtype), *grads[1:])
 
 
 # ------------------------------------------------------------- fused_mlp
@@ -593,31 +672,36 @@ class _FusedMlp(torch.autograd.Function):
     """'fused': K4 forward, no hidden saved; the backward recomputes it."""
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, gelu):
+    def forward(ctx, x2, w1, b1, w2, b2, gelu, group):
         ctx.save_for_backward(x2, w1, b1, w2)
-        ctx.gelu = gelu
-        return mlp_fwd(x2, w1, b1, w2, b2, gelu)
+        ctx.gelu, ctx.group = gelu, group
+        return mlp_fwd(x2, w1, b1, w2, b2, gelu, group=group)
 
     @staticmethod
     def backward(ctx, do):
         x2, w1, b1, w2 = ctx.saved_tensors
-        dx, dw1, db1, dw2, db2 = _recompute_bwd(x2, w1, b1, w2,
-                                                do.contiguous(), ctx.gelu)
+        dx, dw1, db1, dw2, db2 = _recompute_bwd(
+            x2, w1, b1, w2, do.contiguous(), ctx.gelu, ctx.group)
         # the weight gradients come back in f32 and are cast to the
         # weights' dtype, as ``_fused_mlp_bwd`` does
         return (dx, dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
-                db2.to(w2.dtype), None)
+                db2.to(w2.dtype), None, None)
 
 
 class _FbwdMlp(_FusedMlp):
     """'fbwd': the plain dense forward, bit for bit the 'dense' ``Mlp``
-    (with the requested GELU, true 'erf'); the backward of 'fused'."""
+    (with the requested GELU, true 'erf'); the backward of 'fused'. With a
+    model group fc2 is row-parallel: the float32 partial products summed,
+    then b2."""
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, gelu):
+    def forward(ctx, x2, w1, b1, w2, b2, gelu, group):
         ctx.save_for_backward(x2, w1, b1, w2)
-        ctx.gelu = gelu
-        return F.linear(gelu_op(F.linear(x2, w1, b1), gelu), w2, b2)
+        ctx.gelu, ctx.group = gelu, group
+        act = gelu_op(F.linear(x2, w1, b1), gelu)
+        if group is None:
+            return F.linear(act, w2, b2)
+        return _row_parallel_out(mm_f32(act, w2.T), b2, group, x2.dtype)
 
 
 class _FresMlp(torch.autograd.Function):
@@ -625,34 +709,37 @@ class _FresMlp(torch.autograd.Function):
     PyTorch ops from it (``_fres_mlp_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, gelu):
-        out, hpre = mlp_fwd(x2, w1, b1, w2, b2, gelu, save_hpre=True)
+    def forward(ctx, x2, w1, b1, w2, b2, gelu, group):
+        out, hpre = mlp_fwd(x2, w1, b1, w2, b2, gelu, save_hpre=True,
+                            group=group)
         ctx.save_for_backward(x2, w1, w2, hpre)
-        ctx.gelu = gelu
+        ctx.gelu, ctx.group = gelu, group
         return out
 
     @staticmethod
     def backward(ctx, do):
         x2, w1, w2, hpre = ctx.saved_tensors
         dx, dw1, db1, dw2, db2 = _saved_hidden_bwd(x2, w1, w2, hpre, do,
-                                                   ctx.gelu)
+                                                   ctx.gelu, ctx.group)
         return (dx, dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
-                db2.to(w2.dtype), None)
+                db2.to(w2.dtype), None, None)
 
 
 _FUSED_FNS = {"fused": _FusedMlp, "fbwd": _FbwdMlp, "fres": _FresMlp}
 
 
 def fused_mlp(x: torch.Tensor, w1, b1, w2, b2, gelu: str = "erf",
-              impl: str = "fused") -> torch.Tensor:
+              impl: str = "fused", group=None) -> torch.Tensor:
     """``fc2(gelu(fc1(x)))`` over x [..., D] with impl 'fused', 'fbwd' or
     'fres' (module docstring). Parameters may be f32 masters: weights and
     biases are cast to x's dtype here, outside the autograd Function, so
-    their gradients reach the masters in f32."""
+    their gradients reach the masters in f32. ``group``: the model group
+    whose rank holds this shard of the hidden width."""
     if impl not in FUSED_IMPLS:
         raise ValueError(f"fused_mlp impl {impl!r} not in {FUSED_IMPLS}")
     shape = x.shape
     dt = x.dtype
     out = _FUSED_FNS[impl].apply(x.reshape(-1, shape[-1]), w1.to(dt),
-                                 b1.to(dt), w2.to(dt), b2.to(dt), gelu)
+                                 b1.to(dt), w2.to(dt), b2.to(dt), gelu,
+                                 group)
     return out.reshape(shape)

@@ -32,7 +32,10 @@ process, so every process backpropagates the same loss and reaches the
 same parameters. The gradients that exist are averaged over the processes
 (flat buckets in a fixed order) before Adam, and the loss is averaged: the
 per-process means over equal blocks average to the global batch's mean.
-The eval step has no collective.
+The eval step has no collective. Under tensor parallelism the block and
+the means are the data axis's (a model group's ranks step on the same
+block), the model is sharded (``init_state``) and the step runs eagerly,
+as it always does.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch.nn.functional as F
 from avsiam_tpu_torch.configs import FinetuneConfig
 from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
 from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.parallel.tp import shard_model_
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import lr_tensor, multistep_lr_factor
 from avsiam_tpu_torch.train.pretrain import step_generator
@@ -127,8 +131,11 @@ def make_optimizer(model: CAVMAEFinetune, cfg: FinetuneConfig
 
 def init_state(cfg: FinetuneConfig, generator: Optional[torch.Generator] = None,
                device="cuda") -> FinetuneState:
-    """A freshly initialised model (from ``generator``) and its Adam."""
-    model = CAVMAEFinetune(cfg.model, device, generator)
+    """A freshly initialised model (from ``generator``) and its Adam; under
+    tensor parallelism the model is cut to this rank's shards first
+    (``parallel/tp.py``; the Adam is elementwise, its per-parameter step
+    counts too)."""
+    model = shard_model_(CAVMAEFinetune(cfg.model, device, generator))
     return FinetuneState(model=model, opt=make_optimizer(model, cfg))
 
 
@@ -170,9 +177,12 @@ def make_finetune_step(cfg: FinetuneConfig):
                     p.grad = torch.zeros_like(p)
         loss = loss.detach()
         if dp:
+            # over the data group: a model group's ranks hold the same
+            # batch, and each its shards' gradients
+            group = pdist.data_group()
             pdist.all_reduce_mean_([p.grad for p in model.parameters()
-                                    if p.grad is not None])
-            pdist.all_reduce_mean_([loss])
+                                    if p.grad is not None], group)
+            pdist.all_reduce_mean_([loss], group)
         state.opt.step()
         state.step += 1
         return state, {"loss": loss}

@@ -43,6 +43,16 @@ rank 0 alone writes the files (checkpoints, ``result.csv``,
 ``progress.pkl``, the stats pickles, the metrics log), and a barrier
 follows each epoch's writes. The graphed pretrain step over more than one
 process takes the 'padded' form; the other forms step eagerly there.
+
+Under tensor parallelism (a mesh 'model' axis above 1; the counterpart of
+``avsiam_tpu/train/loops.py:_shard_state``) the blocks and slabs above are
+the data axis's, each model group loading one; a run starts from the full
+state (the seeded init, ``init_params`` or a checkpoint) cut to each rank's
+shards; every rank of a model group takes part in each save, which
+gathers the shards, and the main process writes the full state a run of
+one process reads; validation and the linear probe run on the model
+group's exact collectives, once per data rank. The pretrain step runs
+eagerly there (no graphed form holds the model group's collectives yet).
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ from avsiam_tpu_torch.eval.metrics import (AverageMeter, calculate_stats,
                                            mean_ap, mean_auc)
 from avsiam_tpu_torch.parallel import dist as pdist
 from avsiam_tpu_torch.parallel.mesh import local_batch
+from avsiam_tpu_torch.parallel.tp import full_state_dict, load_full_state_dict
 from avsiam_tpu_torch.train import finetune as ft
 from avsiam_tpu_torch.train import pretrain as pt
 from avsiam_tpu_torch.utils.checkpoint import (average_checkpoints,
@@ -146,9 +157,10 @@ def _epoch_loader(ds: AVDataset, cfg_batch: int, epoch: int, seed: int,
     batch one shape, and the averages those of the JAX loop). Under a
     process group: train, this process's contiguous block of each global
     batch of ``cfg_batch``; eval, its contiguous slab of the set, in
-    batches of ``cfg_batch``."""
+    batches of ``cfg_batch``. The blocks and slabs are the data axis's:
+    the ranks of a model group load the same ones."""
     n = len(ds)
-    world, rank = pdist.world_size(), pdist.rank()
+    world, rank = pdist.data_size(), pdist.data_rank()
     if train:
         local = local_batch(cfg_batch, world)
         if weights is not None:
@@ -177,10 +189,11 @@ def _epoch_loader(ds: AVDataset, cfg_batch: int, epoch: int, seed: int,
 
 
 def _replicate(model: torch.nn.Module) -> None:
-    """Under a process group, rank 0's parameters and buffers on every
-    process."""
+    """Under a process group, the first replica's parameters and buffers
+    (data rank 0's, each model rank its shards) on every replica."""
     if pdist.active():
-        pdist.broadcast_from_main_([*model.parameters(), *model.buffers()])
+        pdist.broadcast_from_main_([*model.parameters(), *model.buffers()],
+                                   pdist.data_group())
 
 
 def _latest_train_state_epoch(exp_dir: str) -> Optional[int]:
@@ -211,7 +224,7 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     state = pt.init_state(cfg, gen, dev)
     if init_params is not None:
-        state.model.load_state_dict(init_params)
+        load_full_state_dict(state.model, init_params)
     _replicate(state.model)
     main = pdist.is_main_process()
     timing = {"restore_s": None, "epochs": []}
@@ -225,10 +238,14 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
             start_epoch = latest + 1
             log(f"resumed from epoch {latest}")
     # the graph binds the state at its first call: after the restore; over
-    # more than one process it holds the 'padded' form only, whose shapes
-    # do not change from step to step
-    graphed = dev.type == "cuda" and (pdist.world_size() == 1 or
-                                      cfg.model.mmixed_impl == "padded")
+    # more than one replica it holds the 'padded' form only, whose shapes
+    # do not change from step to step; under tensor parallelism the step
+    # runs eagerly
+    graphed = dev.type == "cuda" and pdist.model_size() == 1 and (
+        pdist.data_size() == 1 or cfg.model.mmixed_impl == "padded")
+    if dev.type == "cuda" and pdist.model_size() > 1:
+        log(f"tensor parallelism over {pdist.model_size()} ranks: the "
+            f"pretrain step runs eagerly")
     step_fn = (pt.make_graphed_pretrain_step(cfg) if graphed
                else pt.make_pretrain_step(cfg))
     eval_fn = pt.make_eval_step(cfg)
@@ -347,26 +364,28 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                     {k: round(v, 5) for k, v in row.items()}))
                 if row.get("eval_loss", np.inf) < best_loss:
                     best_loss, best_epoch = row["eval_loss"], epoch
-                    if main:
-                        _timed(saves, save_params, cfg.exp_dir,
-                               "best_audio_model", state.model)
+                    _timed(saves, save_params, cfg.exp_dir,
+                           "best_audio_model", state.model)
                 if sched is not None and "eval_loss" in row:
                     sched.step(-row["eval_loss"])  # cavmae_base.py:236-237
             if probe_train_ds is not None and probe_val_ds is not None:
-                probe = linear_probe(state.model.state_dict(), cfg,
+                probe = linear_probe(full_state_dict(state.model), cfg,
                                      probe_train_ds, probe_val_ds,
                                      n_class=probe_n_class,
                                      max_steps_per_epoch=max_steps_per_epoch,
                                      log=log, device=dev)
                 row.update({f"probe_{k}": v for k, v in probe.items()})
-            if main and cfg.save_model:  # traintest_cavmae_base.py:232
+            # every rank saves (the shards are gathered under tensor
+            # parallelism); the main process writes
+            if cfg.save_model:  # traintest_cavmae_base.py:232
                 _timed(saves, save_params, cfg.exp_dir,
                        f"audio_model.{epoch}", state.model)
-            if main and (epoch % max(cfg.train_state_every, 1) == 0
-                         or epoch == cfg.n_epochs):
+            if (epoch % max(cfg.train_state_every, 1) == 0
+                    or epoch == cfg.n_epochs):
                 _timed(saves, save_train_state, cfg.exp_dir,
                        f"train_state.{epoch}", state)
-                prune_train_states(cfg.exp_dir, cfg.keep_train_states)
+                if main:
+                    prune_train_states(cfg.exp_dir, cfg.keep_train_states)
             timing["epochs"].append(t_epoch)
             result_rows.append(row)
             mlog.log(row, step=global_step)
@@ -453,7 +472,7 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
     state = ft.init_state(cfg, torch.Generator(device=dev).manual_seed(
         cfg.seed), dev)
     if init_params is not None:
-        state.model.load_state_dict(init_params)
+        load_full_state_dict(state.model, init_params)
     _replicate(state.model)
     main = pdist.is_main_process()
     timing = {"restore_s": None, "wa_s": None, "epochs": []}
@@ -587,21 +606,21 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
                         pickle.dump(stats, f)
                 if metric > best_metric:
                     best_metric, best_epoch, non_improving = metric, epoch, 0
-                    if main:
-                        _timed(saves, save_params, cfg.exp_dir,
-                               "best_audio_model", state.model)
+                    _timed(saves, save_params, cfg.exp_dir,
+                           "best_audio_model", state.model)
                 else:
                     non_improving += 1
                 if sched is not None:
                     sched.step(metric)  # traintest_ft_base.py:266-270
-            if main and cfg.save_model:  # traintest_ft_base.py:262
+            if cfg.save_model:  # traintest_ft_base.py:262
                 _timed(saves, save_params, cfg.exp_dir,
                        f"audio_model.{epoch}", state.model)
-            if main and (epoch % max(cfg.train_state_every, 1) == 0
-                         or epoch == cfg.n_epochs):
+            if (epoch % max(cfg.train_state_every, 1) == 0
+                    or epoch == cfg.n_epochs):
                 _timed(saves, save_train_state, cfg.exp_dir,
                        f"train_state.{epoch}", state)
-                prune_train_states(cfg.exp_dir, cfg.keep_train_states)
+                if main:
+                    prune_train_states(cfg.exp_dir, cfg.keep_train_states)
             timing["epochs"].append(t_epoch)
             rows.append(row)
             mlog.log(row, step=global_step)
@@ -610,12 +629,14 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
             stop = non_improving >= 3  # traintest_ft_base.py:249-251
             if stop:
                 log("early stop")
-                if main and epoch % max(cfg.train_state_every, 1) != 0:
+                if epoch % max(cfg.train_state_every, 1) != 0:
                     # the last epoch run always has a train state to resume
                     # from, early stop or not
                     _timed(saves, save_train_state, cfg.exp_dir,
                            f"train_state.{epoch}", state)
-                    prune_train_states(cfg.exp_dir, cfg.keep_train_states)
+                    if main:
+                        prune_train_states(cfg.exp_dir,
+                                           cfg.keep_train_states)
             pdist.barrier("finetune-epoch")
             if stop:
                 break
@@ -694,7 +715,7 @@ def validate_ft(eval_fn, model, val_ds: AVDataset, cfg: FinetuneConfig,
         loader.close()
     n = len(val_ds)
     # this process's batch-alignment padding goes before the ordered gather
-    slab = len(eval_shard_indices(n, pdist.world_size(), pdist.rank()))
+    slab = len(eval_shard_indices(n, pdist.data_size(), pdist.data_rank()))
     stats = calculate_stats(
         pdist.gather_eval_outputs(np.concatenate(preds)[:slab], n),
         pdist.gather_eval_outputs(np.concatenate(targets)[:slab], n))
@@ -728,8 +749,8 @@ def linear_probe(pretrain_params: Dict[str, torch.Tensor],
         seed=pre_cfg.seed)
     state = ft.init_state(ft_cfg, torch.Generator(device=dev).manual_seed(
         ft_cfg.seed), dev)
-    state.model.load_state_dict(transfer_pretrain_to_ft(
-        pretrain_params, state.model.state_dict()))
+    load_full_state_dict(state.model, transfer_pretrain_to_ft(
+        pretrain_params, full_state_dict(state.model)))
     step_fn = ft.make_finetune_step(ft_cfg)
     transform = make_train_transform(ft_cfg.audio,
                                      im_res=ft_cfg.model.vit.img_size)

@@ -32,6 +32,15 @@ order, ``all_reduce_mean_``) before that pass's Adam, so the parameters
 stay replicated; the step's metrics are the global ones, the same on every
 process. The graphed step captures these collectives. Without a group
 nothing of this runs.
+
+Tensor parallelism (a mesh with a 'model' axis above 1, ``parallel/tp.py``):
+``init_state`` cuts the freshly initialised model to this rank's shards
+before the Adams are made, so each Adam holds its shards' moments (Adam is
+elementwise). The ranks of a model group take the same block of the batch
+and the same draws (the block is the data rank's), the gradient mean runs
+over the data group, and a replicated parameter's gradient is already the
+same bits across the model group. The step runs eagerly there: the graphed
+step refuses a model axis.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from avsiam_tpu_torch.configs import CAVMAEConfig, PretrainConfig
 from avsiam_tpu_torch.data.pipeline import batch_generator_seed
 from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain, MaskDraws, draw_masks
 from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.parallel.tp import shard_model_
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import (lr_tensor, masked_torch_adam,
                                           multistep_lr_factor)
@@ -76,8 +86,10 @@ def make_optimizers(model: CAVMAEPretrain, cfg: PretrainConfig):
 
 def init_state(cfg: PretrainConfig, generator: Optional[torch.Generator] = None,
                device="cuda") -> PretrainState:
-    """A freshly initialised model (from ``generator``) and its two Adams."""
-    model = CAVMAEPretrain(cfg.model, device, generator)
+    """A freshly initialised model (from ``generator``) and its two Adams;
+    under tensor parallelism the model is cut to this rank's shards
+    first."""
+    model = shard_model_(CAVMAEPretrain(cfg.model, device, generator))
     opt1, opt2 = make_optimizers(model, cfg)
     return PretrainState(model=model, opt1=opt1, opt2=opt2)
 
@@ -95,12 +107,12 @@ def draw_step_masks(cfg: CAVMAEConfig, batch: int, generator: torch.Generator,
 
 def process_block(draws: Tuple[MaskDraws, MaskDraws], batch: int
                   ) -> Tuple[MaskDraws, MaskDraws]:
-    """Under a process group, the global batch's draws with this process's
-    block of rows, [rank * batch, (rank + 1) * batch), ``batch`` being the
-    local batch; without one, the draws as they are."""
+    """Under a process group, the global batch's draws with this replica's
+    block of rows, [data_rank * batch, (data_rank + 1) * batch), ``batch``
+    being the local batch; without one, the draws as they are."""
     if not pdist.active():
         return draws
-    lo = pdist.rank() * batch
+    lo = pdist.data_rank() * batch
     return tuple(replace(d, block=(lo, lo + batch)) for d in draws)
 
 
@@ -110,7 +122,7 @@ MAE_METRICS = ("loss", "loss_mae", "loss_mae_a", "loss_mae_v")
 
 def _apply(opt: torch.optim.Adam, reduce: bool = False) -> None:
     """``opt``'s step, its touched parameters' gradients averaged over the
-    processes first where ``reduce``."""
+    data group first where ``reduce``."""
     grads = []
     for group in opt.param_groups:
         for p in group["params"]:
@@ -118,7 +130,7 @@ def _apply(opt: torch.optim.Adam, reduce: bool = False) -> None:
                 p.grad = torch.zeros_like(p)  # the masked optax Adam sees it
             grads.append(p.grad)
     if reduce:
-        pdist.all_reduce_mean_(grads)
+        pdist.all_reduce_mean_(grads, pdist.data_group())
     opt.step()
 
 
@@ -161,7 +173,7 @@ def pretrain_step_body(cfg: PretrainConfig, state: PretrainState,
         # block's mask sums to the same count; the same holds for the
         # gradient mean above. loss_c and c_acc are the global batch's
         mae = torch.stack([metrics[k] for k in MAE_METRICS])
-        pdist.all_reduce_mean_([mae])
+        pdist.all_reduce_mean_([mae], pdist.data_group())
         metrics.update(zip(MAE_METRICS, mae.unbind()))
     return metrics
 
@@ -179,7 +191,7 @@ def make_pretrain_step(cfg: PretrainConfig):
              lr, draws: Optional[Tuple[MaskDraws, MaskDraws]] = None):
         a, v = batch
         if draws is None:
-            draws = draw_step_masks(cfg.model, a.shape[0] * pdist.world_size(),
+            draws = draw_step_masks(cfg.model, a.shape[0] * pdist.data_size(),
                                     generator, a.device)
         draws = process_block(draws, a.shape[0])
         state.lr.fill_(lr)
@@ -223,7 +235,7 @@ class _GraphedPretrainStep:
                     f"step is captured for {tuple(s.shape)} {s.dtype} on "
                     f"{s.device}")
         d1, d2 = process_block(draws if draws is not None else draw_step_masks(
-            self.cfg.model, self.a.shape[0] * pdist.world_size(), generator,
+            self.cfg.model, self.a.shape[0] * pdist.data_size(), generator,
             self.a.device), self.a.shape[0])
         if first:
             self.draws = (d1.map(torch.clone), d2.map(torch.clone))
@@ -258,10 +270,15 @@ class _GraphedPretrainStep:
             raise ValueError(f"fbank {tuple(a.shape)} on {a.device} and "
                              f"frames {tuple(v.shape)} on {v.device} are no "
                              f"batch for a state on {device}")
-        if pdist.world_size() > 1 and self.cfg.model.mmixed_impl != "padded":
+        if pdist.model_size() > 1:
+            raise ValueError(
+                f"a model axis of {pdist.model_size()}: the tensor-parallel "
+                f"step runs eagerly (make_pretrain_step); no graphed form "
+                f"holds its collectives yet")
+        if pdist.data_size() > 1 and self.cfg.model.mmixed_impl != "padded":
             raise ValueError(
                 f"mmixed_impl {self.cfg.model.mmixed_impl!r} over "
-                f"{pdist.world_size()} processes: a process's share of each "
+                f"{pdist.data_size()} replicas: a replica's share of each "
                 f"chunk changes from step to step, which one graph cannot "
                 f"hold; 'padded' has one shape (the eager step takes every "
                 f"form)")

@@ -16,15 +16,28 @@ real name (orbax gives the JAX package the same guarantee).
 
 Reading an orbax directory needs JAX, which the port does not import: a
 directory where a file is expected is refused with an error that says so.
+
+Every file holds the full, unsharded state, in the format a run of one
+process reads. Under tensor parallelism (``parallel/tp.py``) a save gathers
+the shards of the parameters and of both Adam moments over the model
+group, so every rank of it must call it; the main process alone writes
+(as it alone writes under data parallelism). A restore reads the full
+state and cuts it to the rank's shards.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.parallel.tp import (full_optimizer_state,
+                                          full_state_dict,
+                                          load_full_optimizer_state,
+                                          load_full_state_dict)
 
 _TRAIN_STATE = re.compile(r"train_state\.(\d+)")
 
@@ -57,10 +70,15 @@ def _load(path: str, map_location=None):
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
-def save_params(exp_dir: str, name, model: torch.nn.Module) -> str:
-    """Save the model's ``state_dict`` (e.g. 'audio_model.3' for epoch 3,
-    'best_audio_model')."""
-    return _save(model.state_dict(), _path(exp_dir, name))
+def save_params(exp_dir: str, name, model: torch.nn.Module
+                ) -> Optional[str]:
+    """Save the model's full ``state_dict`` (e.g. 'audio_model.3' for
+    epoch 3, 'best_audio_model') from the main process; its path there,
+    None elsewhere. Collective under tensor parallelism."""
+    sd = full_state_dict(model)
+    if not pdist.is_main_process():
+        return None
+    return _save(sd, _path(exp_dir, name))
 
 
 def restore_params(exp_dir: str, name, map_location=None
@@ -95,12 +113,18 @@ def average_checkpoints(exp_dir: str, start_epoch: int, end_epoch: int
     return {k: (v / n).to(torch.float32) for k, v in acc.items()}
 
 
-def save_train_state(exp_dir: str, name, state) -> str:
-    """Save a train state for resume: the model's ``state_dict``, each of
-    ``state.optimizers()``'s under its name, and ``step``."""
-    return _save({"model": state.model.state_dict(),
-                  **{k: o.state_dict() for k, o in state.optimizers().items()},
-                  "step": int(state.step)}, _path(exp_dir, name))
+def save_train_state(exp_dir: str, name, state) -> Optional[str]:
+    """Save a train state for resume from the main process: the model's
+    full ``state_dict``, each of ``state.optimizers()``'s (full moments)
+    under its name, and ``step``; its path there, None elsewhere.
+    Collective under tensor parallelism."""
+    full = {"model": full_state_dict(state.model),
+            **{k: full_optimizer_state(o, state.model)
+               for k, o in state.optimizers().items()},
+            "step": int(state.step)}
+    if not pdist.is_main_process():
+        return None
+    return _save(full, _path(exp_dir, name))
 
 
 def restore_train_state(exp_dir: str, name, state):
@@ -112,13 +136,14 @@ def restore_train_state(exp_dir: str, name, state):
     load_state_dict`` replaces each group with the saved one, its ``lr``
     included, so after the load each group is pointed back at the tensor
     it read before, which takes the saved rate. Restore before a graphed
-    step's first call: the capture binds the state's tensors."""
+    step's first call: the capture binds the state's tensors. A model that
+    holds shards takes its shards of the saved parameters and moments."""
     device = next(state.model.parameters()).device
     saved = _load(_path(exp_dir, name), map_location=device)
-    state.model.load_state_dict(saved["model"])
+    load_full_state_dict(state.model, saved["model"])
     for key, opt in state.optimizers().items():
         lrs = [group["lr"] for group in opt.param_groups]
-        opt.load_state_dict(saved[key])
+        load_full_optimizer_state(opt, state.model, saved[key])
         for group, lr, was in zip(opt.param_groups, lrs,
                                   saved[key]["param_groups"], strict=True):
             group["lr"] = lr

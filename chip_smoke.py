@@ -128,6 +128,23 @@ Phases (any failure raises and the script exits non-zero):
    runner on CLI64 (a)'s command line: ``result.csv`` and every
    parameter the same bits as CLI64 (a)'s. Launch counts exact in both
    (``run_dp1``).
+   TP2. Tensor parallelism: this script as two workers
+   (``--tp2-worker``) under ``python -m torch.distributed.run
+   --standalone --nproc_per_node=2``, a mesh of data 1 x model 2 on the
+   one card (gloo, which takes more ranks than cards). ViT-H at encoder
+   depth 8 ('pallas', 'fused') and ViT-B ('lnfres'), B=8, three eager
+   steps each from one seed, each rank holding its shards: the metrics,
+   the gathered parameters and Adam moments against the same steps in
+   this process (bf16 tolerances, ``TP2_*``), the replicated parameters
+   the same bits on both ranks, each rank's launches equal to one
+   process's, each kernel and the MLP kernels' float32 partial forms
+   against their plain versions at a rank's shapes, one step profiled;
+   then the pretrain runner on CLI64 (a)'s command line cut to two steps
+   and one validation batch, with ``--mesh_model 2``: ``result.csv``
+   against the same command line's in this process, its
+   ``train_state.1`` loaded here by one process (``run_tp2``).
+   ``--tp2-fault row-sum|qkv-contiguous|none`` runs only TP2's steps with
+   that fault planted in the workers and prints what the limits read.
 4. reference: for configurations A-E, P64 and H64, one contrastive and one MAE
    forward/backward at full width, depth 1, batch 2, through the kernels in
    bf16 on the card and through the plain versions in float32 on the CPU,
@@ -290,7 +307,8 @@ class Shapes(NamedTuple):
     masked: set  # the attention shapes that run with a key mask
 
 
-def main_path_shapes(cfg, batch: int, mae: bool = True) -> Shapes:
+def main_path_shapes(cfg, batch: int, mae: bool = True,
+                     model: int = 1) -> Shapes:
     """Distinct (kernel-call) shapes of one pretrain step and their calls per
     step (``mae=False``: of its contrastive pass alone), in the
     configuration's contrastive form: each block call's
@@ -304,7 +322,10 @@ def main_path_shapes(cfg, batch: int, mae: bool = True) -> Shapes:
     modalities' rows, its norms routed per modality. Under
     ``remat_blocks`` each trunk-block call's forward kernels run again in
     the backward (not 'tconcat''s or 'packed''s, which call the blocks'
-    parts, nor ``mm_layer_1/2``'s or the decoder's)."""
+    parts, nor ``mm_layer_1/2``'s or the decoder's). ``model``: the shapes
+    one rank of a model axis of that size gives its kernels (tensor
+    parallelism: each attention's heads and each MLP's hidden width split
+    ``model`` ways, the head width and every call as they are)."""
     from avsiam_tpu_torch.models.cavmae import chunk_sizes
     from avsiam_tpu_torch.models.layers import mlp_route
     from avsiam_tpu_torch.ops.masking import len_keep_for
@@ -321,7 +342,7 @@ def main_path_shapes(cfg, batch: int, mae: bool = True) -> Shapes:
         table[key] = table.get(key, 0) + calls
 
     def attention(b, n, heads, dim, calls, again=False, masked=False):
-        key = (b, n, heads, dim // heads)
+        key = (b, n, heads // model, dim // heads)
         count(s.attn, key, calls)
         if again:
             count(s.again_attn, key, calls)
@@ -329,7 +350,7 @@ def main_path_shapes(cfg, batch: int, mae: bool = True) -> Shapes:
             s.masked.add(key)
 
     def mlp(rows, dim, hidden, calls, impl, again=False):
-        key = (rows, dim, hidden, mlp_route(impl, dim, hidden))
+        key = (rows, dim, hidden // model, mlp_route(impl, dim, hidden))
         count(s.mlp, key, calls)
         if again:
             count(s.again_mlp, key, calls)
@@ -369,7 +390,7 @@ def main_path_shapes(cfg, batch: int, mae: bool = True) -> Shapes:
                 count(s.ln, (r, C), 1)
         else:  # 'packed': ``Mlp``, where 'lnfres' is 'fres'
             impl = mlp_route(m.mlp_impl, C, enc_h)
-            count(s.mlp, (sum(rows), C, enc_h,
+            count(s.mlp, (sum(rows), C, enc_h // model,
                           "fres" if impl == "lnfres" else impl), v.depth)
             for r in rows:  # norm1, norm2 and the final norm, routed
                 count(s.ln, (r, C), 2 * v.depth + 1)
@@ -1572,12 +1593,23 @@ def main(argv=None) -> int:
     ap.add_argument("--dp1-worker", default=None, metavar="PATH",
                     help="run as phase DP1's worker under torch.distributed."
                          "run, writing its results to PATH")
+    ap.add_argument("--tp2-worker", default=None, metavar="PATH",
+                    help="run as one of phase TP2's two workers under "
+                         "torch.distributed.run; rank 0 writes its results "
+                         "to PATH")
+    ap.add_argument("--tp2-fault", default=None, choices=TP2_FAULTS,
+                    help="run only phase TP2's steps with this fault planted "
+                         "in its workers, and print what its limits read: "
+                         "exits 0 where a planted fault breaks a limit and "
+                         "'none' breaks none")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     if args.dp1_worker:
         return dp1_worker(args.dp1_worker, args.seed)
+    if args.tp2_worker:
+        return tp2_worker(args.tp2_worker, args.seed, args.tp2_fault)
     from avsiam_tpu_torch import kernels
 
     # matmuls of the float32 plain versions run in full float32
@@ -1597,6 +1629,18 @@ def main(argv=None) -> int:
         log(f"  {r['name']}: {r['registers']} registers, {r['spill_stores']} "
             f"B spill stores, {r['spill_loads']} B spill loads, {r['stack']} "
             f"B stack")
+
+    if args.tp2_fault:
+        report = {"device": card}
+        run_tp2("TP2", args.seed, report, fault=args.tp2_fault)
+        log(card)
+        print(json.dumps({"tp2_fault": args.tp2_fault, "runs": {
+            run: {k: r[k] for k in (
+                "metric_rel", "acc_diff", "moment_max_rel",
+                "moment_median_rel", "loose_share", "param_max_over_lr",
+                "replicated", "replicated_differ", "breaches")}
+            for run, r in report["steps"]["TP2"]["runs"].items()}}))
+        return 0
 
     phases = {}
     for label, impls, split, ln, n_steps, batch in PHASES:
@@ -1701,6 +1745,7 @@ def main(argv=None) -> int:
         pretrain_params.unlink(missing_ok=True)
         ft_params.unlink(missing_ok=True)
     launches["DP1"] = run_dp1("DP1", args.seed, report, dp1_steps, dp1_cli)
+    launches["TP2"] = run_tp2("TP2", args.seed, report)
     log(f"runner phases done at {time.time() - t0:.0f} s")
     report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
     for label in REFERENCE_PHASES:
@@ -1741,13 +1786,20 @@ def main(argv=None) -> int:
             "graphed_steady_ms", "nccl_ms", "nccl_calls", "state_tensors",
             "params_equal", "runner_s")},
         "ret": {k: report["steps"]["RET"][k] for k in (
-            "rows", "feature_rel_err", "forward_ms", "plain_forward_ms")}}))
+            "rows", "feature_rel_err", "forward_ms", "plain_forward_ms")},
+        "tp2": {run: {k: r[k] for k in (
+            "depth", "metric_rel", "loose_share", "moment_max_rel")}
+            | {"ms": [x["ms"] for x in r["ranks"]],
+               "peak_gib": [x["peak_gib"] for x in r["ranks"]]}
+            for run, r in report["steps"]["TP2"]["runs"].items()}
+        | {"runner_s": report["steps"]["TP2"]["runner"]["runner_s"],
+           "runner_rows_rel": report["steps"]["TP2"]["runner"]["rows_rel"]}}))
     log(card)
     entries = kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
                              launches)
     for e in entries:  # the data-fed, runner and DP phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
-        for phase in ("CLI64", "FT64", "RET", "DP1"):
+        for phase in ("CLI64", "FT64", "RET", "DP1", "TP2"):
             e[f"{phase.lower()}_launches"] = launches[phase].get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -2141,9 +2193,9 @@ def state_diffs(got, want) -> dict:
     return diffs
 
 
-def cli_paths(tmp) -> dict:
+def cli_paths(tmp, val_clips: int = CLI_VAL_CLIPS) -> dict:
     """CLI64's data under the directory ``tmp``: a 640-clip train and a
-    128-clip validation index of 'synthetic' clips over 527 classes and
+    ``val_clips``-clip validation index of 'synthetic' clips over 527 classes and
     their label CSV, as the recipe's variables (DATA_TRAIN, DATA_VAL,
     LABEL_CSV)."""
     def index(name, n):
@@ -2157,16 +2209,16 @@ def cli_paths(tmp) -> dict:
     labels.write_text("index,mid,display_name\n" + "".join(
         f"{i},/m/{i},class {i}\n" for i in range(527)))
     return dict(DATA_TRAIN=index("train.json", 64 * CLI_TRAIN_BATCHES),
-                DATA_VAL=index("val.json", CLI_VAL_CLIPS),
+                DATA_VAL=index("val.json", val_clips),
                 LABEL_CSV=str(labels))
 
 
-def cli_argv(paths, exp_dir, *extra):
+def cli_argv(paths, exp_dir, *extra, steps: int = CLI_STEPS):
     """The pretrain recipe's words over ``paths`` into ``exp_dir``, with
-    'synthetic' frames, ``CLI_STEPS`` steps an epoch and ``extra``."""
+    'synthetic' frames, ``steps`` steps an epoch and ``extra``."""
     return recipe_argv(**paths, EXP_DIR=str(exp_dir)) + [
         "--frame_source", "synthetic", "--max_steps_per_epoch",
-        str(CLI_STEPS), *extra]
+        str(steps), *extra]
 
 
 def digests(tensors) -> dict:
@@ -2760,6 +2812,557 @@ def run_dp1(label, seed, report, ref_steps, ref_cli):
         runner_s=got["runner_s"], params_equal=n_params,
         launches=launches, files=got["files"], epochs=got["epochs"])
     return launches
+
+
+# ------------------------------------------------------ tensor parallelism
+TP2_STEPS = 3       # eager steps a run, the lr halved each step
+TP2_H_DEPTH = 4     # TP2-H's encoder depth (of ViT-H's 32), for the time
+TP2_RUNS = (("TP2-H", dict(model="cav-mae-huge", attn_impl="pallas",
+                           mlp_impl="fused"), TP2_H_DEPTH),
+            ("TP2-B", dict(mlp_impl="lnfres"), None))
+TP2_TIMEOUT = 900   # seconds for the launcher and its workers
+TP2_CLI_STEPS = 2   # the runner's --max_steps_per_epoch (CLI64's 8), for
+TP2_CLI_VAL = 64    # the time, and its --data-val clips: one batch (128)
+# the faults ``--tp2-fault`` plants in TP2's workers to read what the
+# tolerances below catch: 'row-sum' drops the model-group sum of the video
+# encoder's last attention projection (each rank adds its partial product
+# and the bias alone); 'qkv-contiguous' cuts every qkv weight and bias in
+# halves of the output rows instead of by heads (rank 0 all of q and half
+# of k); 'none' plants nothing (the control of the same invocation)
+TP2_FAULTS = ("none", "row-sum", "qkv-contiguous")
+# the two-rank bf16 step against one process's: their float32 partial
+# sums meet in another order, every bf16 rounding downstream may then fall
+# the other way, and Adam (about lr * g / (|g| + eps) an element a pass)
+# turns a flipped sign of a small gradient into a step the other way, so
+# the bits differ. Held: the metrics within TP2_METRIC_TOL relative (an
+# accuracy within TP2_ACC_TOL: at B=8 one sample's argmax in one of the
+# two directions moves c_acc by 1/16); each Adam moment's largest
+# difference, over its tensor's largest value, at most TP2_MOMENT_TOL,
+# and the median of those over the tensors at most TP2_MOMENT_MEDIAN; at
+# most TP2_LOOSE of the parameters' elements more than 0.1 lr a step
+# apart; the replicated parameters the same bits on both ranks. Each
+# limit lies between the sound runs' readings and those of the faults
+# that ``--tp2-fault`` plants (the accuracy's but for 'row-sum', which
+# moves no argmax: c_acc 0 apart there, 0.19 under 'qkv-contiguous'),
+# read on an H100 80GB HBM3 at 700 W over three steps (TP2-H at encoder
+# depth 4 / TP2-B):
+#   sound:          metrics 8.6e-4 / 2.4e-3, moments 0.045 / 0.132 at most
+#                   and 0.013 / 0.019 in the median, 3.0% / 4.6% loose
+#   row-sum:        1.3e-2 / 2.6e-2, 1.10 / 0.59, 0.25 / 0.17, 47% / 38%,
+#                   105 of 285 / 181 of 509 replicated parameters differ
+#   qkv-contiguous: 5.0e-2 / 7.7e-2, 3.5 / 8.1, 1.1 / 1.4, 89% / 90%
+TP2_METRIC_TOL = 5e-3
+TP2_ACC_TOL = 0.07
+TP2_MOMENT_TOL = 0.3
+TP2_MOMENT_MEDIAN = 5e-2
+TP2_LOOSE = 0.10
+
+
+def tp2_state(state) -> dict:
+    """{name: float32 CPU tensor} of a pretrain state's parameters and each
+    Adam's moments, whole (gathered over the model group, a collective,
+    where the model holds shards)."""
+    from avsiam_tpu_torch.parallel.tp import (full_optimizer_state,
+                                              full_state_dict, param_names)
+    names = {n for n, _ in state.model.named_parameters()}
+    out = {f"param {n}": t.float().cpu()
+           for n, t in full_state_dict(state.model).items() if n in names}
+    for which, opt in state.optimizers().items():
+        order = param_names(opt, state.model)
+        for i, st in full_optimizer_state(opt, state.model)["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{which} {k} {order[i]}"] = st[k].float().cpu()
+    return out
+
+
+def tp2_compare(got: dict, want: dict, lr_sum: float) -> dict:
+    """The gathered two-rank state against the one-process state
+    (``tp2_state``'s): the largest differences (the parameters' in units
+    of ``lr_sum``, the lr summed over the steps), the share of parameter
+    elements more than 0.1 lr a step apart, and the moments farthest
+    apart."""
+    if got.keys() != want.keys():
+        raise AssertionError("TP2: the states hold other tensors")
+    moments, param, loose, total = {}, 0.0, 0, 0
+    for k, w in want.items():
+        g = got[k]
+        if k.startswith("param "):
+            d = (g - w).abs()
+            param = max(param, float(d.max()) / lr_sum)
+            loose += int((d > 0.1 * lr_sum / TP2_STEPS).sum())
+            total += d.numel()
+        else:
+            moments[k] = max_rel(g, w)
+    worst = sorted(moments, key=moments.get, reverse=True)[:3]
+    return dict(param_max_over_lr=param, loose_share=loose / total,
+                moment_max_rel=moments[worst[0]],
+                moment_median_rel=sorted(moments.values())[len(moments) // 2],
+                worst_moments={k: moments[k] for k in worst})
+
+
+def tp2_breaches(r: dict) -> list:
+    """The ``TP2_*`` limits that a run's readings (``tp2_worker``'s) pass:
+    [] where the two-rank run holds to the one-process run."""
+    limits = (("metric_rel", TP2_METRIC_TOL), ("acc_diff", TP2_ACC_TOL),
+              ("moment_max_rel", TP2_MOMENT_TOL),
+              ("moment_median_rel", TP2_MOMENT_MEDIAN),
+              ("loose_share", TP2_LOOSE))
+    out = [f"{k} {r[k]:.3e} > {lim}" for k, lim in limits if r[k] > lim]
+    if r["replicated_differ"]:
+        out.append(f"{r['replicated_differ']} of {r['replicated']} "
+                   f"replicated parameters differ between the ranks")
+    return out
+
+
+def tp2_reference(label, cfg, seed: int) -> dict:
+    """TP2's single-process run of ``cfg``: ``TP2_STEPS`` eager steps from
+    the seed (the state, the batch and the draws from one generator, the
+    lr halved each step), as the two-rank run takes them. Returns the
+    metrics, the eager ms, the peak GiB and the state (``tp2_state``)."""
+    from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_state(cfg, gen, "cuda")
+    batch = step_batch(cfg, gen)
+    step = make_pretrain_step(cfg)
+    steps = [timed_steps(f"{label} one process", step, state, batch, gen,
+                         cfg.opt.lr * 0.5 ** i, 1, first=i)[0]
+             for i in range(TP2_STEPS)]
+    out = dict(metrics=[{k: v for k, v in s.items() if k != "ms"}
+                        for s in steps], ms=[s["ms"] for s in steps],
+               peak_gib=memory_gib()[0], state=tp2_state(state))
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_partial_forms(label, shapes: Shapes, gen) -> dict:
+    """The MLP kernels' tensor-parallel forms at one rank's shapes against
+    their plain versions: K3's and K4's fc2 pass writing the float32
+    partial product without b2 and without the residual, and K7's dx pass
+    writing the float32 partial dx (``ops/mlp.py``). Untimed."""
+    from avsiam_tpu_torch.ops import mlp as pm
+    errs = {}
+    for t, d, h, impl in shapes.mlp:
+        o = mlp_operands(gen, t, d, h)
+        x, w1, b1, w2, do = (o[k] for k in ("x", "w1", "b1", "w2", "do"))
+        f = {k: val.float() for k, val in o.items()}
+        got, want = [], []
+        if impl == "lnfres":
+            g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            bl = 0.1 * torch.randn(d, generator=gen, device="cuda")
+            got += pm.ln_mlp_fwd_kernel(x, g, bl, w1, b1, w2, None, 1e-5,
+                                        partial=True)
+            want += pm.ln_mlp_reference(f["x"], g, bl, f["w1"], b1, f["w2"],
+                                        None, 1e-5, partial=True)
+        if impl in ("fused", "fres"):
+            got += pm.mlp_fwd_kernel(x, w1, b1, w2, None, True)
+            want += pm.mlp_fwd_reference(f["x"], f["w1"], b1, f["w2"], None,
+                                         save_hpre=True)
+        if impl == "fused":
+            got += pm.mlp_bwd_kernel(x, w1, b1, w2, do,
+                                     dx_dtype=torch.float32)
+            want += pm.mlp_bwd_reference(f["x"], f["w1"], b1, f["w2"],
+                                         f["do"], dx_dtype=torch.float32)
+        if not got:
+            continue
+        if got[0].dtype != torch.float32:
+            raise AssertionError(f"{label}: the partial product is "
+                                 f"{got[0].dtype}, not float32")
+        name = f"{impl} partial T={t} D={d} H={h}"
+        errs[name] = max(rel_err(g_, w_)[1] for g_, w_ in zip(got, want))
+        del got, want
+    for name, e in errs.items():
+        log(f"  {label} shape {name}: rel err {e:.1e} (<= {MLP_TOL})")
+        if e > MLP_TOL:
+            raise AssertionError(f"{label} {name}: rel err {e:.3e} > "
+                                 f"{MLP_TOL}")
+    return errs
+
+
+def plant_tp2_fault(model, fault: str) -> None:
+    """Plant ``fault`` (``TP2_FAULTS``) in this rank's sharded ``model``,
+    in place: a check of what TP2's tolerances catch, never part of a
+    sound run."""
+    from avsiam_tpu_torch.parallel import dist as pdist
+    from avsiam_tpu_torch.parallel.tp import full_state_dict
+    if fault == "row-sum":
+        depth = len(model.vit.blocks)
+        model.get_submodule(f"vit.blocks.{depth - 1}.attn.proj").parallel = \
+            None
+    elif fault == "qkv-contiguous":
+        full = full_state_dict(model)  # collective
+        r, m = pdist.model_rank(), pdist.model_size()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith(("qkv.weight", "qkv.bias")):
+                    p.data = full[n].chunk(m, dim=0)[r].clone()
+    elif fault != "none":
+        raise ValueError(f"no fault {fault!r} in {TP2_FAULTS}")
+
+
+def tp2_worker(out_path: str, seed: int, fault=None) -> int:
+    """TP2's worker, one of two ranks under ``torch.distributed.run`` on
+    one card (a mesh of data 1 x model 2; gloo, which ``initialize_
+    multihost`` takes where the host has fewer cards than ranks). Per run
+    of ``TP2_RUNS``: ``TP2_STEPS`` eager steps from the seed at full width
+    (the model cut to the rank's shards), each rank's launches and peak
+    memory, the replicated parameters' digests, one more step profiled on
+    rank 0 (``profile_step``), and on rank 0 the gathered
+    state against ``tp2_reference``'s (written by the parent), each kernel
+    against its plain version at the rank's shapes (``check_at_shapes``)
+    and the partial forms (``check_partial_forms``). Then the pretrain
+    runner on the command line that the parent ran in one process into
+    ``build/chip_smoke_tp2/cli``, with ``--mesh_model 2``: its rows,
+    launches, the gathered final parameters' digests. With ``fault``
+    (``TP2_FAULTS``) planted after the init, only the steps and their
+    readings, which are recorded and not held to the limits. Rank 0 writes
+    the JSON to ``out_path``."""
+    import csv
+    from pathlib import Path
+
+    import torch.distributed as tdist
+
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.cli import pretrain as cli
+    from avsiam_tpu_torch.configs import MeshConfig, PretrainConfig
+    from avsiam_tpu_torch.parallel import dist as pdist
+    from avsiam_tpu_torch.parallel.mesh import make_mesh, split_dim
+    from avsiam_tpu_torch.parallel.tp import full_state_dict
+    from avsiam_tpu_torch.train.pretrain import init_state, make_pretrain_step
+    info = pdist.initialize_multihost()
+    main = pdist.rank() == 0
+    say = log if main else (lambda msg: None)
+    say(f"backend {pdist.backend()}: {info['process_count']} ranks on "
+        f"{torch.cuda.device_count()} card(s)")
+    if info["process_count"] != 2 or pdist.backend() != "gloo":
+        raise AssertionError(f"TP2: no two-rank gloo group ({info})")
+    kernels.library()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_tp2"
+    out = {"info": info, "runs": {}}
+    for label, impls, depth in TP2_RUNS:
+        cfg = phase_config(impls, depth=depth, batch=8)
+        mesh = make_mesh(MeshConfig(model=2), cfg.model)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state = init_state(cfg, gen, "cuda")
+        if fault:
+            plant_tp2_fault(state.model, fault)
+        batch = step_batch(cfg, gen)
+        step = make_pretrain_step(cfg)
+        kernels.reset_launches()
+        steps = [timed_steps(f"{label} rank {pdist.rank()}", step, state,
+                             batch, gen, cfg.opt.lr * 0.5 ** i, 1, first=i)[0]
+                 for i in range(TP2_STEPS)]
+        launches = dict(kernels.LAUNCHES)
+        peak = memory_gib()[0]
+        replicated = digests((n, p) for n, p in state.model.named_parameters()
+                             if split_dim(n) is None)
+        ranks = [None, None]
+        tdist.all_gather_object(ranks, dict(
+            launches=launches, peak_gib=peak, ms=[s["ms"] for s in steps],
+            replicated=replicated))
+        got = tp2_state(state)  # collective
+        # one more step, profiled on rank 0: each kernel's device time at
+        # the rank's shapes, and the host copies of gloo's sums
+        lr = cfg.opt.lr * 0.5 ** TP2_STEPS
+        steady = sorted(s["ms"] for s in steps)[TP2_STEPS // 2]
+        prof = None
+        if main and not fault:
+            prof = profile_step(step, state, batch, gen, lr, steady)
+        elif not fault:
+            step(state, batch, gen, lr)
+            torch.cuda.synchronize()
+        del state, step, batch
+        torch.cuda.empty_cache()
+        if main:
+            ref = torch.load(root / f"{label}.pt", weights_only=True)
+            per_step = expected_launches(
+                cfg, main_path_shapes(cfg, cfg.batch_size), False, False, 1)
+            for r, got_r in enumerate(ranks):
+                check_launches(f"{label} rank {r}", got_r["launches"],
+                               per_step, TP2_STEPS)
+            a, b = ranks[0]["replicated"], ranks[1]["replicated"]
+            metrics = [{k: v for k, v in s.items() if k != "ms"}
+                       for s in steps]
+            lr_sum = sum(cfg.opt.lr * 0.5 ** i for i in range(TP2_STEPS))
+            r = dict(
+                ranks=ranks, metrics=metrics,
+                metric_rel=max(abs(gs[k] - ws[k]) / max(abs(ws[k]), 1e-30)
+                               for gs, ws in zip(metrics, ref["metrics"])
+                               for k in ws if k != "c_acc"),
+                acc_diff=max(abs(gs["c_acc"] - ws["c_acc"])
+                             for gs, ws in zip(metrics, ref["metrics"])),
+                replicated=len(a), replicated_differ=sum(
+                    b.get(k) != v for k, v in a.items()),
+                tensors=len(got), depth=cfg.model.vit.depth,
+                **tp2_compare(got, ref["state"], lr_sum))
+            r["breaches"] = tp2_breaches(r)
+            if r["breaches"] and not fault:
+                raise AssertionError(f"{label}: the two-rank run beyond "
+                                     f"tolerance: {r['breaches']}; metrics "
+                                     f"{metrics} against one process's "
+                                     f"{ref['metrics']}")
+            if not fault:
+                local = main_path_shapes(cfg, cfg.batch_size,
+                                         model=mesh.model)
+                r["kernel_errs"] = check_at_shapes(label, cfg, local, gen)
+                r["kernel_errs"].update(check_partial_forms(label, local,
+                                                            gen))
+                r["profile"] = None if prof is None else {
+                    k: prof[k] for k in ("busy_ms", "steady_ms", "kernels",
+                                         "groups", "group_calls")}
+            out["runs"][label] = r
+        del got
+        tdist.barrier()
+
+    if not fault:
+        # the runner, on the command line the parent ran in one process
+        cli_dir = root / "cli"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.time()
+        run = cli.main(tp2_cli_argv(cli_dir, "exp", "--mesh_model", "2"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        names = {n for n, _ in run["model"].named_parameters()}
+        final = digests((n, t) for n, t in full_state_dict(  # collective
+            run["model"]).items() if n in names)
+        if main:
+            rcfg = PretrainConfig(model=run["state"].model.cfg, batch_size=64)
+            epochs = run["timing"]["epochs"]
+            n_steps = sum(e["steps"] for e in epochs)
+            n_evals = sum(e["eval_batches"] for e in epochs)
+            step_l = expected_launches(rcfg, main_path_shapes(rcfg, 64),
+                                       False, False, 1)
+            eval_l = forward_launches(rcfg, main_path_shapes(rcfg, 64,
+                                                             mae=False))
+            want = {k: n_steps * n + n_evals * eval_l[k]
+                    for k, n in step_l.items()}
+            if launches != want:
+                raise AssertionError(f"TP2 runner: launches {launches} != "
+                                     f"{want}")
+            with open(cli_dir / "exp" / "result.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+            out["cli"] = dict(rows=rows, params=final, runner_s=wall,
+                              launches=launches, steps=n_steps,
+                              evals=n_evals, peak_gib=memory_gib()[0],
+                              epochs=epochs)
+        del run
+    if main:
+        with open(out_path, "w") as f:
+            json.dump(out, f, default=str)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def tp2_cli_argv(cli_dir, exp: str, *extra):
+    """TP2's runner command line: CLI64 (a)'s with ``TP2_CLI_STEPS`` steps
+    and the ``TP2_CLI_VAL``-clip validation index under ``cli_dir``, one
+    epoch, into ``cli_dir / exp``."""
+    paths = dict(DATA_TRAIN=str(cli_dir / "train.json"),
+                 DATA_VAL=str(cli_dir / "val.json"),
+                 LABEL_CSV=str(cli_dir / "labels.csv"))
+    return cli_argv(paths, cli_dir / exp, "--n-epochs", "1", *extra,
+                    steps=TP2_CLI_STEPS)
+
+
+def tp2_log_run(run, r, ref):
+    """Print one TP2 run's readings (``tp2_worker``'s) beside the
+    one-process run's."""
+    log(f"  {run} (encoder depth {r['depth']}): eager step "
+        + ", ".join(f"rank {i} " + " ".join(f"{ms:.0f}" for ms in x["ms"])
+                    + " ms" for i, x in enumerate(r["ranks"]))
+        + " (one process " + " ".join(f"{ms:.0f}" for ms in ref["ms"])
+        + " ms); peak " + ", ".join(
+            f"rank {i} {x['peak_gib']:.1f}" for i, x in enumerate(r["ranks"]))
+        + f" GiB (one process {ref['peak_gib']:.1f})")
+    log(f"  {run}: metrics within {r['metric_rel']:.2e} relative of one "
+        f"process's (<= {TP2_METRIC_TOL}), c_acc within {r['acc_diff']:.4f} "
+        f"(<= {TP2_ACC_TOL}); {r['tensors']} gathered tensors: parameters "
+        f"within {r['param_max_over_lr']:.2f} lr summed over the steps, "
+        f"{100 * r['loose_share']:.3f}% beyond 0.1 lr a step (<= "
+        f"{100 * TP2_LOOSE:g}%), moments within {r['moment_max_rel']:.2e} of "
+        f"scale (<= {TP2_MOMENT_TOL}; median {r['moment_median_rel']:.2e} <= "
+        f"{TP2_MOMENT_MEDIAN}; farthest " + ", ".join(
+            f"{k} {v:.2e}" for k, v in r["worst_moments"].items()) + "); "
+        f"{r['replicated'] - r['replicated_differ']} of {r['replicated']} "
+        f"replicated parameters the same bits on both ranks; launches a "
+        f"rank " + ", ".join(f"{k} {n}" for k, n in
+                             r["ranks"][0]["launches"].items() if n)
+        + " as one process's")
+
+
+def run_tp2(label, seed, report, fault=None):
+    """Phase TP2: tensor parallelism over two ranks on the one card. For
+    each run of ``TP2_RUNS`` (TP2-H: ViT-H at encoder depth
+    ``TP2_H_DEPTH``, 'pallas' attention and 'fused' MLP, phase E's impls;
+    TP2-B: ViT-B, phase A's), ``tp2_reference`` here, in one process;
+    then the pretrain runner here on CLI64 (a)'s command line cut to
+    ``TP2_CLI_STEPS`` steps and one validation batch (``tp2_cli_argv``);
+    then ``chip_smoke.py --tp2-worker`` under ``python -m
+    torch.distributed.run --standalone --nproc_per_node=2``
+    (``tp2_worker``): the two-rank eager steps against the one-process
+    ones (metrics, the gathered parameters and Adam moments within the
+    ``TP2_*`` tolerances, the replicated parameters the same bits on both
+    ranks), each rank's launches as one process's, each kernel against its
+    plain version at a rank's shapes; then the runner's command line with
+    ``--mesh_model 2``: ``result.csv`` against the one-process run's
+    within ``TP2_METRIC_TOL``, and its ``train_state.1`` and
+    ``best_audio_model`` loaded here by one process, the parameters the
+    same bits as the run's gathered ones. Returns the workers' launches
+    (rank 0's, both runs and the runner summed).
+
+    With ``fault`` (``TP2_FAULTS``, ``--tp2-fault``) the workers plant it
+    and take only the steps: the readings are printed, and the phase
+    raises where a planted fault passes every limit (or 'none' breaks
+    one)."""
+    import csv
+    import shutil
+    import signal
+    from pathlib import Path
+
+    from avsiam_tpu_torch.cli import pretrain as cli
+    from avsiam_tpu_torch.configs import PretrainConfig
+    from avsiam_tpu_torch.models.variants import pretrain_config
+    from avsiam_tpu_torch.train.pretrain import init_state
+    from avsiam_tpu_torch.utils import checkpoint as ck
+    root = Path(__file__).resolve().parent
+    tp_dir = root / "build" / "chip_smoke_tp2"
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    tp_dir.mkdir(parents=True)
+    log(f"phase {label}: tensor parallelism, data 1 x model 2 ranks on one "
+        f"card; runs " + ", ".join(
+            f"{run} (encoder depth "
+            f"{phase_config(i, depth=d).model.vit.depth})"
+            for run, i, d in TP2_RUNS)
+        + ("" if fault is None else f"; planted fault {fault!r}, the steps "
+           "only"))
+    refs = {}
+    t0 = time.time()
+    try:
+        for run, impls, depth in TP2_RUNS:
+            cfg = phase_config(impls, depth=depth, batch=8)
+            refs[run] = tp2_reference(run, cfg, seed)
+            torch.save({"metrics": refs[run]["metrics"],
+                        "state": refs[run].pop("state")}, tp_dir / f"{run}.pt")
+        torch.cuda.empty_cache()
+        cli_dir = tp_dir / "cli"
+        if fault is None:
+            cli_dir.mkdir()
+            cli_paths(cli_dir, val_clips=TP2_CLI_VAL)
+            t1 = time.time()
+            one = cli.main(tp2_cli_argv(cli_dir, "one"))
+            torch.cuda.synchronize()
+            one_s = time.time() - t1
+            del one
+            torch.cuda.empty_cache()
+            with open(cli_dir / "one" / "result.csv", newline="") as f:
+                one_rows = list(csv.DictReader(f))
+            log(f"  {label} runner in one process: {one_s:.1f} s")
+        out_path = tp_dir / "tp2.json"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=2", str(root / "chip_smoke.py"),
+               "--tp2-worker", str(out_path), "--seed", str(seed)]
+        if fault:
+            cmd += ["--tp2-fault", fault]
+        log(f"  {' '.join(cmd[1:])}")
+        env = dict(os.environ)
+        env.pop("AVSIAM_PLATFORM", None)
+        env.setdefault("OMP_NUM_THREADS", str(torch.get_num_threads()))
+        t1 = time.time()
+        proc = subprocess.Popen(cmd, cwd=root, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=TP2_TIMEOUT)
+        finally:
+            if proc.poll() is None:  # the launcher and its workers
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        workers_s = time.time() - t1
+        for line in text.splitlines():
+            if line.startswith(("  ", "phase", "backend", "Epoch", "Eval",
+                                "mesh", "pretrain", "tensor")):
+                log(f"  | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: the workers exited "
+                                 f"{proc.returncode}:\n{text[-6000:]}")
+        with open(out_path) as f:
+            got = json.load(f)
+        launches = {}
+        for run, r in got["runs"].items():
+            tp2_log_run(run, r, refs[run])
+            for k, n in r["ranks"][0]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        if fault:
+            caught = {run: r["breaches"] for run, r in got["runs"].items()}
+            log(f"  {label} planted fault {fault!r}: limits passed by each "
+                f"run: {caught}")
+            if (fault == "none") == any(caught.values()):
+                raise AssertionError(f"{label}: fault {fault!r}, limits "
+                                     f"passed {caught}")
+            report.setdefault("steps", {})[label] = dict(
+                fault=fault, runs=got["runs"], wall_s=time.time() - t0)
+            return launches
+        c = got["cli"]
+        if len(c["rows"]) != len(one_rows):
+            raise AssertionError(f"{label} runner: rows {c['rows']}")
+        rows_rel, acc = 0.0, 0.0
+        for rg, rw in zip(c["rows"], one_rows):
+            for k in rw:
+                g, w = float(rg[k]), float(rw[k])
+                if "acc" in k:
+                    acc = max(acc, abs(g - w))
+                else:
+                    rows_rel = max(rows_rel, abs(g - w) / max(abs(w), 1e-30))
+        if rows_rel > TP2_METRIC_TOL or acc > TP2_ACC_TOL:
+            raise AssertionError(f"{label} runner: result.csv {c['rows']} "
+                                 f"against one process's {one_rows}")
+        # the run's checkpoints, loaded by this one process
+        exp = cli_dir / "exp"
+        rcfg = PretrainConfig(model=pretrain_config(
+            "cav-mae-base", dtype=torch.bfloat16, mmixed_impl="exact"),
+            batch_size=64)
+        fresh = init_state(rcfg, torch.Generator(device="cuda").manual_seed(
+            seed), "cuda")
+        ck.restore_train_state(str(exp), "train_state.1", fresh)
+        n_state = same_bits(f"{label} train_state.1", digests(
+            fresh.model.named_parameters()), c["params"])
+        fresh.model.load_state_dict(ck.restore_params(
+            str(exp), "best_audio_model", map_location="cuda"))
+        del fresh
+        torch.cuda.empty_cache()
+        for k, n in c["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"  {label} runner (--mesh_model 2): {c['steps']} steps, "
+            f"{c['evals']} validation batch(es) in {c['runner_s']:.1f} s, "
+            f"peak {c['peak_gib']:.1f} GiB a rank; result.csv within "
+            f"{rows_rel:.2e} relative (<= {TP2_METRIC_TOL}), accuracies "
+            f"within {acc:.4f} (<= {TP2_ACC_TOL}) of the one-process run's; "
+            f"train_state.1 loaded by one process, {n_state} parameters the "
+            f"same bits as the run's gathered ones; launches " + ", ".join(
+                f"{k} {n}" for k, n in c["launches"].items() if n)
+            + " as expected")
+        wall = time.time() - t0
+        log(f"  {label}: {wall:.1f} s ({workers_s:.1f} s with the launcher)")
+        report.setdefault("steps", {})[label] = dict(
+            wall_s=wall, workers_s=workers_s, runs=got["runs"],
+            references={k: {x: v[x] for x in ("ms", "peak_gib", "metrics")}
+                        for k, v in refs.items()},
+            runner=dict(rows_rel=rows_rel, acc_diff=acc, one_process_s=one_s,
+                        **{k: c[k] for k in ("runner_s", "steps", "evals",
+                                             "peak_gib", "launches")}),
+            launches=launches)
+        return launches
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
 
 
 # ------------------------------------------------------- retrieval phase

@@ -365,8 +365,9 @@ def test_cli_pretrain_needs_a_card_or_the_cpu_flag(tmp_path, index_json,
     """Without ``AVSIAM_PLATFORM`` the runner asks for the card and raises
     where there is none; with no process group, a data axis or a process
     count other than the world of one process is refused for the
-    mismatch, and a 'model' axis naming tensor parallelism's module
-    (A10b). Probe datasets, which the runner refused before the finetune
+    mismatch, a 'model' axis of 2 that does not divide the world of one,
+    and a 'model' axis of 3 for the model's 2 heads before any group comes
+    up. Probe datasets, which the runner refused before the finetune
     model came, now run the per-epoch linear probe on the CPU."""
     monkeypatch.delenv("AVSIAM_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -376,7 +377,10 @@ def test_cli_pretrain_needs_a_card_or_the_cpu_flag(tmp_path, index_json,
     for flags, refusal in ((["--mesh_data", "2"], "does not match the world"),
                            (["--num_processes", "4"],
                             "does not match the world"),
-                           (["--mesh_model", "2"], "A10b")):
+                           (["--mesh_model", "2"],
+                            "does not divide the world"),
+                           (["--mesh_model", "3"],
+                            "does not divide the 2 attention heads")):
         with pytest.raises(SystemExit, match=refusal):
             cli.main(_tiny_argv(index_json, tmp_path / "exp", *flags))
     out = cli.main(_tiny_argv(index_json, tmp_path / "exp2",

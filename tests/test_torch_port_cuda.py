@@ -755,6 +755,48 @@ def test_mlp_kernels_at_wide_widths(gen, T, Dm, dtype):
             assert _rel(g, w) <= TOL, (i, j)
 
 
+def test_mlp_partial_forms_at_half_hidden_widths(gen):
+    """Tensor parallelism over two ranks: at ViT-H's and ViT-B's half
+    hidden widths (D 1280, H 2560; D 768, H 1536), K3's and K4's fc2 pass
+    write the float32 partial product act w2^T with no b2 and no residual
+    (K4 with the hidden too), and K7's dx pass the float32 partial dx,
+    each against its plain version on the same values, in bf16 storage;
+    each launched once a call."""
+    f = lambda t: t.float()  # noqa: E731
+    for T, Dm, Hm in ((1416, 1280, 2560), (130, 1280, 2560),
+                      (1024, 768, 1536), (37, 768, 1536)):
+        x = torch.randn((T, Dm), generator=gen, device="cuda").bfloat16()
+        do = torch.randn((T, Dm), generator=gen, device="cuda").bfloat16()
+        w1 = (torch.randn((Hm, Dm), generator=gen, device="cuda")
+              * Dm ** -0.5).bfloat16()
+        b1 = (torch.randn(Hm, generator=gen, device="cuda") * 0.02
+              ).bfloat16().float()
+        w2 = (torch.randn((Dm, Hm), generator=gen, device="cuda")
+              * Hm ** -0.5).bfloat16()
+        lg = 1.0 + 0.1 * torch.randn(Dm, generator=gen, device="cuda")
+        lb = 0.1 * torch.randn(Dm, generator=gen, device="cuda")
+        kernels.reset_launches()
+        pairs = [
+            (pmlp.ln_mlp_fwd_kernel(x, lg, lb, w1, b1, w2, None, 1e-5,
+                                    partial=True),
+             pmlp.ln_mlp_reference(f(x), lg, lb, f(w1), b1, f(w2), None,
+                                   1e-5, partial=True)),
+            (pmlp.mlp_fwd_kernel(x, w1, b1, w2, None, True),
+             pmlp.mlp_fwd_reference(f(x), f(w1), b1, f(w2), None,
+                                    save_hpre=True)),
+            (pmlp.mlp_bwd_kernel(x, w1, b1, w2, do, dx_dtype=torch.float32),
+             pmlp.mlp_bwd_reference(f(x), f(w1), b1, f(w2), f(do),
+                                    dx_dtype=torch.float32))]
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == dict(_NO_LAUNCHES, ln_mlp_fwd=1,
+                                        mlp_fwd=1, mlp_bwd=1, mlp_dw=2)
+        for i, (got, want) in enumerate(pairs):
+            assert got[0].dtype == torch.float32, (T, Dm, i)  # the partial
+            for j, (g, w) in enumerate(zip(got, want)):
+                assert bool(torch.isfinite(g).all()), (T, Dm, i, j)
+                assert _rel(g, w) <= TOL, (T, Dm, i, j)
+
+
 @pytest.mark.parametrize("T,Dm", [(1416, 768), (156, 768), (392, 1280),
                                   (5664, 512)])
 def test_mlp_backward_passes_give_the_same_bits_every_call(gen, T, Dm):

@@ -647,14 +647,14 @@ def test_no_group_without_torchrun_or_process_flags(monkeypatch):
 
 
 def test_mesh_resolves_against_the_world():
-    """The mesh's data axis is -1 or the world, its model axis 1 (A10b
-    named otherwise); a global batch the world does not divide is refused
-    in the JAX loop's words."""
+    """The mesh's data axis is -1 or world / model, and its model axis
+    must divide the world (a world of one takes 1); a global batch the
+    data axis does not divide is refused in the JAX loop's words."""
     from avsiam_tpu_torch.configs import MeshConfig
     from avsiam_tpu_torch.parallel.mesh import Mesh, local_batch, make_mesh
     assert make_mesh(MeshConfig()) == Mesh(1, 1)
     assert make_mesh(MeshConfig(data=1)) == Mesh(1, 1)
-    with pytest.raises(SystemExit, match="A10b"):
+    with pytest.raises(SystemExit, match="does not divide the world"):
         make_mesh(MeshConfig(model=2))
     with pytest.raises(SystemExit, match="does not match the world"):
         make_mesh(MeshConfig(data=4))

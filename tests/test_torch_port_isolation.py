@@ -7,8 +7,9 @@ and, in a fresh interpreter whose import system refuses them, every module
 of the port (``parallel/`` and the retrieval modules among them) imports,
 a tiny CPU forward and two-pass pretrain step run, a finetune step of each
 routing branch runs, the classification statistics and the retrieval
-metrics are computed, and the distributed helpers run as one process
-without a group.
+metrics are computed, the distributed helpers run as one process
+without a group, and the tensor-parallel state round trip and refusals
+(``parallel/``, ``utils/weights.py``) run.
 """
 
 import ast
@@ -101,6 +102,12 @@ assert info["process_count"] == 1 and not pdist.active(), info
 assert make_mesh(MeshConfig()).data == 1
 assert pdist.gather_eval_outputs(np.arange(5), 3).tolist() == [0, 1, 2]
 assert pdist.average_across_processes({"x": 2.5}) == {"x": 2.5}
+from avsiam_tpu_torch.parallel.mesh import tp_refusal
+from avsiam_tpu_torch.utils.weights import gather_state_dict, shard_state_dict
+sd = state.model.state_dict()
+back = gather_state_dict([shard_state_dict(sd, r, 2) for r in range(2)])
+assert all(torch.equal(back[k], v) for k, v in sd.items())
+assert tp_refusal(2, cfg.model) is None and tp_refusal(3, cfg.model)
 feats = np.random.RandomState(0).randn(6, 4)
 assert retrieval_metrics(feats, feats)["R1"] == 1.0
 shapes = chip_smoke.main_path_shapes(chip_smoke.bench_config(), 8)

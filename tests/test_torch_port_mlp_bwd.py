@@ -10,33 +10,35 @@ monkeypatch, nothing in the JAX package changes) and ``_bwd_call`` (the
 single kernel, whose db1 sums the float32 gh). Widths D 128 and 256 (the
 Pallas kernels take any multiple of 128), H = 4 D, on a row count that is
 a multiple of none of the tiles (Pallas 128 and 256, the gh pass's 128).
+
+The JAX side of every case is computed once, by this file run as a script
+in a fresh interpreter (``jax_side``), and handed over with the inputs it
+was given: what an earlier test file left in the worker's process (its JAX
+configuration, its compiled kernels, a patched ``pallas_call``) cannot
+reach it. Each comparison's failure names the dx kernel's call count, the
+largest error of each output and ``torch.get_num_threads()``.
 """
 
-import jax
-import jax.numpy as jnp
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from avsiam_tpu.ops import mlp as jmlp
 from avsiam_tpu_torch.ops import mlp as pmlp
-from test_torch_port_common import process_local_compiles
 
 ROWS = 300
+WIDTHS = (128, 256)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT_TIMEOUT = 300  # seconds
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _process_local_compiles():
-    """The JAX kernels of this file compile in its own process
-    (``process_local_compiles``), not from the compile cache the suite's
-    workers share."""
-    with process_local_compiles():
-        yield
-
-
-def _inputs(d, seed, dtype=jnp.float32):
-    """JAX-layout arrays in ``dtype`` (b1 stays float32 values rounded to
+def _inputs(d, seed, dtype):
+    """JAX-layout arrays of ``dtype`` (b1 stays float32 values rounded to
     it): x [ROWS, d], w1 [d, 4d], b1 [1, 4d], w2 [4d, d], do [ROWS, d]."""
+    import jax.numpy as jnp
     h = 4 * d
     rs = np.random.RandomState(seed)
     f = lambda *s, k=1.0: jnp.asarray(  # noqa: E731
@@ -45,18 +47,12 @@ def _inputs(d, seed, dtype=jnp.float32):
                 w2=f(h, d, k=h ** -0.5), do=f(ROWS, d))
 
 
-def _port(p):
-    """The port's operands from JAX-layout arrays: float32 tensors of the
-    same values, weights in nn.Linear's layout, b1 flat."""
-    t = {k: torch.from_numpy(np.asarray(v.astype(jnp.float32)))
-         for k, v in p.items()}
-    return (t["x"], t["w1"].T.contiguous(), t["b1"][0],
-            t["w2"].T.contiguous(), t["do"])
-
-
 def _split_kernel_outputs(monkeypatch, p):
-    """(dx, gh, act) of ``_bwd_call_split``'s dx kernel, and the function's
-    own (dx, dw1, db1, dw2, db2)."""
+    """(dx, gh, act) of ``_bwd_call_split``'s dx kernel, the function's own
+    (dx, dw1, db1, dw2, db2), and how many times the dx kernel ran."""
+    import jax.numpy as jnp
+
+    from avsiam_tpu.ops import mlp as jmlp
     seen = []
     real = jmlp.pl.pallas_call
 
@@ -75,49 +71,138 @@ def _split_kernel_outputs(monkeypatch, p):
     monkeypatch.setattr(jmlp.pl, "pallas_call", spy)
     grads = jmlp._bwd_call_split(p["x"], p["w1"], p["b1"], p["w2"], p["do"],
                                  "erf")
-    assert len(seen) == 1, f"the dx kernel ran {len(seen)} times"
-    return seen[0], [np.asarray(g.astype(jnp.float32)) for g in grads]
+    first = seen[0] if seen else [np.full((1,), np.nan)] * 3
+    return first, [np.asarray(g.astype(jnp.float32)) for g in grads], len(seen)
 
 
-@pytest.mark.parametrize("d", [128, 256])
-def test_gh_pass_matches_the_split_kernel(monkeypatch, d):
+def _script(out_path):
+    """The JAX side of every case, in this fresh interpreter, to
+    ``out_path`` (npz): each case's inputs as float32 values, and the
+    kernels' outputs. The suite's JAX settings (``tests/conftest.py``),
+    without its persistent compile cache: every kernel compiles here."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    import jax.numpy as jnp
+
+    from avsiam_tpu.ops import mlp as jmlp
+    os.environ.pop("AVSIAM_MLP_BWD", None)
+    out = {}
+
+    def keep(tag, p):
+        for k, v in p.items():
+            out[f"{tag}/in/{k}"] = np.asarray(v.astype(jnp.float32))
+
+    with pytest.MonkeyPatch.context() as mp:
+        for d in WIDTHS:
+            p = _inputs(d, d, jnp.float32)
+            keep(f"gh{d}", p)
+            (dx, gh, act), _, n = _split_kernel_outputs(mp, p)
+            out.update({f"gh{d}/dx": dx, f"gh{d}/gh": gh, f"gh{d}/act": act,
+                        f"gh{d}/count": np.int64(n)})
+        for d in WIDTHS:
+            p = _inputs(d, d + 1, jnp.float32)
+            keep(f"single{d}", p)
+            for k, g in zip(("dx", "dw1", "db1", "dw2", "db2"), jmlp._bwd_call(
+                    p["x"], p["w1"], p["b1"], p["w2"], p["do"], "erf")):
+                out[f"single{d}/{k}"] = np.asarray(g)
+        for d in WIDTHS:
+            p = _inputs(d, d + 2, jnp.bfloat16)
+            keep(f"bf16_{d}", p)
+            out[f"bf16_{d}/db1_7"] = np.asarray(jmlp._bwd_call(
+                p["x"], p["w1"], p["b1"], p["w2"], p["do"], "erf")[2])
+            (_, gh, _), grads, n = _split_kernel_outputs(mp, p)
+            out.update({f"bf16_{d}/gh": gh, f"bf16_{d}/db1_8": grads[2],
+                        f"bf16_{d}/count": np.int64(n)})
+    np.savez(out_path, **out)
+
+
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory):
+    """The script's results, read back."""
+    out = str(tmp_path_factory.mktemp("mlp_bwd") / "jax_side.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        filter(None, [REPO, os.path.join(REPO, "tests"),
+                      os.environ.get("PYTHONPATH")])))
+    env.pop("AVSIAM_MLP_BWD", None)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), out],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=SCRIPT_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _port(ref, tag, dtype=torch.float32):
+    """The port's operands of a case: its inputs as ``dtype`` tensors,
+    weights in nn.Linear's layout, b1 flat."""
+    t = {k: torch.from_numpy(ref[f"{tag}/in/{k}"])
+         for k in ("x", "w1", "b1", "w2", "do")}
+    x, w1, b1, w2, do = (t["x"], t["w1"].T.contiguous(), t["b1"][0],
+                         t["w2"].T.contiguous(), t["do"])
+    return tuple(u.to(dtype) for u in (x, w1, b1, w2, do))
+
+
+def _check_close(checks, context):
+    """Each (name, got, want, rtol, atol) within its tolerance; a failure
+    lists every output's largest error and ``context``."""
+    errs, bad = [], []
+    for name, got, want, rtol, atol in checks:
+        diff = np.abs(np.asarray(got, np.float64) - want)
+        errs.append(f"{name} {diff.max():.3g} (atol {atol:g}, rtol {rtol:g})")
+        if not (diff <= atol + rtol * np.abs(want)).all():
+            bad.append(name)
+    assert not bad, (f"{', '.join(bad)} off; largest errors: "
+                     f"{'; '.join(errs)}; {context}; torch threads "
+                     f"{torch.get_num_threads()}")
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_gh_pass_matches_the_split_kernel(jax_side, d):
     """float32: the gh pass's act within 1e-5 (a forward value) and gh
     within 1e-4 (a gradient) of ``_bwd_dx_kernel``'s, the dx pass's dx
     within 1e-4 of its dx."""
-    p = _inputs(d, seed=d)
-    (jdx, jgh, jact), _ = _split_kernel_outputs(monkeypatch, p)
-    x, w1, b1, w2, do = _port(p)
+    ref, tag = jax_side, f"gh{d}"
+    count = int(ref[f"{tag}/count"])
+    assert count == 1, f"the dx kernel ran {count} times"
+    x, w1, b1, w2, do = _port(ref, tag)
     gh, act, parts = pmlp.mlp_gh_reference(x, w1, b1, w2, do)
     assert parts.shape == (-(-ROWS // pmlp.GH_TILE), 4 * d)
-    np.testing.assert_allclose(act.numpy(), jact, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(gh.numpy(), jgh, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(pmlp.mlp_dx_reference(gh, w1).numpy(), jdx,
-                               rtol=1e-4, atol=1e-4)
+    _check_close([("act", act.numpy(), ref[f"{tag}/act"], 1e-5, 1e-5),
+                  ("gh", gh.numpy(), ref[f"{tag}/gh"], 1e-4, 1e-4),
+                  ("dx", pmlp.mlp_dx_reference(gh, w1).numpy(),
+                   ref[f"{tag}/dx"], 1e-4, 1e-4)],
+                 f"the dx kernel ran {count} time(s)")
 
 
-@pytest.mark.parametrize("d", [128, 256])
-def test_folded_db1_matches_the_single_kernel(monkeypatch, d):
+@pytest.mark.parametrize("d", WIDTHS)
+def test_folded_db1_matches_the_single_kernel(jax_side, d):
     """float32: the fold of the gh pass's row-tile sums is ``_bwd_call``'s
     db1 within 1e-4, and the plain K7 gives all five gradients within 1e-4
     of it."""
-    monkeypatch.delenv("AVSIAM_MLP_BWD", raising=False)
-    p = _inputs(d, seed=d + 1)
-    want = [np.asarray(g) for g in jmlp._bwd_call(
-        p["x"], p["w1"], p["b1"], p["w2"], p["do"], "erf")]
-    x, w1, b1, w2, do = _port(p)
+    ref, tag = jax_side, f"single{d}"
+    want = {k: ref[f"{tag}/{k}"] for k in ("dx", "dw1", "db1", "dw2", "db2")}
+    x, w1, b1, w2, do = _port(ref, tag)
     _, _, parts = pmlp.mlp_gh_reference(x, w1, b1, w2, do)
-    np.testing.assert_allclose(pmlp.fold_rows(parts).numpy(), want[2],
-                               rtol=1e-4, atol=1e-4)
     got = pmlp.mlp_bwd_reference(x, w1, b1, w2, do)
-    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
-        if name in ("dw1", "dw2"):
-            w = w.T  # nn.Linear's layout
-        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4,
-                                   err_msg=name)
+    _check_close([("folded db1", pmlp.fold_rows(parts).numpy(), want["db1"],
+                   1e-4, 1e-4)] + [
+        # the weight gradients in nn.Linear's layout
+        (name, g.numpy(), want[name].T if name in ("dw1", "dw2")
+         else want[name], 1e-4, 1e-4)
+        for name, g in zip(("dx", "dw1", "db1", "dw2", "db2"), got)],
+        "the single kernel")
 
 
-@pytest.mark.parametrize("d", [128, 256])
-def test_bf16_db1_forms_match_jax(monkeypatch, d):
+def _bf16(a):
+    """float32 values rounded to bfloat16 (to nearest even, as JAX's cast)
+    and back."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float(
+        ).numpy()
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_bf16_db1_forms_match_jax(jax_side, d):
     """bfloat16: K7's db1 (the fold of the float32 gh's row-tile sums) and
     the split backward's (K9's sum of the bf16 gh the gh pass stores),
     rounded to bfloat16 as both packages hand them to b1, equal the JAX
@@ -126,20 +211,18 @@ def test_bf16_db1_forms_match_jax(monkeypatch, d):
     an element whose sum lies at a bf16 rounding tie may round the other
     way: at most 1% of the elements may differ, each by one bf16 step (0-2
     of 512 or 1024 do over seeds 0-4). The stored gh likewise."""
-    p = _inputs(d, seed=d + 2, dtype=jnp.bfloat16)
-    monkeypatch.delenv("AVSIAM_MLP_BWD", raising=False)
-    j7 = jmlp._bwd_call(p["x"], p["w1"], p["b1"], p["w2"], p["do"], "erf")[2]
-    (_, jgh, _), j8 = _split_kernel_outputs(monkeypatch, p)
-    x, w1, b1, w2, do = (t.bfloat16() for t in _port(p))
+    ref, tag = jax_side, f"bf16_{d}"
+    count = int(ref[f"{tag}/count"])
+    assert count == 1, f"the dx kernel ran {count} times"
+    x, w1, b1, w2, do = _port(ref, tag, torch.bfloat16)
     gh, _, parts = pmlp.mlp_gh_reference(x, w1, b1.float(), w2, do)
     assert gh.dtype == torch.bfloat16
     # gh itself matches but for float32 sum-order ties at the bf16 rounding
-    assert (gh.float().numpy() != jgh).mean() <= 0.01
-    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
-                              .astype(jnp.float32))
-    db1_7 = bf(pmlp.fold_rows(parts).numpy())
-    db1_9 = bf(pmlp.weight_grads_reference(x, gh)[1].numpy())
-    for got, want in ((db1_7, bf(j7)), (db1_9, bf(j8[2]))):
+    assert (gh.float().numpy() != ref[f"{tag}/gh"]).mean() <= 0.01
+    db1_7 = _bf16(pmlp.fold_rows(parts).numpy())
+    db1_9 = _bf16(pmlp.weight_grads_reference(x, gh)[1].numpy())
+    for got, want in ((db1_7, _bf16(ref[f"{tag}/db1_7"])),
+                      (db1_9, _bf16(ref[f"{tag}/db1_8"]))):
         off = got != want
         assert off.mean() <= 0.01
         # one bf16 step: 2^-8 of the value's binade
@@ -211,3 +294,7 @@ def test_dx_splits_take_the_least_modelled_time(rows, dim, hidden):
 
     assert cost(s) <= cost(1)
     assert cost(s) == min(cost(k) for k in range(1, min(slabs, 16) + 1))
+
+
+if __name__ == "__main__":
+    _script(sys.argv[1])

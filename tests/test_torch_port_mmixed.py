@@ -227,9 +227,9 @@ def test_bucketed_masks_only_where_it_pads(monkeypatch):
     calls = []
     orig = players.attention_qkv
 
-    def record(xqkv, heads, key_valid, impl):
+    def record(xqkv, heads, key_valid, impl, shards=1):
         calls.append((tuple(xqkv.shape[:2]), key_valid is None))
-        return orig(xqkv, heads, key_valid, impl)
+        return orig(xqkv, heads, key_valid, impl, shards=shards)
 
     monkeypatch.setattr(players, "attention_qkv", record)
     a, v = batch(5)
