@@ -15,8 +15,9 @@ the GPU); ``LayerNormFP32`` under ``AVSIAM_LN=pallas`` through
 ``mlp_route``) the MLP sub-block runs through ``ops.mlp.fused_ln_mlp``
 (kernel K3 on the GPU), and with 'fused', 'fbwd' or 'fres' the MLP through
 ``ops.mlp.fused_mlp`` (kernels K4, K7, K8, K9). ``ModalityBlock`` also
-runs in the token-concat form (``call_tconcat``) and, with ``remat``,
-rematerialised in the backward.
+runs in the token-concat form (``call_tconcat``), with ``remat``
+rematerialised in the backward, and with ``r > 0`` merging tokens after
+its attention (ToMe, ``models/tome.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from avsiam_tpu_torch.configs import ViTConfig
+from avsiam_tpu_torch.models.tome import bipartite_soft_matching, merge_wavg
 from avsiam_tpu_torch.ops.attention import ATTN_IMPLS, attention_qkv
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
 from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_fp32
@@ -228,8 +230,29 @@ class Attention(nn.Module):
             off += b * n
         return torch.cat(outs)
 
-    def forward(self, x, key_valid: Optional[torch.Tensor] = None):
-        return self.proj(self.attend(self.qkv(x), key_valid))
+    def forward(self, x, key_valid: Optional[torch.Tensor] = None,
+                tome: bool = False):
+        """``proj`` of the attention of x; with ``tome`` also the ToMe
+        matching metric (``tome_metric``)."""
+        qkv = self.qkv(x)
+        out = self.proj(self.attend(qkv, key_valid))
+        return (out, self.tome_metric(qkv)) if tome else out
+
+    @torch.no_grad()
+    def tome_metric(self, qkv):
+        """The keys' mean over the heads, [B, N, D], from the [B, N, 3C]
+        projection (``avsiam_tpu/models/layers.py:235-244``), summed in
+        float32 and cast to qkv's dtype. The merge plan it feeds is built
+        from sorts and argmaxes, so no gradient reaches it. Under tensor
+        parallelism this rank's heads are summed, the sums added over the
+        model group and divided by every head, so that each rank of the
+        group draws the same plan as the whole width's mean."""
+        B, N, _ = qkv.shape
+        H = self.num_heads
+        k = qkv.reshape(B, N, 3, H, -1)[:, :, 1].float().sum(dim=2)
+        if self.shards > 1:
+            torch.distributed.all_reduce(k, group=pdist.model_group())
+        return (k / (H * self.shards)).to(qkv.dtype)
 
 
 class ModalityBlock(nn.Module):
@@ -262,13 +285,17 @@ class ModalityBlock(nn.Module):
                        mlp_impl)
 
     def forward(self, x, modality: Optional[str] = None,
-                key_valid: Optional[torch.Tensor] = None):
+                key_valid: Optional[torch.Tensor] = None, r: int = 0):
+        """The block on x; ``r > 0`` (single-modality routings) merges the
+        r most similar tokens after the attention sub-block (ToMe,
+        ``models/tome.py``) and returns (x, keep), ``keep`` [B, N] false at
+        the merged-away slots (``avsiam_tpu/models/layers.py:306-318``)."""
         if self.remat and torch.is_grad_enabled():
             # no block draws random numbers: reading the generator's state
             # would be a host read inside a captured graph
-            return checkpoint(self._forward, x, modality, key_valid,
+            return checkpoint(self._forward, x, modality, key_valid, r,
                               use_reentrant=False, preserve_rng_state=False)
-        return self._forward(x, modality, key_valid)
+        return self._forward(x, modality, key_valid, r)
 
     def _norms(self, modality: Optional[str]):
         """(norm1, norm2) of a single-modality routing."""
@@ -280,7 +307,7 @@ class ModalityBlock(nn.Module):
             return self.norm1_v, self.norm2_v
         raise ValueError(f"unknown modality: {modality}")
 
-    def _forward(self, x, modality, key_valid):
+    def _forward(self, x, modality, key_valid, r=0):
         if modality == "av":
             a, v = x
             num_a = a.shape[1]
@@ -291,6 +318,11 @@ class ModalityBlock(nn.Module):
             out = x + self.mlp(torch.cat([a2, v2], dim=1))
             return out[:, :num_a], x[:, num_a:]
         n1, n2 = self._norms(modality)
+        if r > 0:
+            attn_out, metric = self.attn(n1(x), key_valid, tome=True)
+            assign, keep = bipartite_soft_matching(metric, r)
+            x, _ = merge_wavg(assign, x + attn_out)
+            return self._mlp_res(x, n2), keep
         x = x + self.attn(n1(x), key_valid)
         return self._mlp_res(x, n2)
 

@@ -15,8 +15,9 @@ reference's init-time weight surgery (cav_mae_base.py:236-303):
   (row, column, channel) values, the audio one its mean over the three
   colour channels;
 - the audio pos embed is timm's 196-token grid resampled to the audio
-  tokens by nearest neighbour (torch ``F.interpolate``'s default:
-  out[i] = in[floor(i * 196 / n)]);
+  tokens by nearest neighbour (``models/pos_embed.py:
+  interp_pos_embed_tokens``, torch ``F.interpolate``'s default: out[i] =
+  in[floor(i * 196 / n)]);
 - ``norm_a`` is a copy of ``norm``.
 
 ``build_pretrain_from_timm`` then sets both trunks (``vit`` and its copy
@@ -36,6 +37,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from avsiam_tpu_torch.models.pos_embed import interp_pos_embed_tokens
+
 _NORMS = ("norm1", "norm2")
 
 
@@ -47,12 +50,6 @@ def strip_module_prefix(sd: Dict) -> Dict:
 
 def _f32(t) -> torch.Tensor:
     return torch.as_tensor(t).detach().to("cpu", torch.float32).clone()
-
-
-def _interp_tokens(pos: torch.Tensor, num_out: int) -> torch.Tensor:
-    """[1, n, D] -> [1, num_out, D], nearest neighbour along the tokens."""
-    idx = torch.arange(num_out) * pos.shape[1] // num_out
-    return pos[:, idx].clone()
 
 
 def vit_surgery_from_timm(sd: Dict, depth: int = 12,
@@ -69,7 +66,7 @@ def vit_surgery_from_timm(sd: Dict, depth: int = 12,
     pos = _f32(sd["pos_embed"])  # [1, 1 + 196, D]
     out = {
         "pos_embed": pos,
-        "pos_embed_a": _interp_tokens(pos[:, 1:], num_audio_tokens),
+        "pos_embed_a": interp_pos_embed_tokens(pos[:, 1:], num_audio_tokens),
         "patch_embed.proj.weight": w.reshape(dim, -1).contiguous(),
         "patch_embed.proj.bias": bias,
         "patch_embed_a.proj.weight": w.mean(dim=-1).reshape(dim, -1)

@@ -5,7 +5,8 @@ tree, or any tree of the same shape: gradients, Adam moments) and returns
 the port's ``state_dict``. It imports no flax: the tree is plain dicts.
 
 Path mapping, flax -> port:
-- ``blocks_3`` -> ``blocks.3``;
+- ``blocks_3`` -> ``blocks.3``, and the audio-only model's ``blocks_a_3``
+  and ``blocks_u_0`` -> ``blocks_a.3`` and ``blocks_u.0``;
 - ``norm1/ln/scale`` -> ``norm1.weight``, ``norm1/ln/bias`` -> ``norm1.bias``
   (the ``ln`` scope right above a LayerNorm's leaves is dropped, so a head's
   LayerNorm named ``ln``, ``mlp_head/ln/ln/scale``, is ``mlp_head.ln.weight``);
@@ -33,7 +34,7 @@ import torch
 
 from avsiam_tpu_torch.parallel.mesh import split_dim
 
-_BLOCK = re.compile(r"^blocks_(\d+)$")
+_BLOCK = re.compile(r"^(blocks(?:_[au])?)_(\d+)$")
 
 
 def _walk(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -56,7 +57,7 @@ def port_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     for p in scopes:
         m = _BLOCK.match(p)
         if m:
-            parts += ["blocks", m.group(1)]
+            parts += [m.group(1), m.group(2)]
         else:
             parts.append(p)
     transpose = leaf == "kernel"

@@ -50,8 +50,9 @@ Phases (any failure raises and the script exits non-zero):
       K4 with the saved hidden in the decoder);
    D. ViT-B, ``mlp_impl='lnfres'`` under ``AVSIAM_LN=pallas`` (K1, K2, K3,
       and K10 in every LayerNormFP32 backward);
-   E. ViT-H/16 (``pretrain_config('cav-mae-huge')``: dim 1280, depth 32,
-      16 heads of 80; decoder 512/8/16), ``attn_impl='pallas'``,
+   E. ViT-H/16 (``pretrain_config('cav-mae-huge')``: dim 1280, 16 heads
+      of 80; decoder 512/8/16) at encoder depth 16 of 32 (the kernels
+      phase times its shapes at the full depth), ``attn_impl='pallas'``,
       ``mlp_impl='fused'`` (K5, K6 in the encoders, K1, K2 in the decoder;
       K4 and K7, with K9, at D 1280 and in the decoder);
    A64. A at the JAX bench's batch of 64 (``bench.py:81-84``);
@@ -80,6 +81,19 @@ Phases (any failure raises and the script exits non-zero):
    Then, on one set of 'exact' draws at B=8, each other form's pooled
    contrastive outputs must be within 2e-2 relative of 'exact''s ('padded'
    given the keep masks of those draws).
+   AO. The audio-only finetune model (``models/audio_only.py``) at ViT-B
+      width (11 + 1 blocks, 512 audio tokens), 527 classes, B=64, bf16,
+      'auto': three eager forward and BCE-backward steps, exactly 12 K1,
+      12 K3 and 12 K2 a step; then at depth 2, B=2, the bf16 kernels on
+      the card against the float32 plain model on the CPU (loss within
+      2e-2, gradient cosine at least 0.99) with ``tr_pos=False``, whose
+      position table takes no gradient (``run_audio_only``).
+   TOME. One ViT-B block with ToMe's r > 0 at B=64, audio N=512 and video
+      N=196, r 16 and 64, bf16 'auto' (K1, then K3 over the merged tokens)
+      against the float32 plain block on the card, by pieces: attention
+      and metric, the merge and MLP residual under one shared plan, the
+      token mass, r slots dropped a sample, the plans' agreement printed
+      (``run_tome``).
    PD64. P64's graphed step fed by the port's loader (``device_loader``
    over an ``AVDataset`` of 'synthetic' clips, the pretrain recipe's audio
    config): warm-up and capture, the loader's lead drained, then a window
@@ -150,7 +164,11 @@ Phases (any failure raises and the script exits non-zero):
    bf16 on the card and through the plain versions in float32 on the CPU,
    from the same weights and draws: losses and gradients must agree within
    the stated tolerances. FTR: the finetune step in each 'mm_grad' branch
-   the same way (``run_ft_reference``).
+   the same way (``run_ft_reference``). MEM, beside them: ``python -m
+   avsiam_tpu_torch.cli.memory_probe --model cav-mae-base --batch-size 8
+   --steps 3`` in a process of its own, its JSON line, its peak within 10%
+   of phase A's eager peak (``start_memory_probe``,
+   ``check_memory_probe``).
 
 Before the last lines comes a JSON object of each step phase's eager and
 graphed steady step, busy share, kernels, Adam's device time and peak
@@ -236,6 +254,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, by_kernel: bool = False):
         per[e.key] = (per.get(e.key, 0.0)
                       + e.self_device_time_total / 1e3 / iters)
     return per if by_kernel else sum(per.values())
+
+
+def event_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+    """Device time of one call of ``fn``, by CUDA events around ``iters``
+    back-to-back calls, for a call of many kernels that keeps the card
+    busy (a whole block: ``time_ms``'s profiler sessions came back with a
+    record count no multiple of the calls there, three times a call)."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def plain_ms(fn):
+    """``time_ms`` of a plain float32 version: 3 calls after 1 warm-up. A
+    plain version's time is no yardstick (the kernels and the library
+    calls keep ``time_ms``'s 20 after 3), and its sessions cost the
+    script's time."""
+    return time_ms(fn, iters=3, warmup=1)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -554,9 +596,10 @@ def check_attention(shapes, extra, gen, masks=None):
         fwd_ms = time_ms(lambda: attention_fwd_kernel(xqkv, heads, kv))
         bwd_ms = time_ms(lambda: attention_bwd_kernel(xqkv, out, stats, dout,
                                                       heads, kv))
-        plain_fwd = time_ms(lambda: attention_reference(xqkv.float(), heads, kv))
+        plain_fwd = plain_ms(lambda: attention_reference(xqkv.float(), heads,
+                                                        kv))
         ref_g = attention_reference(x32, heads, kv)
-        plain_bwd = time_ms(lambda: torch.autograd.grad(
+        plain_bwd = plain_ms(lambda: torch.autograd.grad(
             ref_g, x32, dout.float(), retain_graph=True))
         ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
@@ -657,7 +700,7 @@ def check_ln_mlp(shapes, gen, eps: float = 1e-5, timed: bool = True):
         ms, split = sum(parts.values()), fwd_pass_ms(parts)
         plain = composite = None
         if timed:
-            plain = time_ms(lambda: ln_mlp_reference(
+            plain = plain_ms(lambda: ln_mlp_reference(
                 x.float(), g, bl, w1.float(), b1, w2.float(), b2, eps))
             composite = time_ms(lambda: dense_ln_mlp(x, g, bl, w1, b1, w2,
                                                      b2, eps))
@@ -788,17 +831,17 @@ def check_mlp_family(phase_calls, extra, gen):
                 ("gh", ("mlp_gh", "colsum_fold")),
                 ("dx", ("mlp_dx", "mlp_epilogue")), ("k9", ("mlp_dw",)))}
         plain = dict(
-            fwd=time_ms(lambda: pm.mlp_fwd_reference(f["x"], f["w1"], b1,
-                                                     f["w2"], b2)),
-            fwd_hpre=time_ms(lambda: pm.mlp_fwd_reference(
+            fwd=plain_ms(lambda: pm.mlp_fwd_reference(f["x"], f["w1"], b1,
+                                                      f["w2"], b2)),
+            fwd_hpre=plain_ms(lambda: pm.mlp_fwd_reference(
                 f["x"], f["w1"], b1, f["w2"], b2, save_hpre=True)),
-            bwd=time_ms(lambda: pm.mlp_bwd_reference(f["x"], f["w1"], b1,
-                                                     f["w2"], f["do"])),
-            bwd_dx=time_ms(lambda: pm.mlp_bwd_dx_reference(
+            bwd=plain_ms(lambda: pm.mlp_bwd_reference(f["x"], f["w1"], b1,
+                                                      f["w2"], f["do"])),
+            bwd_dx=plain_ms(lambda: pm.mlp_bwd_dx_reference(
                 f["x"], f["w1"], b1, f["w2"], f["do"])),
-            dw=time_ms(lambda: pm.weight_grads_reference(f["x"], gh.float()))
-            + time_ms(lambda: pm.weight_grads_reference(act.float(),
-                                                        f["do"])))
+            dw=plain_ms(lambda: pm.weight_grads_reference(f["x"], gh.float()))
+            + plain_ms(lambda: pm.weight_grads_reference(act.float(),
+                                                         f["do"])))
         fwd_c = time_ms(lambda: dense_mlp_fwd(x, w1, b1, w2, b2))
         composite = dict(
             fwd=fwd_c, fwd_hpre=fwd_c,
@@ -909,8 +952,8 @@ def check_ln_bwd(shapes, gen, eps: float = 1e-5):
         ms = sum(parts.values())
         split = {k: sum(t for n, t in parts.items() if f"ln_bwd_{k}" in n)
                  for k in ("rows", "cols")}
-        plain = time_ms(lambda: ln_bwd_reference(x.float(), dy.float(),
-                                                 scale, eps))
+        plain = plain_ms(lambda: ln_bwd_reference(x.float(), dy.float(),
+                                                  scale, eps))
         # bytes: x, dy read and dx written (bf16), scale read and dgamma,
         # dbeta written (f32); about 15 float32 operations a value
         bd = bound_ms(15 * r * c, 3 * r * c * 2 + 3 * c * 4, PEAK_F32_FLOPS)
@@ -979,8 +1022,8 @@ def check_attention_hm(shapes, extra, gen):
                       q, k, v, out, stats, dout, kv)))
         of, df = out.float(), dout.float()
         plain = dict(
-            fwd=time_ms(lambda: pat.attention_hm_reference(*f, kv)),
-            bwd=time_ms(lambda: pat.attention_hm_bwd_stats_reference(
+            fwd=plain_ms(lambda: pat.attention_hm_reference(*f, kv)),
+            bwd=plain_ms(lambda: pat.attention_hm_bwd_stats_reference(
                 *f, of, stats, df, kv)))
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
@@ -1526,8 +1569,10 @@ PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5, 8),
           *((f"F-{form}", dict(mmixed_impl=form), False, False, 2, 8)
             for form in ("tconcat", "bucketed", "packed")))
 # the encoder depth a step phase is cut to (H64 runs 16 of ViT-H's 32
-# blocks, to leave the script's time for the finetune phases)
-PHASE_DEPTH = {"H64": 16}
+# blocks, to leave the script's time for the finetune phases, and E, for
+# phases AO, TOME and MEM); the kernels phase keeps the full depth's
+# shapes and calls per step
+PHASE_DEPTH = {"H64": 16, "E": 16}
 # the phases the depth-1 reference phase runs (A64 and F's forms share A's
 # configuration but for the batch and the contrastive form)
 REFERENCE_PHASES = ("A", "B", "C", "D", "E", "P64", "H64")
@@ -1647,7 +1692,9 @@ def main(argv=None) -> int:
         cfg = phase_config(impls, depth=PHASE_DEPTH.get(label), batch=batch)
         phases[label] = dict(impls=impls, cfg=cfg, split=split, ln=ln,
                              n_steps=n_steps,
-                             shapes=main_path_shapes(cfg, cfg.batch_size))
+                             shapes=main_path_shapes(cfg, cfg.batch_size),
+                             kernel_shapes=main_path_shapes(phase_config(
+                                 impls, batch=batch), batch))
     attn_shapes, mlp_shapes = phases["A"]["shapes"][:2]
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     report = {"device": card, "kernel_resources": resources}
@@ -1668,18 +1715,19 @@ def main(argv=None) -> int:
         (t, d, h, "lnfres"): 0 for t, d, h in wide + [(64 * 708, 768,
                                                        3072)]}}, gen)
     fam_rows = check_mlp_family(
-        {p: mlp_shape_launches(phases[p]["shapes"][1], phases[p]["split"])
+        {p: mlp_shape_launches(phases[p]["kernel_shapes"][1],
+                               phases[p]["split"])
          for p in "BCE"}, [k for k in wide if k[1] == 1024], gen)
     # K10 at phase D's LN shapes and at ViT-H's width (phase E's encoder
     # LN shapes, which run the torch-ops backward there)
     ln_shapes = dict(phases["D"]["shapes"][2])
-    ln_shapes.update({k: 0 for k in phases["E"]["shapes"][2]
+    ln_shapes.update({k: 0 for k in phases["E"]["kernel_shapes"][2]
                       if k[1] == 1280})
     ln_rows = check_ln_bwd(ln_shapes, gen)
     e = phases["E"]
     # and K5/K6 above head width 128 (the wide path), timed beside SDPA
     hm_rows = check_attention_hm(
-        head_major_shapes(e["cfg"], e["shapes"][0]),
+        head_major_shapes(e["cfg"], e["kernel_shapes"][0]),
         [((2, 177, 16, 80), True), ((2, 196, 12, 64), False),
          ((2, 177, 12, 64), True), ((2, 512, 4, 192), False),
          ((2, 512, 3, 256), False)], gen)
@@ -1717,6 +1765,7 @@ def main(argv=None) -> int:
     launches = {}
     dp1_steps, dp1_cli = {}, {}  # DP1's references
     for label, p in phases.items():
+        t1 = time.time()
         with env_flags(p["split"], p["ln"]):
             launches[label] = run_steps(
                 label, p["cfg"], expected_launches(
@@ -1726,7 +1775,13 @@ def main(argv=None) -> int:
             report.setdefault("eager_vs_graphed", {})[label] = \
                 compare_eager_graphed(p["cfg"], args.seed, keep=dp1_steps
                                       if label == "P64" else None)
+        log(f"phase {label}: {time.time() - t1:.1f} s")
     log(f"step phases done at {time.time() - t0:.0f} s")
+    t1 = time.time()
+    launches["AO"] = run_audio_only("AO", args.seed, report)
+    launches["TOME"] = run_tome("TOME", args.seed, report)
+    log(f"phases AO and TOME done at {time.time() - t0:.0f} s, in "
+        f"{time.time() - t1:.1f} s")
     p64 = phases["P64"]
     launches["PD64"] = run_data_fed(
         "PD64", p64["cfg"], expected_launches(p64["cfg"], p64["shapes"],
@@ -1747,13 +1802,23 @@ def main(argv=None) -> int:
     launches["DP1"] = run_dp1("DP1", args.seed, report, dp1_steps, dp1_cli)
     launches["TP2"] = run_tp2("TP2", args.seed, report)
     log(f"runner phases done at {time.time() - t0:.0f} s")
-    report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"], args.seed)
-    for label in REFERENCE_PHASES:
-        p = phases[label]
-        with env_flags(p["split"], p["ln"]):
-            run_reference(label, p["impls"], args.seed, report)
-    run_ft_reference(args.seed, report)
-    log(f"reference phases done at {time.time() - t0:.0f} s")
+    mem = start_memory_probe("MEM")
+    try:
+        report["forms_vs_exact"] = compare_forms(phases["A"]["cfg"],
+                                                 args.seed)
+        for label in REFERENCE_PHASES:
+            p = phases[label]
+            with env_flags(p["split"], p["ln"]):
+                run_reference(label, p["impls"], args.seed, report)
+        run_ft_reference(args.seed, report)
+        log(f"reference phases done at {time.time() - t0:.0f} s")
+        check_memory_probe("MEM", report,
+                           report["steps"]["A"]["eager_peak_gib"], mem)
+    finally:
+        if mem[0].poll() is None:
+            mem[0].kill()
+            mem[0].wait()
+    log(f"phase MEM done at {time.time() - t0:.0f} s")
     # K3 at the 10-frame eval's fusion rows (640 x 708, which cross every
     # row tile and reach the largest row index FT64 gives it), last, and
     # its plain version and composite not timed: their profiler sessions
@@ -1787,6 +1852,15 @@ def main(argv=None) -> int:
             "params_equal", "runner_s")},
         "ret": {k: report["steps"]["RET"][k] for k in (
             "rows", "feature_rel_err", "forward_ms", "plain_forward_ms")},
+        "ao": {k: report["steps"]["AO"][k] for k in (
+            "eager_steady_ms", "eager_peak_gib", "reference")},
+        "tome": [{k: r[k] for k in ("modality", "N", "r", "errs",
+                                    "same_plan", "same_fate", "ms",
+                                    "plain_ms")}
+                 for r in report["steps"]["TOME"]["rows"]],
+        "mem": {k: report["steps"]["MEM"][k] for k in (
+            "params_million", "optimizer_state_million", "memory",
+            "peak_gib", "a_rel", "wall_s")},
         "tp2": {run: {k: r[k] for k in (
             "depth", "metric_rel", "loose_share", "moment_max_rel")}
             | {"ms": [x["ms"] for x in r["ranks"]],
@@ -1799,7 +1873,7 @@ def main(argv=None) -> int:
                              launches)
     for e in entries:  # the data-fed, runner and DP phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
-        for phase in ("CLI64", "FT64", "RET", "DP1", "TP2"):
+        for phase in ("CLI64", "FT64", "RET", "DP1", "TP2", "AO", "TOME"):
             e[f"{phase.lower()}_launches"] = launches[phase].get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -3502,6 +3576,288 @@ def run_retrieval(label, seed, report, ft_params):
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------- A12's new modules
+AO_BATCH, AO_STEPS, AO_CLASSES = 64, 3, 527  # the AudioSet label set
+AO_LOSS_TOL, AO_COS_TOL = 2e-2, 0.99  # as FTR
+
+
+def grad_cosine(a: dict, b: dict) -> float:
+    """The cosine between two {name: gradient} sets over the same names."""
+    ga = torch.cat([a[n].double().cpu().flatten() for n in sorted(a)])
+    gb = torch.cat([b[n].double().cpu().flatten() for n in sorted(a)])
+    return float(torch.nn.functional.cosine_similarity(ga, gb, dim=0))
+
+
+def run_audio_only(label, seed, report):
+    """Phase AO: the audio-only finetune model (``models/audio_only.py``)
+    at ViT-B width (11 audio blocks + 1 unified, a 1024 x 128 fbank: 512
+    tokens), 527 classes, B=64, bf16, 'auto' attention and MLP: ``AO_STEPS``
+    eager forward and BCE-backward steps on random multi-hot labels, each
+    timed on the host clock to a sync; the launches, counted from 0 just
+    before, exactly 12 K1, 12 K3 and 12 K2 a step. Then the reference at
+    depth 2 (one block of each kind), B=2: the bf16 kernels on the card
+    against the float32 plain model on the CPU from the same parameters,
+    the loss within 2e-2 relative and the gradients' cosine at least 0.99,
+    with ``tr_pos=False``: the position table takes no gradient on the card
+    (exactly zero: none reaches it). Returns the launch counts."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.configs import ViTConfig
+    from avsiam_tpu_torch.models import CAVMAEFTAudio
+    from avsiam_tpu_torch.train.finetune import bce_with_logits
+    vit = ViTConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = CAVMAEFTAudio(vit, AO_CLASSES, dtype=torch.bfloat16,
+                          generator=gen)
+    log(f"phase {label}: the audio-only model, ViT dim {vit.dim}, "
+        f"{len(model.blocks_a)} + {len(model.blocks_u)} blocks, "
+        f"{vit.num_audio_tokens} tokens, batch {AO_BATCH}, bf16, 'auto': "
+        f"{AO_STEPS} eager forward and BCE-backward steps")
+    a = torch.randn((AO_BATCH, vit.audio_length, vit.mel_bins),
+                    generator=gen, device="cuda")
+    y = (torch.rand((AO_BATCH, AO_CLASSES), generator=gen, device="cuda")
+         < 0.05).float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    steps = []
+    for i in range(AO_STEPS):
+        t = time.time()
+        model.zero_grad(set_to_none=True)
+        loss = bce_with_logits(model.forward_pred(a), y)
+        loss.backward()
+        loss = float(loss.detach())
+        torch.cuda.synchronize()
+        steps.append(dict(loss=loss, ms=(time.time() - t) * 1e3))
+        log(f"  {label} step {i}: loss {loss:.5f}  {steps[-1]['ms']:.1f} ms")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label}: non-finite loss at step {i}")
+    launches = dict(kernels.LAUNCHES)
+    depth = vit.depth
+    per_step = {k: depth if k in ("attention_fwd", "ln_mlp_fwd",
+                                  "attention_bwd") else 0
+                for k in kernels.LAUNCHES}
+    check_launches(label, launches, per_step, AO_STEPS)
+    peak, _ = memory_gib()
+    steady = median_after_first(steps)
+    log(f"  {label} steady step: {steady:.1f} ms (median of steps 1.."
+        f"{AO_STEPS - 1}), peak {peak:.2f} GiB allocated; a step: "
+        f"{depth} K1, {depth} K3, {depth} K2")
+    del model, a, y
+    torch.cuda.empty_cache()
+
+    cfg_small = ViTConfig(depth=2)
+    card = CAVMAEFTAudio(cfg_small, AO_CLASSES, modality_specific_depth=1,
+                         tr_pos=False, dtype=torch.bfloat16, generator=gen)
+    cpu = CAVMAEFTAudio(cfg_small, AO_CLASSES, modality_specific_depth=1,
+                        tr_pos=False, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    cgen = torch.Generator().manual_seed(seed + 5)
+    a = torch.randn((2, vit.audio_length, vit.mel_bins), generator=cgen)
+    y = (torch.rand((2, AO_CLASSES), generator=cgen) < 0.05).float()
+    kernels.reset_launches()
+    lk = bce_with_logits(card.forward_pred(a.cuda()), y.cuda())
+    lk.backward()
+    ref_launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    lc = bce_with_logits(cpu.forward_pred(a), y)
+    lc.backward()
+    lk, lc = float(lk.detach()), float(lc.detach())
+    rel = abs(lk - lc) / max(abs(lc), 1e-6)
+    got = {n: p.grad for n, p in card.named_parameters()
+           if p.grad is not None}
+    want = {n: p.grad for n, p in cpu.named_parameters()
+            if p.grad is not None}
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: the card reached other parameters "
+                             f"than the CPU")
+    cos = grad_cosine(got, want)
+    pos = card.pos_embed_a.grad
+    pos_zero = pos is None or not bool(pos.any())
+    pos_says = ("None (none reaches it)" if pos is None
+                else "zero" if pos_zero else "NOT zero")
+    log(f"  {label} reference (depth 2, batch 2): kernel loss {lk:.6f} plain "
+        f"{lc:.6f} rel err {rel:.2e} (<= {AO_LOSS_TOL}); gradient cosine "
+        f"{cos:.6f} over {len(got)} tensors (>= {AO_COS_TOL}); launches "
+        f"{ref_launches}; tr_pos=False: pos_embed_a's gradient {pos_says}")
+    if rel > AO_LOSS_TOL or not cos >= AO_COS_TOL or not pos_zero:
+        raise AssertionError(f"{label} reference: loss rel err {rel}, "
+                             f"gradient cosine {cos}, pos_embed_a's "
+                             f"gradient zero {pos_zero}")
+    report.setdefault("steps", {})[label] = dict(
+        batch=AO_BATCH, steps=steps, launches=launches,
+        eager_steady_ms=steady, eager_peak_gib=peak,
+        reference=dict(kernel=lk, plain=lc, rel=rel, grad_cos=cos,
+                       pos_grad_zero=pos_zero))
+    del card, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+TOME_BATCH = 64
+TOME_CASES = (("a", 512, 16), ("a", 512, 64), ("v", 196, 16), ("v", 196, 64))
+TOME_TOL = 2e-2  # bf16 kernels against float32 plain versions
+
+
+def run_tome(label, seed, report):
+    """Phase TOME: one ViT-B block with r > 0 (``ModalityBlock.forward(x,
+    modality, None, r)``, ``models/tome.py``) at full width, B=64, bf16,
+    'auto' (K1 in the attention, K3 over the merged tokens), audio N=512
+    with 'a' norms and video N=196 with 'v', r 16 and 64; against the same
+    block in float32 on its plain routes ('xla' attention, 'dense' MLP) on
+    the card. bf16 reorders near-ties of the similarity ranking, so the
+    card's plan need not be the plain one's; the pieces are held instead:
+
+    - the attention output and the matching metric within 2e-2;
+    - ``keep`` false at exactly r slots a sample, on both;
+    - the plans' agreement, printed (the share of samples with the same
+      plan, and of A tokens with the same fate);
+    - under one shared plan (the plain one), the merge and the MLP
+      residual within 2e-2 over the kept slots;
+    - the token mass, sum of size * x over the kept slots, within 2e-2 of
+      the unmerged tokens' sum.
+
+    Then the whole block's r > 0 call: r slots dropped a sample, finite,
+    its device time beside the plain block's (``event_ms``). The launches
+    of each case, counted from 0 just before it: 2 K1 and 2 K3 (the
+    pieces', the whole call's). Returns the summed launch counts."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.configs import ViTConfig
+    from avsiam_tpu_torch.models.layers import ModalityBlock
+    from avsiam_tpu_torch.models.tome import (bipartite_soft_matching,
+                                              merge_wavg)
+    v = ViTConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+
+    def block(dtype, attn, mlp):
+        return ModalityBlock(v.dim, v.num_heads, v.mlp_ratio, v.qkv_bias,
+                             v.block_ln_eps, dtype, attn, v.gelu, mlp, "cuda")
+
+    blk = block(torch.bfloat16, "auto", "auto")
+    with torch.no_grad():  # nonzero biases, so that each one shows
+        for m in blk.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+            if hasattr(m, "bias") and isinstance(m.bias, torch.nn.Parameter):
+                m.bias.normal_(0.0, 0.02, generator=gen)
+    plain = block(torch.float32, "xla", "dense")
+    plain.load_state_dict(blk.state_dict())
+    log(f"phase {label}: one ViT-B block with r > 0, batch {TOME_BATCH}, "
+        f"bf16 'auto' against float32 'xla'/'dense' on the card "
+        f"(<= {TOME_TOL})")
+    total = {k: 0 for k in kernels.LAUNCHES}
+    rows = []
+    for modality, n, r in TOME_CASES:
+        x = torch.randn((TOME_BATCH, n, v.dim), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        xf = x.float()
+        n1k, n2k = blk._norms(modality)
+        n1p, n2p = plain._norms(modality)
+        kernels.reset_launches()
+        with torch.no_grad():
+            attn_k, metric_k = blk.attn(n1k(x), None, tome=True)
+            attn_p, metric_p = plain.attn(n1p(xf), None, tome=True)
+            plan_k = bipartite_soft_matching(metric_k, r)
+            assign, keep = bipartite_soft_matching(metric_p, r)
+            xk, xp = x + attn_k, xf + attn_p
+            mk, sk = merge_wavg(assign, xk)
+            mp, _ = merge_wavg(assign, xp)
+            out_k = blk._mlp_res(mk, n2k)
+            out_p = plain._mlp_res(mp, n2p)
+            mass = (mk.float() * sk.float() * keep[..., None]).sum(dim=1)
+            whole, whole_keep = blk(x, modality, None, r)
+        launches = dict(kernels.LAUNCHES)
+        want = {k: 2 if k in ("attention_fwd", "ln_mlp_fwd") else 0
+                for k in kernels.LAUNCHES}
+        if launches != want:
+            raise AssertionError(f"{label} {modality} N={n} r={r}: launches "
+                                 f"{launches} != {want}")
+        for k, c in launches.items():
+            total[k] += c
+        errs = dict(attn=rel_err(attn_k, attn_p)[1],
+                    metric=rel_err(metric_k, metric_p)[1],
+                    merge_mlp=rel_err(out_k[keep], out_p[keep])[1],
+                    mass=rel_err(mass, xk.float().sum(dim=1))[1])
+        dropped = [int(d) for d in (~plan_k[1]).sum(dim=1).unique()] + [
+            int(d) for d in (~keep).sum(dim=1).unique()] + [
+            int(d) for d in (~whole_keep).sum(dim=1).unique()]
+        same_plan = float((plan_k[0] == assign).flatten(1).all(1).float()
+                          .mean())
+        a_idx = torch.arange(0, n, 2, device="cuda")
+        same_fate = float((plan_k[0][:, a_idx] == assign[:, a_idx])
+                          .all(-1).float().mean())
+        finite = bool(torch.isfinite(whole.float()).all())
+        with torch.no_grad():
+            ms = event_ms(lambda: blk(x, modality, None, r))
+            plain_ms_ = event_ms(lambda: plain(xf, modality, None, r))
+        rows.append(dict(modality=modality, N=n, r=r, errs=errs,
+                         same_plan=same_plan, same_fate=same_fate, ms=ms,
+                         plain_ms=plain_ms_, launches=launches))
+        log(f"  {label} {modality} N={n} r={r}: attention {errs['attn']:.2e}, "
+            f"metric {errs['metric']:.2e}, merge + MLP residual "
+            f"{errs['merge_mlp']:.2e}, token mass {errs['mass']:.2e} "
+            f"(<= {TOME_TOL}); dropped {sorted(set(dropped))} a sample; "
+            f"plans agree in {same_plan:.1%} of samples, {same_fate:.2%} of "
+            f"A tokens; the block {ms:.3f} ms (plain {plain_ms_:.3f}), "
+            f"device time; launches K1 2, K3 2 as expected")
+        if (max(errs.values()) > TOME_TOL or set(dropped) != {r}
+                or not finite):
+            raise AssertionError(f"{label} {modality} N={n} r={r}: errors "
+                                 f"{errs}, dropped {dropped}, finite "
+                                 f"{finite}")
+    report.setdefault("steps", {})[label] = dict(batch=TOME_BATCH,
+                                                 rows=rows, launches=total)
+    del blk, plain
+    torch.cuda.empty_cache()
+    return total
+
+
+MEM_TOL = 0.10  # the probe's peak against phase A's eager peak, relative
+
+
+def start_memory_probe(label):
+    """Phase MEM's start: ``python -m avsiam_tpu_torch.cli.memory_probe
+    --model cav-mae-base --batch-size 8 --steps 3`` as a user runs it, on
+    the card, in a process of its own, so that its peak is its own; it
+    runs beside the reference phases, which check values and time
+    nothing. Returns (the process, its start time)."""
+    cmd = [sys.executable, "-m", "avsiam_tpu_torch.cli.memory_probe",
+           "--model", "cav-mae-base", "--batch-size", "8", "--steps", "3"]
+    log(f"phase {label}: {' '.join(cmd[1:])}, beside the reference phases")
+    env = dict(os.environ)
+    env.pop("AVSIAM_PLATFORM", None)
+    torch.cuda.empty_cache()
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env,
+                             cwd=os.path.dirname(os.path.abspath(__file__))),
+            time.time())
+
+
+def check_memory_probe(label, report, a_peak_gib, started):
+    """Phase MEM's end: the probe's JSON line, and its peak within 10% of
+    phase A's eager peak ``a_peak_gib`` (the same model and batch, eager;
+    the probe adds the initial state's allocation and takes the config's
+    default contrastive form, 'padded', where A takes 'exact')."""
+    proc, t = started
+    out, err = proc.communicate(timeout=600)
+    wall = time.time() - t
+    if proc.returncode:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{err[-4000:]}")
+    line = out.strip().splitlines()[-1]
+    res = json.loads(line)
+    log(f"  {line}")
+    peak = res["memory"]["peak_bytes_in_use"] / 2**30
+    rel = abs(peak - a_peak_gib) / a_peak_gib
+    log(f"  {label}: {wall:.1f} s from its start; peak {peak:.2f} GiB "
+        f"against phase A's eager {a_peak_gib:.2f} GiB: {rel:.1%} apart "
+        f"(<= {MEM_TOL:.0%}); {res['params_million']} M parameters, "
+        f"{res['optimizer_state_million']} M optimizer state")
+    if rel > MEM_TOL:
+        raise AssertionError(f"{label}: peak {peak:.2f} GiB is {rel:.1%} "
+                             f"from phase A's {a_peak_gib:.2f}")
+    report.setdefault("steps", {})[label] = dict(res, wall_s=wall,
+                                                 peak_gib=peak, a_rel=rel)
 
 
 def run_ft_reference(seed, report, batch: int = 2):

@@ -1272,3 +1272,104 @@ def test_finetune_eval_forward_on_the_card(gen):
         ref = cpu(a.cpu(), v.cpu(), "mm_grad", True)
     assert out.shape == ref.shape == (2, 2, 309)
     assert _rel(out.cpu(), ref) <= TOL
+
+
+@pytest.mark.parametrize("tr_pos", [False, True])
+def test_audio_only_model_on_the_card(gen, tr_pos):
+    """The audio-only model at ViT-B width, depth 2 (one block of each
+    kind), B=2, 527 classes: the bf16 kernels on the card against the
+    float32 plain model on the CPU from the same parameters, the BCE loss
+    within 2e-2 relative and the gradients' cosine at least 0.99; one K1,
+    one K3 and one K2 a block; with ``tr_pos`` false no gradient reaches
+    the position table, with it true one does."""
+    from avsiam_tpu_torch.configs import ViTConfig
+    from avsiam_tpu_torch.models import CAVMAEFTAudio
+    from avsiam_tpu_torch.train.finetune import bce_with_logits
+    vit = ViTConfig(depth=2)
+    card = CAVMAEFTAudio(vit, 527, modality_specific_depth=1, tr_pos=tr_pos,
+                         dtype=torch.bfloat16, generator=gen)
+    cpu = CAVMAEFTAudio(vit, 527, modality_specific_depth=1, tr_pos=tr_pos,
+                        device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+    a = torch.randn((2, 1024, 128), generator=gen, device="cuda")
+    y = (torch.rand((2, 527), generator=gen, device="cuda") < 0.05).float()
+    kernels.reset_launches()
+    loss = bce_with_logits(card.forward_pred(a), y)
+    loss.backward()
+    assert dict(kernels.LAUNCHES) == dict(_NO_LAUNCHES, attention_fwd=2,
+                                          ln_mlp_fwd=2, attention_bwd=2)
+    ref = bce_with_logits(cpu.forward_pred(a.cpu()), y.cpu())
+    ref.backward()
+    assert abs(float(loss) - float(ref)) <= 2e-2 * abs(float(ref))
+    names = [n for n, p in cpu.named_parameters() if p.grad is not None]
+    got = dict(card.named_parameters())
+    assert names == [n for n, p in got.items() if p.grad is not None]
+    assert ("pos_embed_a" in names) == tr_pos
+    g = torch.cat([got[n].grad.double().cpu().flatten() for n in names])
+    w = torch.cat([p.grad.double().flatten() for n, p in
+                   cpu.named_parameters() if p.grad is not None])
+    assert float(torch.nn.functional.cosine_similarity(g, w, dim=0)) >= 0.99
+
+
+@pytest.mark.parametrize("modality,N,r", [("a", 512, 16), ("v", 196, 64)])
+def test_tome_block_on_the_card(gen, modality, N, r):
+    """A ViT-B block with r > 0 in bf16 ('auto': K1, then K3 over the
+    merged tokens) against the float32 plain block ('xla', 'dense') on the
+    card, by pieces, as ``chip_smoke.py``'s phase TOME holds it: the
+    attention output and the matching metric within 2e-2; r slots dropped
+    a sample by each plan; under the plain plan, the merge and the MLP
+    residual within 2e-2 over the kept slots, and the token mass kept;
+    the whole block's call drops r slots a sample; 2 K1 and 2 K3."""
+    from avsiam_tpu_torch.models.layers import ModalityBlock
+    from avsiam_tpu_torch.models.tome import (bipartite_soft_matching,
+                                              merge_wavg)
+
+    def block(dtype, attn, mlp):
+        return ModalityBlock(768, 12, 4.0, True, 1e-5, dtype, attn, "erf",
+                             mlp, "cuda")
+
+    blk = block(torch.bfloat16, "auto", "auto")
+    with torch.no_grad():
+        for m in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+            m.reset_parameters(gen)
+    plain = block(torch.float32, "xla", "dense")
+    plain.load_state_dict(blk.state_dict())
+    x = torch.randn((4, N, 768), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    n1k, n2k = blk._norms(modality)
+    n1p, n2p = plain._norms(modality)
+    kernels.reset_launches()
+    with torch.no_grad():
+        attn_k, metric_k = blk.attn(n1k(x), None, tome=True)
+        attn_p, metric_p = plain.attn(n1p(x.float()), None, tome=True)
+        _, keep_k = bipartite_soft_matching(metric_k, r)
+        assign, keep = bipartite_soft_matching(metric_p, r)
+        xk = x + attn_k
+        mk, sk = merge_wavg(assign, xk)
+        mp, _ = merge_wavg(assign, x.float() + attn_p)
+        out_k, out_p = blk._mlp_res(mk, n2k), plain._mlp_res(mp, n2p)
+        whole, whole_keep = blk(x, modality, None, r)
+    assert dict(kernels.LAUNCHES) == dict(_NO_LAUNCHES, attention_fwd=2,
+                                          ln_mlp_fwd=2)
+    assert mk.dtype == out_k.dtype == torch.bfloat16
+    assert _rel(attn_k, attn_p) <= TOL and _rel(metric_k, metric_p) <= TOL
+    for kp in (keep_k, keep, whole_keep):
+        assert (~kp).sum(dim=1).tolist() == [r] * 4
+    assert _rel(out_k[keep], out_p[keep]) <= TOL
+    mass = (mk.float() * sk.float() * keep[..., None]).sum(dim=1)
+    assert _rel(mass, xk.float().sum(dim=1)) <= TOL
+    assert bool(torch.isfinite(whole.float()).all())
+
+
+def test_device_memory_stats_on_the_card(gen):
+    """``device_memory_stats`` on the card: torch's allocator figures and
+    the card's total, in use <= peak <= total."""
+    from avsiam_tpu_torch.utils.profiling import device_memory_stats
+    x = torch.empty(1 << 20, device="cuda")
+    stats = device_memory_stats()
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert stats == device_memory_stats(0) == device_memory_stats("cuda")
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert (stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
+            <= stats["bytes_limit"])
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info(0)[1]

@@ -8,8 +8,9 @@ of the port (``parallel/`` and the retrieval modules among them) imports,
 a tiny CPU forward and two-pass pretrain step run, a finetune step of each
 routing branch runs, the classification statistics and the retrieval
 metrics are computed, the distributed helpers run as one process
-without a group, and the tensor-parallel state round trip and refusals
-(``parallel/``, ``utils/weights.py``) run.
+without a group, the tensor-parallel state round trip and refusals
+(``parallel/``, ``utils/weights.py``) run, and the audio-only model's
+forward, a ToMe block and the memory probe run.
 """
 
 import ast
@@ -114,6 +115,20 @@ shapes = chip_smoke.main_path_shapes(chip_smoke.bench_config(), 8)
 attn, mlp, ln = shapes.attn, shapes.mlp, shapes.ln
 assert sum(attn.values()) == sum(mlp.values()) == 130
 assert sum(ln.values()) == 130 + 8 + 2 + 1  # norm1s, final norms, decoder
+from avsiam_tpu_torch.cli import memory_probe
+from avsiam_tpu_torch.models import CAVMAEFTAudio
+from avsiam_tpu_torch.models.layers import ModalityBlock
+ao = CAVMAEFTAudio(vit, 5, modality_specific_depth=1, device="cpu")
+assert ao.forward_pred(a).shape == (6, 5)
+blk = ModalityBlock(128, 2, 4.0, True, 1e-5, torch.float32, "auto", "erf",
+                    "auto", "cpu")
+x, keep = blk(torch.randn((2, 24, 128), generator=gen), "a", None, 5)
+assert x.shape == (2, 24, 128) and (~keep).sum().item() == 10
+import os
+os.environ["AVSIAM_PLATFORM"] = "cpu"
+probe = memory_probe.main(["--model", "tiny", "--batch-size", "2",
+                           "--steps", "1", "--dtype", "float32"])
+assert probe["params_million"] > 0 and probe["memory"] is None, probe
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ISOLATED", len(names))

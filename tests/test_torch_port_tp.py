@@ -40,7 +40,11 @@ Held:
     its ``train_state.1`` and ``best_audio_model`` loaded by a world of
     one;
 (f) the refusals: heads or shard widths a model axis does not divide,
-    data x model not the world.
+    data x model not the world;
+(g) ToMe's matching metric under the model axis (a block with r > 0 at
+    data 1 x model 2): each rank's keys summed over its heads and the
+    model group, so that both ranks draw the plan of JAX's whole-width
+    mean; the block's output and keep mask against JAX's.
 """
 
 import csv
@@ -64,6 +68,7 @@ OTHER_MLP = (("dense", None), ("fused", None), ("fbwd", None),
 WORLDS = ((1, 1), (1, 2), (2, 2))  # (data, model)
 WORKER_TIMEOUT = 300  # seconds, for the workers and the inputs they await
 RTOL, ATOL = 5e-4, 1e-5
+TOME_R = 8  # ToMe merges in the (1, 2) world's block
 LOOSE = 1e-3  # of the elements, outside RTOL and ATOL (``_check_state``)
 
 
@@ -123,6 +128,25 @@ def _ft_runner(exp_dir, out_dir, flags):
     return {"wa_params": out["wa_params"],
             "eval_stats": [{k: np.asarray(v) for k, v in st.items()}
                            for st in out["eval_stats"]]}
+
+
+def _tome_block(t, shard=True):
+    """A ToMe block's output, keep mask and metric on ``t['x']`` from the
+    full parameters ``t['params']``, the block cut to this rank's shards
+    (``shard``) or whole."""
+    from avsiam_tpu_torch.models.layers import ModalityBlock
+    from avsiam_tpu_torch.parallel.tp import (load_full_state_dict,
+                                              shard_model_)
+    blk = ModalityBlock(128, 2, 4.0, True, 1e-5, torch.float32, "auto",
+                        "erf", "dense", "cpu")
+    if shard:
+        shard_model_(blk)
+    load_full_state_dict(blk, t["params"])
+    with torch.no_grad():
+        out, keep = blk(t["x"], "a", None, TOME_R)
+        metric = blk.attn(blk.norm1_a(t["x"]), tome=True)[1]
+    return dict(out=out, keep=keep, metric=metric,
+                heads=blk.attn.num_heads)
 
 
 def _worker(out_dir, data, model, rank, port):
@@ -227,6 +251,7 @@ def _worker(out_dir, data, model, rank, port):
         res["pretrain"][form] = pretrain_steps(inp["pretrain_cfg"][form],
                                                draws)
     if data == 1:
+        res["tome"] = _tome_block(inp["tome"])
         fcfg = inp["ft_cfg"]
         fstate = ft.init_state(fcfg, torch.Generator().manual_seed(0), "cpu")
         load_full_state_dict(fstate.model, inp["ft_params0"])
@@ -385,6 +410,19 @@ def _jax_references():
     inp.update(ft_params0=params_from_jax(ref["ft_params0"]), ft_us=us,
                ft_batches=[tuple(map(torch.from_numpy, fb))
                            for fb in ft_batches])
+
+    # a ToMe block (r > 0, 'a' norms, dense MLP) at dim 128, 2 heads
+    from avsiam_tpu.models.layers import ModalityBlock as JaxBlock
+    tx = np.random.RandomState(8).randn(2, 24, 128).astype(np.float32)
+    jblk = JaxBlock(128, 2)
+    tparams = jax.device_get(jblk.init(
+        jax.random.PRNGKey(3), tx, method=lambda m, x: [
+            m(x, mod) for mod in (None, "a", "v")]))["params"]
+    out, keep = jax.device_get(jblk.apply({"params": tparams}, tx, "a",
+                                          None, TOME_R))
+    ref["tome"] = dict(out=np.asarray(out), keep=np.asarray(keep))
+    inp["tome"] = dict(params=params_from_jax(tparams),
+                       x=torch.from_numpy(tx))
     return ref, inp
 
 
@@ -603,6 +641,29 @@ def test_model2_ranks_hold_the_same_replicated_bits(tp, form):
     r0, r1 = (tp["res"][(1, 2)][r]["pretrain"][form] for r in (0, 1))
     _same_bits(r0, r1)
     assert len(r0[0]["replicated"]) > 10
+
+
+def test_model2_tome_block_matches_jax(tp):
+    """ToMe's metric under the 'model' axis: each rank holds one of the two
+    heads, sums its keys, adds the sums over the model group and divides
+    by both heads, so that each rank draws the whole width's plan. Both
+    ranks' keep masks exactly JAX's ``ModalityBlock.apply(x, 'a', None,
+    r)``, their outputs within rtol 5e-4, atol 1e-5 of it, and their
+    metrics the same bits, within 1e-6 of a world of one's."""
+    want = tp["ref"]["tome"]
+    whole = _tome_block(tp["inp"]["tome"], shard=False)
+    ranks = [tp["res"][(1, 2)][r]["tome"] for r in (0, 1)]
+    assert whole["heads"] == 2
+    for r in ranks:
+        assert r["heads"] == 1
+        np.testing.assert_array_equal(r["keep"].numpy(), want["keep"])
+        _close(r["out"], want["out"], "tome out")
+        np.testing.assert_allclose(r["metric"].numpy(),
+                                   whole["metric"].numpy(), rtol=0,
+                                   atol=1e-6)
+    assert (~ranks[0]["keep"]).sum(dim=1).tolist() == [TOME_R] * 2
+    assert torch.equal(ranks[0]["metric"], ranks[1]["metric"])
+    np.testing.assert_array_equal(whole["keep"].numpy(), want["keep"])
 
 
 @pytest.mark.parametrize("impl,mlp_bwd", OTHER_MLP,
