@@ -3,12 +3,13 @@ src/run_cavmae_ft_base.py, through ``avsiam_tpu/cli/finetune.py``, whose
 flags it takes, so the recipes' command lines run unchanged
 (``recipes/ft_vggsound.sh``, ``ft_audioset_20k.sh``, ``ft_audioset_2m.sh``).
 
-On the card (the default):
+On the card (the default), the step and the evaluations as CUDA graphs
+(one graph a routing branch; ``train/loops.py``):
   python -m avsiam_tpu_torch.cli.finetune --data_train idx.json \
       --data_val idx.json --n_epochs 1 --batch_size 8 \
       --frame_source synthetic --max_steps_per_epoch 2 --exp_dir ./exp/ft
 
-On the CPU (the plain versions of the kernels): the same with
+On the CPU (the plain versions of the kernels, eagerly): the same with
 ``AVSIAM_PLATFORM=cpu`` in the environment. Data-parallel under torchrun
 or the JAX-named process flags, as ``cli/pretrain.py`` says.
 
@@ -156,8 +157,7 @@ def main(argv=None):
         # the held-out set with the best checkpoint (the reference's
         # separate --data_eval split)
         from avsiam_tpu_torch.eval.metrics import mean_ap, mean_auc
-        from avsiam_tpu_torch.train.finetune import make_ft_eval_step
-        from avsiam_tpu_torch.train.loops import validate_ft
+        from avsiam_tpu_torch.train.loops import ft_eval_step_for, validate_ft
         from avsiam_tpu_torch.parallel.tp import load_full_state_dict
         from avsiam_tpu_torch.utils.checkpoint import restore_params
         model = out["model"]
@@ -170,7 +170,9 @@ def main(argv=None):
             # best_audio_model exists only where --data_val chose one
             print("no best checkpoint (no --data_val); evaluating final "
                   "params on --data_eval")
-        stats, loss, _ = validate_ft(make_ft_eval_step(cfg), model,
+        # its own graphs on the card: the graphed eval forward is bound to
+        # one model
+        stats, loss, _ = validate_ft(ft_eval_step_for(cfg, device), model,
                                      dataset(args.data_eval, False), cfg,
                                      max_steps=args.max_steps_per_epoch,
                                      device=device)

@@ -38,6 +38,7 @@ from avsiam_tpu_torch.data.samplers import batched, eval_shard_indices
 from avsiam_tpu_torch.eval.retrieval import retrieval_metrics
 from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
 from avsiam_tpu_torch.models.variants import finetune_config
+from avsiam_tpu_torch.train import graphs
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,13 +50,26 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def retrieval_features(model: CAVMAEFinetune, fb, img):
+    """The 'retrieval' forward and each modality's mean over its tokens:
+    (audio [B, C], video [B, C])."""
+    with torch.no_grad():
+        a_tok, v_tok = model(fb, img, "retrieval")
+        return a_tok.mean(dim=1), v_tok.mean(dim=1)
+
+
 def extract_features(args, model: CAVMAEFinetune, ds, max_batches=None):
     """(audio [N, C], video [N, C]) float32 numpy: the set's clips in order,
     in batches of ``args.batch_size`` assembled on the host from one
     ``RandomState(0)`` stream, the eval transform on the model's device,
-    then the 'retrieval' forward and the mean over each modality's
-    tokens."""
+    then ``retrieval_features``: on the card as CUDA graphs (the
+    counterpart of the JAX runner's jitted ``feat``; the first batch runs
+    eagerly as the warm-up, and a partial last batch gets a graph of its
+    own), on the CPU eagerly."""
     device = next(model.parameters()).device
+    forward = (graphs.GraphedForward(retrieval_features,
+                                     "the retrieval forward")
+               if graphs.available(device) else retrieval_features)
     cfg = model.cfg
     transform = make_eval_transform(
         audio_config_from_args(args, train=False,
@@ -71,9 +85,7 @@ def extract_features(args, model: CAVMAEFinetune, ds, max_batches=None):
         host = ds.batch(idx, rng, frames_per_sample=1)
         fb, img, _ = transform(*(torch.from_numpy(np.ascontiguousarray(x))
                                  .to(device) for x in host))
-        with torch.no_grad():
-            a_tok, v_tok = model(fb, img, "retrieval")
-            fa, fv = a_tok.mean(dim=1), v_tok.mean(dim=1)
+        fa, fv = forward(model, fb, img)
         a_all.append(fa.float().cpu().numpy())
         v_all.append(fv.float().cpu().numpy())
     return np.concatenate(a_all), np.concatenate(v_all)

@@ -20,15 +20,22 @@ early stop after three epochs without a gain, ``stats_{e}.pickle``, the
 checkpoint average (``wa``), and the same checkpoints, resume and
 scheduler.
 
-On the card the step is ``make_graphed_pretrain_step`` (one CUDA graph a
-step; the restore of ``--resume`` comes before its first call, which binds
-the state), on the CPU ``make_pretrain_step``. Step n's masks come from
-``step_generator(cfg.seed, n)``, keyed on the state's step count, so a
-resumed run takes the masks the straight run takes; epoch e's loader draws
-from a seed keyed on (seed, e), the counterpart of ``fold_in(rng,
-epoch)``. Validation runs the same model eagerly between the graph's
-replays. The finetune step runs eagerly on either device
-(``train/finetune.py``); step n's routing draw is keyed on (seed, n).
+On the card every step and forward is a CUDA graph (``train/graphs.py``),
+the counterparts of the JAX loop's jitted steps: the pretrain step
+``make_graphed_pretrain_step`` (one graph a step), its validation
+``make_graphed_eval_step``, the finetune step
+``make_graphed_finetune_step`` (one graph a routing branch), its
+validation and the linear probe's ``make_graphed_ft_eval_step``; a run's
+step and its validation share one graph memory pool. The restore of
+``--resume`` comes before the step's first call, which binds the state. On
+the CPU, the caller's choice, they run eagerly (``make_pretrain_step``,
+``make_eval_step``, ``make_finetune_step``, ``make_ft_eval_step``), with
+the same math, draws, checkpoints and ``result.csv``. Step n's masks come
+from ``step_generator(cfg.seed, n)``, keyed on the state's step count, so
+a resumed run takes the masks the straight run takes; epoch e's loader
+draws from a seed keyed on (seed, e), the counterpart of ``fold_in(rng,
+epoch)``; validation batch i's from ``step_generator(None, i)``. The
+finetune step n's routing draw is keyed on (seed, n).
 
 Under a process group (``parallel/dist.py``; the JAX loop's multi-process
 parts, avsiam_tpu/train/loops.py:97-200,232-244,402-403,441-454,641-646,
@@ -51,8 +58,9 @@ state (the seeded init, ``init_params`` or a checkpoint) cut to each rank's
 shards; every rank of a model group takes part in each save, which
 gathers the shards, and the main process writes the full state a run of
 one process reads; validation and the linear probe run on the model
-group's exact collectives, once per data rank. The pretrain step runs
-eagerly there (no graphed form holds the model group's collectives yet).
+group's exact collectives, once per data rank. The steps and forwards run
+eagerly there, and the runners log it (no graphed form holds the model
+group's collectives yet).
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from avsiam_tpu_torch.parallel import dist as pdist
 from avsiam_tpu_torch.parallel.mesh import local_batch
 from avsiam_tpu_torch.parallel.tp import full_state_dict, load_full_state_dict
 from avsiam_tpu_torch.train import finetune as ft
+from avsiam_tpu_torch.train import graphs
 from avsiam_tpu_torch.train import pretrain as pt
 from avsiam_tpu_torch.utils.checkpoint import (average_checkpoints,
                                                prune_train_states,
@@ -241,14 +250,16 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
     # more than one replica it holds the 'padded' form only, whose shapes
     # do not change from step to step; under tensor parallelism the step
     # runs eagerly
-    graphed = dev.type == "cuda" and pdist.model_size() == 1 and (
+    graphed = graphs.available(dev) and (
         pdist.data_size() == 1 or cfg.model.mmixed_impl == "padded")
     if dev.type == "cuda" and pdist.model_size() > 1:
         log(f"tensor parallelism over {pdist.model_size()} ranks: the "
             f"pretrain step runs eagerly")
-    step_fn = (pt.make_graphed_pretrain_step(cfg) if graphed
+    pool = graphs.pool_for(dev)
+    step_fn = (pt.make_graphed_pretrain_step(cfg, pool) if graphed
                else pt.make_pretrain_step(cfg))
-    eval_fn = pt.make_eval_step(cfg)
+    eval_fn = (pt.make_graphed_eval_step(cfg, pool) if graphs.available(dev)
+               else pt.make_eval_step(cfg))
     transform = make_train_transform(cfg.audio,
                                      im_res=cfg.model.vit.img_size)
 
@@ -485,8 +496,14 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
             timing["restore_s"] = time.time() - t0
             start_epoch = latest + 1
             log(f"resumed from epoch {latest}")
-    step_fn = ft.make_finetune_step(cfg)
-    eval_fn = ft.make_ft_eval_step(cfg)
+    # the graphs bind the state at the step's first call: after the
+    # restore; under tensor parallelism the step runs eagerly
+    if dev.type == "cuda" and pdist.model_size() > 1:
+        log(f"tensor parallelism over {pdist.model_size()} ranks: the "
+            f"finetune step runs eagerly")
+    pool = graphs.pool_for(dev)  # the step's and validation's
+    step_fn = ft_step_for(cfg, dev, pool)
+    eval_fn = ft_eval_step_for(cfg, dev, pool)
     transform = make_train_transform(cfg.audio,
                                      im_res=cfg.model.vit.img_size)
 
@@ -660,6 +677,21 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
         mlog.close()
 
 
+def ft_step_for(cfg: FinetuneConfig, device, pool=None):
+    """The finetune step for a state on ``device``: the graphed form in
+    the graph memory pool ``pool`` on the card (without a model axis),
+    else the eager form."""
+    return (ft.make_graphed_finetune_step(cfg, pool)
+            if graphs.available(device) else ft.make_finetune_step(cfg))
+
+
+def ft_eval_step_for(cfg: FinetuneConfig, device, pool=None):
+    """The finetune eval step for a model on ``device``, as
+    ``ft_step_for`` chooses the step."""
+    return (ft.make_graphed_ft_eval_step(cfg, pool)
+            if graphs.available(device) else ft.make_ft_eval_step(cfg))
+
+
 def _np_sigmoid(x: np.ndarray) -> np.ndarray:
     return 1.0 / (1.0 + np.exp(-x))
 
@@ -751,7 +783,8 @@ def linear_probe(pretrain_params: Dict[str, torch.Tensor],
         ft_cfg.seed), dev)
     load_full_state_dict(state.model, transfer_pretrain_to_ft(
         pretrain_params, full_state_dict(state.model)))
-    step_fn = ft.make_finetune_step(ft_cfg)
+    pool = graphs.pool_for(dev)
+    step_fn = ft_step_for(ft_cfg, dev, pool)
     transform = make_train_transform(ft_cfg.audio,
                                      im_res=ft_cfg.model.vit.img_size)
     for epoch in range(1, epochs + 1):
@@ -773,7 +806,8 @@ def linear_probe(pretrain_params: Dict[str, torch.Tensor],
     # (traintest_cavmae_base.py:343-354)
     for mode in ("joint_av", "audioonly", "videoonly"):
         mode_cfg = replace(ft_cfg, ftmode=mode)
-        stats, _, _ = validate_ft(ft.make_ft_eval_step(mode_cfg), state.model,
+        stats, _, _ = validate_ft(ft_eval_step_for(mode_cfg, dev, pool),
+                                  state.model,
                                   probe_val_ds, mode_cfg,
                                   max_steps=max_steps_per_epoch, device=dev)
         results[f"{mode}_mAP"] = mean_ap(stats)

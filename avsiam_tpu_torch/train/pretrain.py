@@ -20,7 +20,10 @@ before the body, in the order the eager forwards draw them, so the two give
 the same results from the same seed. ``step_generator`` gives the generator
 of step n, keyed on (seed, n) as the JAX step keys its masks on
 ``fold_in(rng, state.step)``: a resumed run draws what the run it continues
-would have drawn.
+would have drawn. The validation forward (``eval_forward``) runs the same
+two ways: eagerly (``make_eval_step``) and as CUDA graphs
+(``make_graphed_eval_step``, the counterpart of ``jax.jit(eval_step)``),
+its draws taken ahead from the caller's generator (``draw_eval_masks``).
 
 Data parallelism (under a process group, ``parallel/dist.py``): each
 process holds the whole model and its block of the global batch. Every
@@ -56,6 +59,7 @@ from avsiam_tpu_torch.data.pipeline import batch_generator_seed
 from avsiam_tpu_torch.models.cavmae import CAVMAEPretrain, MaskDraws, draw_masks
 from avsiam_tpu_torch.parallel import dist as pdist
 from avsiam_tpu_torch.parallel.tp import shard_model_
+from avsiam_tpu_torch.train import graphs
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import (lr_tensor, masked_torch_adam,
                                           multistep_lr_factor)
@@ -202,11 +206,12 @@ def make_pretrain_step(cfg: PretrainConfig):
     return step
 
 
-class _GraphedPretrainStep:
+class _GraphedPretrainStep(graphs.Captures):
     """The pretrain step as one CUDA graph; see
     ``make_graphed_pretrain_step``."""
 
-    def __init__(self, cfg: PretrainConfig):
+    def __init__(self, cfg: PretrainConfig, pool=None):
+        super().__init__("the pretrain step", pool)
         self.cfg = cfg
         self.state: Optional[PretrainState] = None
         self.a = self.v = None  # the static inputs, from the first call
@@ -214,14 +219,11 @@ class _GraphedPretrainStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.metrics: Dict[str, torch.Tensor] = {}
         self.launches: Dict[str, int] = {}  # the kernels one replay launches
-        self.failed: Optional[BaseException] = None
 
     def __call__(self, state: PretrainState, batch,
                  generator: Optional[torch.Generator], lr,
                  draws: Optional[Tuple[MaskDraws, MaskDraws]] = None):
-        if self.failed is not None:
-            raise RuntimeError("this graphed step failed to capture") \
-                from self.failed
+        self.refuse_after_failure()
         first = self.state is None
         if first:
             self._bind(state, batch)
@@ -246,7 +248,7 @@ class _GraphedPretrainStep:
             self.v.copy_(batch[1])
         state.lr.fill_(lr)
         if first:
-            metrics = self._warm_up()
+            metrics = graphs.warm_up(self._body, self.a.device)
         else:
             if self.graph is None:
                 self._capture()  # its launch counts stand for this replay
@@ -288,48 +290,17 @@ class _GraphedPretrainStep:
         return pretrain_step_body(self.cfg, self.state, self.a, self.v,
                                   *self.draws)
 
-    def _warm_up(self):
-        """A real step of the body, eager, on a side stream (torch's
-        whole-network capture recipe)."""
-        current = torch.cuda.current_stream(self.a.device)
-        side = torch.cuda.Stream(self.a.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            metrics = self._body()
-        current.wait_stream(side)
-        for t in metrics.values():
-            t.record_stream(current)
-        return metrics
-
     def _capture(self):
-        """Capture the body once into the graph, in its private memory
-        pool, with the eager blocks cached beside it released first, and
-        keep the kernel launches the capture counted."""
+        """Capture the body once into the graph and keep the kernel
+        launches the capture counted. The gradients are cleared first, so
+        the capture allocates them in its pool."""
         self.state.model.zero_grad(set_to_none=True)
-        if pdist.active():
-            # the communicator must exist before the capture starts: its
-            # creation cannot be captured
-            pdist.all_reduce_mean_([torch.zeros(1, device=self.a.device)])
-        torch.cuda.synchronize(self.a.device)
-        torch.cuda.empty_cache()
-        before = dict(kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            # thread-local: another thread may use the card meanwhile (the
-            # data loader's worker pins batches and copies them on its own
-            # stream); in the default global mode its calls would
-            # invalidate the capture
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                metrics = self._body()
-        except BaseException as err:
-            self.failed = err
-            raise RuntimeError("capturing the pretrain step in a CUDA graph "
-                               "failed") from err
-        self.launches = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
-        self.graph, self.metrics = graph, metrics
+        self.graph, self.metrics, self.launches = self.capture(
+            self._body, self.a.device)
 
 
-def make_graphed_pretrain_step(cfg: PretrainConfig) -> _GraphedPretrainStep:
+def make_graphed_pretrain_step(cfg: PretrainConfig, pool=None
+                               ) -> _GraphedPretrainStep:
     """The pretrain step as one CUDA graph: a step with
     ``make_pretrain_step``'s signature and results, bound at its first call
     to that call's state and batch shapes.
@@ -357,8 +328,10 @@ def make_graphed_pretrain_step(cfg: PretrainConfig) -> _GraphedPretrainStep:
     thread. Under a process group the capture holds the step's collectives
     (the gathers of the InfoNCE, the gradient and metric means); over more
     than one process it takes the 'padded' form only, whose shapes do not
-    change from step to step."""
-    return _GraphedPretrainStep(cfg)
+    change from step to step. ``pool``: a graph memory pool
+    (``torch.cuda.graph_pool_handle``) to share with the eval forward, or
+    None for one of its own (``train/graphs.py``)."""
+    return _GraphedPretrainStep(cfg, pool)
 
 
 def step_generator(seed: Optional[int], n: int, device) -> torch.Generator:
@@ -372,29 +345,74 @@ def step_generator(seed: Optional[int], n: int, device) -> torch.Generator:
                            else batch_generator_seed(seed, n))
 
 
+def draw_eval_masks(cfg: PretrainConfig, batch: int,
+                    generator: torch.Generator, device) -> MaskDraws:
+    """The validation forward's draws from ``generator``: those its
+    forward would take itself at the config's loss weights."""
+    return draw_masks(cfg.model, batch, generator, device,
+                      mae=cfg.mae_loss_weight != 0,
+                      contrast=cfg.contrast_loss_weight != 0)
+
+
+def eval_forward(cfg: PretrainConfig, model: CAVMAEPretrain, a, v,
+                 draws: MaskDraws) -> Dict[str, torch.Tensor]:
+    """The validation forward (traintest_cavmae_base.py:381-424) with the
+    config's loss weights (``cfg.mae_loss_weight``,
+    ``cfg.contrast_loss_weight``) on the draws ``draws``, under
+    ``torch.no_grad()``: the metrics loss, loss_mae, loss_mae_a,
+    loss_mae_v, loss_c, c_acc as device tensors."""
+    with torch.no_grad():
+        out = model(a, v, cfg.masking_ratio_a, cfg.masking_ratio,
+                    mae_loss_weight=cfg.mae_loss_weight,
+                    contrast_loss_weight=cfg.contrast_loss_weight,
+                    mask_mode=cfg.mask_mode, draws=draws)
+    return {"loss": out[0], "loss_mae": out[1], "loss_mae_a": out[2],
+            "loss_mae_v": out[3], "loss_c": out[4], "c_acc": out[7]}
+
+
 def make_eval_step(cfg: PretrainConfig):
     """Returns eval_step(model, batch, generator, draws=None) -> metrics:
-    the validation forward (traintest_cavmae_base.py:381-424), once, under
-    ``torch.no_grad()``, with the config's loss weights
-    (``cfg.mae_loss_weight``, ``cfg.contrast_loss_weight``) and the draws
-    of ``draws`` or else from ``generator``. The metrics (loss, loss_mae,
-    loss_mae_a, loss_mae_v, loss_c, c_acc) are device tensors. On the card
-    the forward runs the step's forward kernels (K1 and K3 in the recipe's
+    ``eval_forward`` once, eagerly, on the draws of ``draws`` or else
+    drawn from ``generator`` (``draw_eval_masks``). On the card the
+    forward runs the step's forward kernels (K1 and K3 in the recipe's
     configuration)."""
 
     def eval_step(model: CAVMAEPretrain, batch,
                   generator: Optional[torch.Generator],
                   draws: Optional[MaskDraws] = None):
         a, v = batch
-        with torch.no_grad():
-            out = model(a, v, cfg.masking_ratio_a, cfg.masking_ratio,
-                        mae_loss_weight=cfg.mae_loss_weight,
-                        contrast_loss_weight=cfg.contrast_loss_weight,
-                        mask_mode=cfg.mask_mode, draws=draws,
-                        generator=generator)
-        return {"loss": out[0], "loss_mae": out[1], "loss_mae_a": out[2],
-                "loss_mae_v": out[3], "loss_c": out[4], "c_acc": out[7]}
+        if draws is None:
+            if generator is None:
+                raise ValueError("pass the forward's draws or a generator")
+            draws = draw_eval_masks(cfg, a.shape[0], generator, a.device)
+        return eval_forward(cfg, model, a, v, draws)
 
+    return eval_step
+
+
+def make_graphed_eval_step(cfg: PretrainConfig, pool=None):
+    """``make_eval_step``'s eval step as CUDA graphs, the counterpart of
+    the JAX package's ``jax.jit(eval_step)``: the draws are drawn ahead
+    from ``generator`` (``draw_eval_masks``) and copied with the batch
+    into the static inputs of the graph of their signature (``train/graphs.py:GraphedForward``: the first call
+    runs eagerly as the warm-up; bound to the model of that call; one
+    graph per batch shape). The same metrics as the eager step on the same
+    draws. ``pool``: a graph memory pool to share, or None."""
+    forward = graphs.GraphedForward(
+        lambda model, a, v, draws: eval_forward(cfg, model, a, v, draws),
+        "the pretrain eval forward", pool)
+
+    def eval_step(model: CAVMAEPretrain, batch,
+                  generator: Optional[torch.Generator],
+                  draws: Optional[MaskDraws] = None):
+        a, v = batch
+        if draws is None:
+            if generator is None:
+                raise ValueError("pass the forward's draws or a generator")
+            draws = draw_eval_masks(cfg, a.shape[0], generator, a.device)
+        return forward(model, a, v, draws)
+
+    eval_step.graphed = forward
     return eval_step
 
 

@@ -51,20 +51,20 @@ Phases (any failure raises and the script exits non-zero):
    D. ViT-B, ``mlp_impl='lnfres'`` under ``AVSIAM_LN=pallas`` (K1, K2, K3,
       and K10 in every LayerNormFP32 backward);
    E. ViT-H/16 (``pretrain_config('cav-mae-huge')``: dim 1280, 16 heads
-      of 80; decoder 512/8/16) at encoder depth 16 of 32 (the kernels
+      of 80; decoder 512/8/16) at encoder depth 4 of 32 (the kernels
       phase times its shapes at the full depth), ``attn_impl='pallas'``,
       ``mlp_impl='fused'`` (K5, K6 in the encoders, K1, K2 in the decoder;
       K4 and K7, with K9, at D 1280 and in the decoder);
    A64. A at the JAX bench's batch of 64 (``bench.py:81-84``);
    P64. A64 in the 'padded' form, the JAX config's default (K1/K2 with a
       key mask per sample at full length, K3);
-   H64. E at B=64 with ``remat_blocks``, at encoder depth 16 of 32 (K5,
+   H64. E at B=64 with ``remat_blocks``, at encoder depth 4 of 32 (K5,
       K6; K1, K2 in the decoder;
       K4, K7, K9; the encoders' forward kernels run again in the backward);
    F. A in the 'tconcat', 'bucketed' and 'packed' forms ('packed' runs
       K4, not K3, in the encoders).
-   Each phase runs the eager step (``make_pretrain_step``: five steps in
-   A-D, three in E, A64 and P64, two in H64 and F) and then, on the same
+   Each phase runs the eager step (``make_pretrain_step``: three steps in
+   A-E, A64 and P64, two in H64 and F) and then, on the same
    state, the step as one
    CUDA graph (``make_graphed_pretrain_step``: a warm-up step, the
    capture, which replays once, and as many timed replays). Every metric
@@ -94,10 +94,23 @@ Phases (any failure raises and the script exits non-zero):
       and metric, the merge and MLP residual under one shared plan, the
       token mass, r slots dropped a sample, the plans' agreement printed
       (``run_tome``).
+   FTG. The finetune step as CUDA graphs, one a routing branch
+      (``make_graphed_finetune_step``), against the eager step from one
+      seed, at FT64's model (ViT-B, 309 classes, CE, bf16): u 0.9, 0.1,
+      0.4 three times each (each branch warmed up, captured, replayed) at
+      B=64 with the parity optimizer and at B=8 without: every loss,
+      parameter, Adam moment and per-parameter step count within 1e-5
+      relative, each call's launches its branch's; per branch the steady
+      graphed and eager ms and busy shares at B=64, the peak GiB, and the
+      one pool the three graphs share (at most 1.3 times its size with
+      one). Then the graphed forwards against their eager forms within
+      1e-5, launches equal: the finetune eval forward at 64 clips x 10
+      frames, the retrieval forward at 64, 64, 64 and a partial 40 clips,
+      the pretrain eval forward on A64's model (``run_ft_graphs``).
    PD64. P64's graphed step fed by the port's loader (``device_loader``
    over an ``AVDataset`` of 'synthetic' clips, the pretrain recipe's audio
    config): warm-up and capture, the loader's lead drained, then a window
-   of 40 data-fed replays timed as one span (rate, loader wait, each
+   of 24 data-fed replays timed as one span (rate, loader wait, each
    half), the launch counts (from 0 just before, P64's per step), a
    profiled data-fed step (busy share), beside P64 on random batches. The
    host's assembly of one batch, and the device time of its copy to the
@@ -116,10 +129,18 @@ Phases (any failure raises and the script exits non-zero):
    recipe's command line (``recipes/ft_vggsound.sh``: ViT-B, 'mm_grad',
    CE, B=64, 309 classes; 'synthetic' clips, 8 steps an epoch, 2 epochs,
    64 validation and eval clips of 10 frames, ``--wa``), from CLI64's
-   ``best_audio_model``: finite losses and metrics in every
-   ``result.csv`` row, each kernel launched as often as the steps'
+   ``best_audio_model``, through the graphed step (a graph for each
+   branch drawn twice) and eval forward: finite losses and metrics in
+   every ``result.csv`` row, each kernel launched as often as the steps'
    branches (26 K1 and 26 K3 a forward, 26 or 12 K2 a backward) and the
-   10-frame eval batches imply (``run_ft_cli``). The kernels phase holds
+   10-frame eval batches imply, replays counted (``run_ft_cli``).
+   AS20K. The finetune runner on the AudioSet-20K recipe's command line
+   (``recipes/ft_audioset_20k.sh``: B=4, 527 classes, BCE, mAP), cut to
+   12 steps an epoch (validation 12 batches of 4 clips x 10 frames) and
+   2 epochs, 'synthetic' clips, from CLI64's ``best_audio_model``,
+   graphed, then eagerly: finite ``train_loss``, ``val_loss``, ``mAP``,
+   ``mAUC`` in every row, exact launches, the graphed ``result.csv``
+   within 1e-5 of the eager one's, clips/s each way (``run_as20k``). The kernels phase holds
    K1/K2 at the fusion layers' (2, 708, 12, 64) and K3 at their rows in
    a step (64 x 708), and at the end of the script in the eval (640 x
    708, its plain version and composite untimed).
@@ -137,11 +158,13 @@ Phases (any failure raises and the script exits non-zero):
    P64's graphed step with the collectives in the graph, three steps
    from the eager-vs-graphed check's seed, state, batch and draws: every
    parameter, Adam moment, step count and metric the same bits as that
-   check's single-process graphed run; five replays timed and one
+   check's single-process graphed run; three replays timed and one
    profiled (the NCCL kernels' calls and device time). (b) The pretrain
    runner on CLI64 (a)'s command line: ``result.csv`` and every
-   parameter the same bits as CLI64 (a)'s. Launch counts exact in both
-   (``run_dp1``).
+   parameter the same bits as CLI64 (a)'s. (c) The finetune runner,
+   graphed, on AS20K's command line: ``result.csv`` (but its timing
+   columns) and every parameter the same bits as AS20K's graphed run.
+   Launch counts exact in all three (``run_dp1``).
    TP2. Tensor parallelism: this script as two workers
    (``--tp2-worker``) under ``python -m torch.distributed.run
    --standalone --nproc_per_node=2``, a mesh of data 1 x model 2 on the
@@ -1554,11 +1577,11 @@ def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
 # the step phases: (label, configuration, AVSIAM_MLP_BWD=split,
 # AVSIAM_LN=pallas, eager steps and graphed replays, batch); ``model`` names
 # a variant, else ViT-B
-PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5, 8),
-          ("B", dict(mlp_impl="fused"), False, False, 5, 8),
-          ("C", dict(mlp_impl="fbwd", dec_mlp_impl="fres"), True, False, 5,
+PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 3, 8),
+          ("B", dict(mlp_impl="fused"), False, False, 3, 8),
+          ("C", dict(mlp_impl="fbwd", dec_mlp_impl="fres"), True, False, 3,
            8),
-          ("D", dict(mlp_impl="lnfres"), False, True, 5, 8),
+          ("D", dict(mlp_impl="lnfres"), False, True, 3, 8),
           ("E", dict(model="cav-mae-huge", attn_impl="pallas",
                      mlp_impl="fused"), False, False, 3, 8),
           ("A64", dict(mlp_impl="lnfres"), False, False, 3, 64),
@@ -1568,11 +1591,11 @@ PHASES = (("A", dict(mlp_impl="lnfres"), False, False, 5, 8),
            64),
           *((f"F-{form}", dict(mmixed_impl=form), False, False, 2, 8)
             for form in ("tconcat", "bucketed", "packed")))
-# the encoder depth a step phase is cut to (H64 runs 16 of ViT-H's 32
-# blocks, to leave the script's time for the finetune phases, and E, for
-# phases AO, TOME and MEM); the kernels phase keeps the full depth's
-# shapes and calls per step
-PHASE_DEPTH = {"H64": 16, "E": 16}
+# the encoder depth a step phase is cut to (H64 and E run 4 of ViT-H's 32
+# blocks, to leave the script's time for the finetune phases, AO, TOME,
+# MEM, FTG and AS20K); the kernels phase keeps the full depth's shapes and
+# calls per step
+PHASE_DEPTH = {"H64": 4, "E": 4}
 # the phases the depth-1 reference phase runs (A64 and F's forms share A's
 # configuration but for the batch and the contrastive form)
 REFERENCE_PHASES = ("A", "B", "C", "D", "E", "P64", "H64")
@@ -1782,6 +1805,7 @@ def main(argv=None) -> int:
     launches["TOME"] = run_tome("TOME", args.seed, report)
     log(f"phases AO and TOME done at {time.time() - t0:.0f} s, in "
         f"{time.time() - t1:.1f} s")
+    launches["FTG"] = run_ft_graphs("FTG", args.seed, report)
     p64 = phases["P64"]
     launches["PD64"] = run_data_fed(
         "PD64", p64["cfg"], expected_launches(p64["cfg"], p64["shapes"],
@@ -1792,14 +1816,18 @@ def main(argv=None) -> int:
                                 keep_params=pretrain_params,
                                 reference=dp1_cli)
     ft_params = kernels.BUILD_DIR.parent / "chip_smoke_ft_params"
+    dp1_ft = {}  # DP1's finetune reference
     try:
         launches["FT64"] = run_ft_cli("FT64", args.seed, report,
                                       pretrain_params, keep_params=ft_params)
+        launches["AS20K"] = run_as20k("AS20K", args.seed, report,
+                                      pretrain_params, keep=dp1_ft)
         launches["RET"] = run_retrieval("RET", args.seed, report, ft_params)
+        launches["DP1"] = run_dp1("DP1", args.seed, report, dp1_steps,
+                                  dp1_cli, dp1_ft)
     finally:
         pretrain_params.unlink(missing_ok=True)
         ft_params.unlink(missing_ok=True)
-    launches["DP1"] = run_dp1("DP1", args.seed, report, dp1_steps, dp1_cli)
     launches["TP2"] = run_tp2("TP2", args.seed, report)
     log(f"runner phases done at {time.time() - t0:.0f} s")
     mem = start_memory_probe("MEM")
@@ -1844,12 +1872,27 @@ def main(argv=None) -> int:
             "resume_max_rel", "resume_equal", "resume_tensors",
             "rows_max_rel")},
         "ft64": {k: report["steps"]["FT64"][k] for k in (
-            "wall_s", "peak_gib", "branches", "wa_s", "eval_acc")},
+            "wall_s", "peak_gib", "branches", "wa_s", "eval_acc",
+            "clips_per_s", "data_share", "eval_ms")},
+        "ftg": {"gated_max_rel": report["steps"]["FTG"]["gated"]["max_rel"],
+                "plain_max_rel": report["steps"]["FTG"]["plain"]["max_rel"],
+                "peak_gib": report["steps"]["FTG"]["gated"]["peak_gib"],
+                "pool_gib": report["steps"]["FTG"]["pool_gib"],
+                "branches": report["steps"]["FTG"]["branches"],
+                "forwards_max_rel": {
+                    k: r["max_rel"] for k, r in
+                    report["steps"]["FTG"]["forwards"].items()}},
+        "as20k": {"clips_per_s": {
+            w: report["steps"]["AS20K"][w]["clips_per_s"]
+            for w in ("graphed", "eager")},
+            "rows_rel": report["steps"]["AS20K"]["rows_rel"],
+            "mAP": [r["mAP"] for r in
+                    report["steps"]["AS20K"]["graphed"]["rows"]]},
         "ftr": {b: {k: r[k] for k in ("rel", "grad_cos")}
                 for b, r in report["reference"]["FTR"].items()},
         "dp1": {k: report["steps"]["DP1"][k] for k in (
             "graphed_steady_ms", "nccl_ms", "nccl_calls", "state_tensors",
-            "params_equal", "runner_s")},
+            "params_equal", "runner_s", "ft_params_equal", "ft_runner_s")},
         "ret": {k: report["steps"]["RET"][k] for k in (
             "rows", "feature_rel_err", "forward_ms", "plain_forward_ms")},
         "ao": {k: report["steps"]["AO"][k] for k in (
@@ -1873,7 +1916,8 @@ def main(argv=None) -> int:
                              launches)
     for e in entries:  # the data-fed, runner and DP phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
-        for phase in ("CLI64", "FT64", "RET", "DP1", "TP2", "AO", "TOME"):
+        for phase in ("CLI64", "FT64", "AS20K", "FTG", "RET", "DP1", "TP2",
+                      "AO", "TOME"):
             e[f"{phase.lower()}_launches"] = launches[phase].get(e["name"], 0)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -2026,7 +2070,7 @@ def run_steps(label, cfg, per_step, seed, report, n_steps: int = 5):
     return launches
 
 
-PD64_WINDOW = 40    # data-fed replays timed as one span
+PD64_WINDOW = 24    # data-fed replays timed as one span
 PD64_MAX_DRAIN = 8  # batches the loader can hold ahead, with margin
 
 
@@ -2237,7 +2281,8 @@ def recipe_argv(recipe="pretrain_audioset.sh", runner="pretrain", **paths):
     from pathlib import Path
     text = (Path(__file__).resolve().parent / "recipes" / recipe).read_text()
     cmd = text[text.index(f"python -m avsiam_tpu.cli.{runner}"):]
-    words = shlex.split(cmd.replace("\\\n", " "))[3:]
+    # the command's lines joined, without what follows it (comments)
+    words = shlex.split(cmd.replace("\\\n", " ").split("\n", 1)[0])[3:]
     return [re.sub(r"\$(\w+)", lambda m: paths[m.group(1)], w)
             for w in words if w != "$@"]
 
@@ -2512,6 +2557,9 @@ FT_STEPS = 8            # --max_steps_per_epoch
 FT_EPOCHS = 2
 FT_TRAIN_BATCHES = 10   # the train index: 640 clips, two batches spare
 FT_EVAL_CLIPS = 64      # the --data_val and --data_eval indices: one batch
+# FT64's eager figures, for the graphed run's log (PRs 13-16, PERF.md)
+FT64_EAGER = ("68.5-95.8 clips/s, 1026-1586 ms a 10-frame validation batch "
+              "of 64 clips")
 
 
 def ft_part_shapes(cfg, batch: int, frames: int = 1):
@@ -2630,10 +2678,11 @@ def run_ft_cli(label, seed, report, pretrain_path, keep_params=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        t0 = time.time()
-        out = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        with recorded_finetune_graphs() as made:
+            t0 = time.time()
+            out = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         state = out["state"]
@@ -2667,6 +2716,9 @@ def run_ft_cli(label, seed, report, pretrain_path, keep_params=None):
             f"branches {state.branches}; launches "
             + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
             + " as expected")
+        eval_graphs = check_ft_graphs(label, made, state.branches)
+        log(f"  {label} eager in PR 16's final call (NVIDIA H100 80GB "
+            f"HBM3, 700.00 W): {FT64_EAGER}")
         for e, r in zip(epochs, rows):
             pst, dst = e["per_sample_time"], e["per_sample_data_time"]
             log(f"    epoch {e['epoch']}: {e['steps']} steps "
@@ -2689,7 +2741,12 @@ def run_ft_cli(label, seed, report, pretrain_path, keep_params=None):
         report.setdefault("steps", {})[label] = dict(
             batch=64, wall_s=wall, peak_gib=peak, launches=launches,
             branches=dict(state.branches), epochs=epochs, rows=rows,
-            wa_s=wa_s, eval_acc=acc, best_epoch=out["best_epoch"])
+            wa_s=wa_s, eval_acc=acc, best_epoch=out["best_epoch"],
+            eval_graphs=eval_graphs,
+            clips_per_s=[1 / e["per_sample_time"] for e in epochs],
+            data_share=[e["per_sample_data_time"] / e["per_sample_time"]
+                        for e in epochs],
+            eval_ms=[1e3 * e["eval_s"] / e["eval_batches"] for e in epochs])
         if keep_params is not None:
             shutil.copyfile(exp / "models" / "best_audio_model", keep_params)
         del out, state
@@ -2700,9 +2757,514 @@ def run_ft_cli(label, seed, report, pretrain_path, keep_params=None):
     return launches
 
 
+# ------------------------------------------------ the graphed finetune step
+FTG_BATCH = 64          # FT64's batch: the ms a branch, busy share, memory
+FTG_PLAIN_BATCH = 8     # the run without the parity optimizer (for the time)
+# each branch three times: its warm-up (eager), its capture (which replays
+# once), a replay
+FTG_SEQUENCE = (0.9,) * 3 + (0.1,) * 3 + (0.4,) * 3
+FTG_TIMED = 3           # more calls a branch, each way, timed
+FTG_TOL = 1e-5          # graphed against eager, as PR 9's pretrain bound
+FTG_POOL_RATIO = 1.3    # the pool with three branch graphs against one's
+FTG_LR = 5e-5           # the VGGSound recipe's rate
+
+
+def ft_recipe_config(batch: int, **kw):
+    """The VGGSound finetune recipe's model and step at full width (FT64's:
+    ViT-B, 309 classes, CE, 'mm_grad', heads and fusion layers at x10,
+    bf16, 'auto' = 'lnfres')."""
+    from avsiam_tpu_torch.configs import FinetuneConfig
+    from avsiam_tpu_torch.models.variants import finetune_config
+    return FinetuneConfig(
+        model=finetune_config("cav-mae-base", label_dim=FT_CLASSES,
+                              dtype=torch.bfloat16),
+        batch_size=batch, loss="CE", ftmode="mm_grad", head_lr=10.0,
+        mm_lr=10.0, **kw)
+
+
+def ft_step_batch(cfg, gen, frames: int = 1, batch=None):
+    """A random (fbank, frames, soft labels) finetune batch on the card."""
+    v, B = cfg.model.vit, batch or cfg.batch_size
+    return (torch.randn((B, v.audio_length, v.mel_bins), generator=gen,
+                        device="cuda"),
+            torch.randn((B, frames, 3, v.img_size, v.img_size),
+                        generator=gen, device="cuda"),
+            torch.softmax(torch.randn((B, cfg.model.label_dim),
+                                      generator=gen, device="cuda"), -1))
+
+
+def ft_state_tensors(state):
+    """(name, tensor) of every parameter, Adam moment and per-parameter
+    step count of a finetune state."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    yield from state.model.named_parameters()
+    for p, st in state.opt.state.items():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            yield f"adam {k} {names[id(p)]}", st[k]
+
+
+def ftg_sequence(cfg, seed: int, graphed: bool):
+    """``FTG_SEQUENCE``'s steps from a state and batch made from ``seed``,
+    eager or graphed, the rate 0.9 times the last a step: (state, step,
+    batch, [loss], [launches a call], [ms a call], pool bytes after the
+    first capture and after the last). Each call's launches must be what
+    its branch implies (``ft_launches``)."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.train import finetune as ft
+    from avsiam_tpu_torch.train import graphs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = ft.init_state(cfg, gen, "cuda")
+    batch = ft_step_batch(cfg, gen)
+    step = (ft.make_graphed_finetune_step(cfg) if graphed
+            else ft.make_finetune_step(cfg))
+    losses, launches, ms, pools = [], [], [], []
+    for i, u in enumerate(FTG_SEQUENCE):
+        kernels.reset_launches()
+        t = time.time()
+        state, m = step(state, batch, FTG_LR * 0.9 ** i, u)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        losses.append(m["loss"])
+        launches.append(dict(kernels.LAUNCHES))
+        want = ft_launches(cfg, cfg.batch_size, branch=ft.route(u))
+        if launches[-1] != want:
+            raise AssertionError(f"FTG {'graphed' if graphed else 'eager'} "
+                                 f"call {i} (u {u}): launches "
+                                 f"{launches[-1]} != {want}")
+        if graphed and i in (1, len(FTG_SEQUENCE) - 2):
+            pools.append(graphs.pool_bytes(step.pool))
+    return state, step, batch, losses, launches, ms, pools
+
+
+def ftg_compare(label, cfg, seed: int, tol: float = FTG_TOL):
+    """The eager and the graphed ``ftg_sequence`` from one seed: each
+    loss, and at the end every parameter, Adam moment and per-parameter
+    step count, within ``tol`` relative (``max_rel``); the same parameters
+    with Adam state. Returns (eager run, graphed run, summary)."""
+    eager = ftg_sequence(cfg, seed, False)
+    torch.cuda.reset_peak_memory_stats()
+    graphed = ftg_sequence(cfg, seed, True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    diffs = {f"loss {i}": max_rel(g, e)
+             for i, (e, g) in enumerate(zip(eager[3], graphed[3]))}
+    want = dict(ft_state_tensors(eager[0]))
+    got = dict(ft_state_tensors(graphed[0]))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: other tensors with Adam state "
+                             f"({len(got)} against {len(want)})")
+    diffs.update({k: max_rel(got[k], t) for k, t in want.items()})
+    worst = max(diffs, key=diffs.get)
+    n_equal = sum(d == 0.0 for d in diffs.values())
+    counts = sorted({int(t) for k, t in got.items()
+                     if k.startswith("adam step")})
+    log(f"  {label}: {len(diffs)} tensors compared (losses, parameters, "
+        f"moments, step counts), {n_equal} equal bit for bit; largest "
+        f"relative difference {diffs[worst]:.3e} ({worst}); Adam step "
+        f"counts {counts}; graphs {sorted(graphed[1].graphs)}")
+    if diffs[worst] > tol:
+        raise AssertionError(f"{label}: graphed and eager steps differ: "
+                             f"{worst} {diffs[worst]:.3e} > {tol}")
+    return eager, graphed, dict(max_rel=diffs[worst], where=worst,
+                                tensors=len(diffs), equal=n_equal,
+                                step_counts=counts, peak_gib=peak)
+
+
+def ftg_forward(label, eager, graphed, model, calls, tol: float = FTG_TOL):
+    """A graphed forward against its eager form: ``calls`` is a list of
+    argument tuples (after the model); call by call, every output within
+    ``tol`` relative and the same launch counts. Returns the largest
+    difference, and the ms (host clock to a sync) of the last full-batch
+    call each way."""
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.train import graphs
+    worst, ms = 0.0, {}
+    for i, args in enumerate(calls):
+        outs = []
+        for name, fn in (("eager", eager), ("graphed", graphed)):
+            kernels.reset_launches()
+            t = time.time()
+            out = fn(model, *args(i))
+            torch.cuda.synchronize()
+            if i == 2:
+                ms[name] = (time.time() - t) * 1e3
+            outs.append((graphs._tensors(out), dict(kernels.LAUNCHES)))
+        (te, le), (tg, lg) = outs
+        if lg != le or not sum(le.values()):
+            raise AssertionError(f"{label} call {i}: launches {lg} against "
+                                 f"eager {le}")
+        worst = max([worst] + [max_rel(g, e) for e, g in zip(te, tg)])
+    fwd = getattr(graphed, "graphed", graphed)
+    log(f"  {label}: {len(calls)} calls (a warm-up, then {len(fwd.graphs)} "
+        f"graphs), largest relative difference {worst:.3e} (<= {tol}); "
+        f"launches as eager's; a batch {ms['graphed']:.1f} ms graphed, "
+        f"{ms['eager']:.1f} ms eager (host clock to a sync)")
+    if worst > tol:
+        raise AssertionError(f"{label}: the graphed forward differs from "
+                             f"the eager one by {worst:.3e}")
+    return dict(max_rel=worst, graphs=len(fwd.graphs), **{
+        f"{k}_ms": v for k, v in ms.items()})
+
+
+def run_ft_graphs(label, seed, report):
+    """Phase FTG: the finetune step as CUDA graphs, one a routing branch,
+    and the three graphed forwards, on the card at full width.
+
+    (a) FT64's model and step at B=64, the parity optimizer on (the
+    default): from one seed, ``FTG_SEQUENCE`` (each branch warmed up,
+    captured, replayed) eagerly and graphed, held within ``FTG_TOL``
+    (``ftg_compare``), each call's launches exact; then ``FTG_TIMED`` more
+    calls a branch each way, timed, and one profiled each way (the busy
+    share); the graphed run's peak allocated GiB and its pool with one
+    and with three graphs (at most ``FTG_POOL_RATIO`` apart: one pool).
+    (b) The same at B=8 without the parity optimizer. (c) The finetune
+    eval forward at 64 clips x 10 frames, the pretrain eval forward (A64's
+    model at B=64, batch i's draws from ``step_generator(None, i)``) and
+    the retrieval forward with its token means (64, 64, 64, then a
+    partial 40), each graphed against its eager form within ``FTG_TOL``
+    (``ftg_forward``). Returns the launch counts of (a)'s sequences."""
+    from avsiam_tpu_torch.cli.retrieval import retrieval_features
+    from avsiam_tpu_torch.train import finetune as ft
+    from avsiam_tpu_torch.train import graphs
+    from avsiam_tpu_torch.train import pretrain as ppre
+    log(f"phase {label}: the finetune step as CUDA graphs (one a branch) "
+        f"against the eager step, ViT-B, 309 classes, CE, bf16: u "
+        f"{FTG_SEQUENCE}, batch {FTG_BATCH} with the parity optimizer, "
+        f"{FTG_PLAIN_BATCH} without; then the graphed forwards")
+    t0 = time.time()
+    cfg = ft_recipe_config(FTG_BATCH)
+    eager, graphed, summary = ftg_compare(f"{label} (a) gated", cfg, seed)
+    estate, estep, batch = eager[:3]
+    gstate, gstep = graphed[:2]
+    one, three = graphed[6]
+    log(f"  {label} (a): peak {summary['peak_gib']:.2f} GiB allocated in "
+        f"the graphed run; its pool {one / 2**30:.2f} GiB with the 'av' "
+        f"graph, {three / 2**30:.2f} GiB with all three (one pool, "
+        f"<= {FTG_POOL_RATIO}x)")
+    if not (0 < one and three <= FTG_POOL_RATIO * one):
+        raise AssertionError(f"{label}: the branch graphs' pool holds "
+                             f"{one} bytes with one graph, {three} with "
+                             f"three")
+    launches = {k: sum(c[k] for run in (eager, graphed) for c in run[4])
+                for k in eager[4][0]}
+    per_branch = {}
+    for branch, u in (("av", 0.9), ("a", 0.1), ("v", 0.4)):
+        row = {}
+        for way, state, step in (("eager", estate, estep),
+                                 ("graphed", gstate, gstep)):
+            times = []
+            for _ in range(FTG_TIMED):
+                t = time.time()
+                state, m = step(state, batch, FTG_LR, u)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                times.append((time.time() - t) * 1e3)
+            steady = sorted(times)[len(times) // 2]
+            prof = profile_step(lambda s, b, g, lr: step(s, b, lr, u), state,
+                                batch, None, FTG_LR, steady, top=0)
+            row[f"{way}_ms"] = steady
+            row[f"{way}_busy"] = None if prof is None else (
+                prof["busy_ms"] / steady)
+        per_branch[branch] = row
+        log(f"  {label} branch {branch}: steady {row['graphed_ms']:.1f} ms "
+            f"graphed, {row['eager_ms']:.1f} ms eager ("
+            f"{FTG_BATCH * 1e3 / row['graphed_ms']:.1f} against "
+            f"{FTG_BATCH * 1e3 / row['eager_ms']:.1f} clips/s); busy "
+            + " / ".join("not measured" if row[f"{w}_busy"] is None else
+                         f"{100 * row[f'{w}_busy']:.1f}%"
+                         for w in ("graphed", "eager")))
+    model = gstate.model
+    del eager, graphed, estate, estep, gstate, gstep
+    torch.cuda.empty_cache()
+    _, _, plain = ftg_compare(f"{label} (b) plain",
+                              ft_recipe_config(FTG_PLAIN_BATCH,
+                                               parity_optimizer=False),
+                              seed + 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    nf = cfg.model.num_eval_frames
+    evals = [ft_step_batch(cfg, gen, frames=nf) for _ in range(3)]
+    fwd = {"ft_eval": ftg_forward(
+        f"{label} (c) finetune eval forward, 64 x {nf} frames",
+        ft.make_ft_eval_step(cfg), ft.make_graphed_ft_eval_step(cfg), model,
+        [lambda i: (evals[i],)] * 3)}
+    del evals
+    feats = [ft_step_batch(cfg, gen, batch=n)[:2] for n in (64, 64, 64, 40)]
+    fwd["retrieval"] = ftg_forward(
+        f"{label} (c) retrieval forward, 64, 64, 64, 40 clips",
+        retrieval_features, graphs.GraphedForward(
+            retrieval_features, "the retrieval forward"), model,
+        [lambda i: feats[i]] * 4)
+    del model, feats
+    pcfg = phase_config(dict(mlp_impl="lnfres"), batch=64)
+    pmodel = ppre.init_state(pcfg, gen, "cuda").model
+    pbatches = [step_batch(pcfg, gen) for _ in range(3)]
+    fwd["pretrain_eval"] = ftg_forward(
+        f"{label} (c) pretrain eval forward, A64's model",
+        ppre.make_eval_step(pcfg), ppre.make_graphed_eval_step(pcfg), pmodel,
+        [lambda i: (pbatches[i], ppre.step_generator(None, i, "cuda"))] * 3)
+    del pmodel, pbatches
+    torch.cuda.empty_cache()
+    wall = time.time() - t0
+    log(f"  {label}: {wall:.1f} s")
+    report.setdefault("steps", {})[label] = dict(
+        batch=FTG_BATCH, gated=summary, plain=plain, branches=per_branch,
+        pool_gib=[one / 2**30, three / 2**30], forwards=fwd, wall_s=wall,
+        launches=launches)
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_finetune_graphs():
+    """Within the block, the graphed finetune steps and eval steps the
+    runner makes are kept in the yielded dict's lists ('step', 'eval'),
+    so a phase can read what they captured."""
+    from unittest import mock
+
+    from avsiam_tpu_torch.train import finetune as ft
+    made = {"step": [], "eval": []}
+    step_f, eval_f = ft.make_graphed_finetune_step, ft.make_graphed_ft_eval_step
+
+    def step(*a, **kw):
+        made["step"].append(step_f(*a, **kw))
+        return made["step"][-1]
+
+    def eval_step(*a, **kw):
+        made["eval"].append(eval_f(*a, **kw))
+        return made["eval"][-1]
+
+    with mock.patch.object(ft, "make_graphed_finetune_step", step), \
+            mock.patch.object(ft, "make_graphed_ft_eval_step", eval_step):
+        yield made
+
+
+@contextlib.contextmanager
+def eager_finetune():
+    """Within the block the finetune runner takes the eager step and eval
+    step on the card: its graphed factories give the eager forms (the
+    yardstick of a graphed run of the same command line)."""
+    from unittest import mock
+
+    from avsiam_tpu_torch.train import finetune as ft
+    with mock.patch.object(ft, "make_graphed_finetune_step",
+                           lambda cfg, pool=None: ft.make_finetune_step(cfg)), \
+            mock.patch.object(ft, "make_graphed_ft_eval_step",
+                              lambda cfg, pool=None: ft.make_ft_eval_step(cfg)):
+        yield
+
+
+def check_ft_graphs(label, made, branches):
+    """The runner's finetune step ran as graphs: one step object, a graph
+    for each branch it drew at least twice; and each eval step with more
+    than one batch of a shape replayed a graph."""
+    steps = made["step"]
+    want = sorted(b for b, n in branches.items() if n >= 2)
+    if len(steps) != 1 or sorted(steps[0].graphs) != want:
+        raise AssertionError(f"{label}: graphed steps {steps} with graphs "
+                             f"{[sorted(s.graphs) for s in steps]}, branches "
+                             f"{branches}")
+    n_eval = [len(e.graphed.graphs) for e in made["eval"]]
+    log(f"  {label}: graphed, {len(want)} branch graphs "
+        f"{want}; eval graphs {n_eval} (their first batch eager)")
+    return n_eval
+
+
+AS_RECIPE = "ft_audioset_20k.sh"
+AS_CLASSES = 527       # the recipe's --n_class
+AS_BATCH = 4           # the recipe's --batch_size
+AS_STEPS = 12          # --max_steps_per_epoch (train and validation)
+AS_EPOCHS = 2          # --n_epochs (the recipe's 15)
+AS_TRAIN_CLIPS = AS_BATCH * (AS_STEPS + 2)  # two batches spare
+AS_VAL_CLIPS = AS_BATCH * AS_STEPS          # 12 batches of 10-frame clips
+AS_TOL = 1e-5          # the graphed run's result.csv against the eager one's
+# the result.csv columns that time the run, which two runs do not share
+TIMING_COLUMNS = ("per_sample_time", "per_sample_data_time",
+                  "per_sample_dnn_time")
+
+
+def ft_index(tmp, name: str, n: int, classes: int) -> str:
+    """An index of ``n`` 'synthetic' clips labelled over ``classes``
+    classes under ``tmp``; a clip's data is keyed on its name, so two
+    indices of one name hold the same clips."""
+    path = tmp / name
+    path.write_text(json.dumps({"data": [
+        {"wav": f"synthetic/{name}/{i}.wav", "labels": f"/m/{i % classes}"}
+        for i in range(n)]}))
+    return str(path)
+
+
+def as20k_argv(tmp, exp, pretrain_path):
+    """``recipes/ft_audioset_20k.sh``'s words over 'synthetic' indices and
+    a 527-class label CSV written under ``tmp``, into ``exp``, cut by
+    ``--max_steps_per_epoch`` and ``--n_epochs`` only."""
+    labels = tmp / "labels.csv"
+    labels.write_text("index,mid,display_name\n" + "".join(
+        f"{i},/m/{i},class {i}\n" for i in range(AS_CLASSES)))
+    return recipe_argv(
+        AS_RECIPE, "finetune",
+        DATA_TRAIN=ft_index(tmp, "train.json", AS_TRAIN_CLIPS, AS_CLASSES),
+        DATA_VAL=ft_index(tmp, "val.json", AS_VAL_CLIPS, AS_CLASSES),
+        LABEL_CSV=str(labels), PRETRAIN=str(pretrain_path),
+        EXP_DIR=str(exp)) + [
+        "--frame_source", "synthetic", "--max_steps_per_epoch",
+        str(AS_STEPS), "--n_epochs", str(AS_EPOCHS)]
+
+
+def ft_rows(exp) -> list:
+    """result.csv's rows without the timing columns."""
+    import csv
+    with open(exp / "result.csv", newline="") as f:
+        return [{k: v for k, v in r.items() if k not in TIMING_COLUMNS}
+                for r in csv.DictReader(f)]
+
+
+def ft_run_launches(out, cfg, batch: int) -> dict:
+    """The launches a finetune run's steps and eval batches imply: each
+    step its branch's (``ft_launches``), each eval batch a forward over
+    ``cfg.model.num_eval_frames`` frames."""
+    epochs = out["timing"]["epochs"]
+    evals = sum(e["eval_batches"] for e in epochs)
+    want = {k: n * evals for k, n in ft_launches(
+        cfg, batch, cfg.model.num_eval_frames).items()}
+    for branch, n in out["state"].branches.items():
+        for k, c in ft_launches(cfg, batch, branch=branch).items():
+            want[k] += n * c
+    return want
+
+
+def run_as20k_cli(exp, argv, graphed: bool):
+    """``cli.finetune.main(argv)`` on the card from launch counts of 0,
+    graphed or (``eager_finetune``) eager: (out, wall s, launches, peak
+    GiB, the graphed objects it made)."""
+    import gc
+
+    from avsiam_tpu_torch import kernels
+    from avsiam_tpu_torch.cli import finetune as cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with (recorded_finetune_graphs() if graphed
+          else eager_finetune()) as made:
+        t0 = time.time()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return (out, wall, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2**30, made)
+
+
+def run_as20k(label, seed, report, pretrain_path, keep=None):
+    """Phase AS20K: the port's finetune runner on the AudioSet-20K
+    recipe's command line word for word (``recipes/ft_audioset_20k.sh``:
+    ViT-B, 'mm_grad', BCE, mAP, B=4, 527 classes, lr 1e-4 with head and
+    fusion rates x100, mixup 0.5, freqm 48, timem 192, noise, label
+    smoothing 0.1, ``--mesh_data 1``, bf16) through the graphed step and
+    eval forward, on the card. Only these differ: ``--frame_source
+    synthetic`` over indices of 'synthetic' clips labelled over 527
+    classes (56 train, 48 validation clips), ``--max_steps_per_epoch
+    12`` (validation too: 12 batches of 4 clips x 10 frames),
+    ``--n_epochs 2`` and ``--pretrain_path`` CLI64's
+    ``best_audio_model``. Every ``result.csv`` row must hold finite
+    ``train_loss``, ``val_loss``, ``mAP``, ``mAUC`` and ``acc``, the
+    launches be what the steps' branches and the eval batches imply, the
+    step have a graph for each branch drawn twice. Then the same line
+    eagerly (``eager_finetune``) in another directory: its ``result.csv``
+    within ``AS_TOL`` of the graphed run's, and its clips/s beside. With
+    ``keep`` (a dict) the graphed run's rows and parameter digests go
+    there: DP1 holds its finetune leg against them. Returns the graphed
+    run's launch counts."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from avsiam_tpu_torch.configs import FinetuneConfig
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_as20k"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=root))
+    log(f"phase {label}: python -m avsiam_tpu_torch.cli.finetune on the "
+        f"{AS_RECIPE} recipe's flags, {AS_STEPS} steps an epoch, "
+        f"{AS_EPOCHS} epochs, {AS_TRAIN_CLIPS} train and {AS_VAL_CLIPS} "
+        f"validation clips, from {pretrain_path}; graphed, then eager")
+    os.environ.pop("AVSIAM_PLATFORM", None)  # the card
+    runs = {}
+    try:
+        for way in ("graphed", "eager"):
+            exp = tmp / way
+            out, wall, launches, peak, made = run_as20k_cli(
+                exp, as20k_argv(tmp, exp, pretrain_path), way == "graphed")
+            state = out["state"]
+            cfg = FinetuneConfig(model=state.model.cfg)
+            if (cfg.model.label_dim, cfg.model.vit.depth,
+                    out["rows"][0]["lr"]) != (AS_CLASSES, 12, 1e-4):
+                raise AssertionError(f"{label}: the recipe built "
+                                     f"{cfg.model}, rows {out['rows']}")
+            rows = ft_rows(exp)
+            if [int(r["epoch"]) for r in rows] != list(
+                    range(1, AS_EPOCHS + 1)):
+                raise AssertionError(f"{label}: result.csv rows {rows}")
+            for r in rows:
+                vals = {k: float(r[k]) for k in (
+                    "train_loss", "val_loss", "mAP", "mAUC", "acc")}
+                if not all(math.isfinite(x) for x in vals.values()):
+                    raise AssertionError(f"{label} {way}: non-finite values "
+                                         f"in result.csv row {r['epoch']}: "
+                                         f"{vals}")
+            want = ft_run_launches(out, cfg, AS_BATCH)
+            if launches != want:
+                raise AssertionError(f"{label} {way}: launches {launches} "
+                                     f"!= {want} (branches "
+                                     f"{state.branches})")
+            epochs = out["timing"]["epochs"]
+            log(f"  {label} {way}: {wall:.1f} s, peak {peak:.2f} GiB "
+                f"allocated; branches {state.branches}; launches "
+                + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+                + " as expected")
+            if way == "graphed":
+                check_ft_graphs(f"{label} {way}", made, state.branches)
+            for e, r in zip(epochs, rows):
+                pst, dst = e["per_sample_time"], e["per_sample_data_time"]
+                log(f"    epoch {e['epoch']}: {e['steps']} steps "
+                    f"{e['branches']}, {1 / pst:.1f} clips/s "
+                    f"(per_sample_time {1e3 * pst:.2f} ms), data share "
+                    f"{100 * dst / pst:.1f}%; train loss "
+                    f"{float(r['train_loss']):.4f}, val loss "
+                    f"{float(r['val_loss']):.4f}, mAP {float(r['mAP']):.4f}, "
+                    f"mAUC {float(r['mAUC']):.4f}; validation "
+                    f"{1e3 * e['eval_s'] / e['eval_batches']:.1f} ms a "
+                    f"10-frame batch x{e['eval_batches']}")
+            runs[way] = dict(
+                wall_s=wall, peak_gib=peak, rows=rows, epochs=epochs,
+                branches=dict(state.branches), launches=launches,
+                clips_per_s=[1 / e["per_sample_time"] for e in epochs],
+                params=digests(out["model"].named_parameters()))
+            del out, state
+        g, e = runs["graphed"], runs["eager"]
+        rel = max(abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])),
+                                                       1e-30)
+                  for a, b in zip(g["rows"], e["rows"], strict=True)
+                  for k in b if k != "epoch")
+        n_params = sum(g["params"][k] == v for k, v in e["params"].items())
+        log(f"  {label}: the graphed run's result.csv within {rel:.2e} of "
+            f"the eager run's (<= {AS_TOL}), {n_params} of "
+            f"{len(e['params'])} parameters the same bits; clips/s graphed "
+            + ", ".join(f"{x:.1f}" for x in g["clips_per_s"]) + ", eager "
+            + ", ".join(f"{x:.1f}" for x in e["clips_per_s"]))
+        if not rel <= AS_TOL:
+            raise AssertionError(f"{label}: the graphed run's result.csv "
+                                 f"differs from the eager run's by {rel}")
+        report.setdefault("steps", {})[label] = dict(
+            batch=AS_BATCH, graphed=g, eager=e, rows_rel=rel,
+            params_equal=n_params)
+        if keep is not None:
+            keep.update(rows=g["rows"], params=g["params"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return runs["graphed"]["launches"]
+
+
 # ------------------------------------------------- data-parallel phase
 DP1_STEPS = 3      # graphed steps held bit for bit against one process's
-DP1_TIMED = 5      # more replays, timed
+DP1_TIMED = 3      # more replays, timed
 DP1_TIMEOUT = 420  # seconds for the launcher and its worker
 
 
@@ -2712,8 +3274,10 @@ def dp1_worker(out_path: str, seed: int) -> int:
     process group, the collectives in the graph, ``DP1_STEPS`` steps from
     ``compare_eager_graphed``'s seed, state, batch and draws, then
     ``DP1_TIMED`` timed replays and one profiled; (b) the pretrain runner
-    on CLI64's (a) command line. Writes the digests, metrics, rows,
-    timings and launch counts to ``out_path`` as JSON."""
+    on CLI64's (a) command line; (c) the finetune runner, graphed, on
+    AS20K's cut command line (``as20k_argv``, the same clips and
+    CLI64's parameters). Writes the digests, metrics, rows, timings and
+    launch counts to ``out_path`` as JSON."""
     import csv
     import shutil
     import tempfile
@@ -2721,7 +3285,7 @@ def dp1_worker(out_path: str, seed: int) -> int:
 
     from avsiam_tpu_torch import kernels
     from avsiam_tpu_torch.cli import pretrain as cli
-    from avsiam_tpu_torch.configs import PretrainConfig
+    from avsiam_tpu_torch.configs import FinetuneConfig, PretrainConfig
     from avsiam_tpu_torch.parallel import dist as pdist
     from avsiam_tpu_torch.train.pretrain import (init_state,
                                                  make_graphed_pretrain_step)
@@ -2797,13 +3361,32 @@ def dp1_worker(out_path: str, seed: int) -> int:
         del run
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    tmp = Path(tempfile.mkdtemp(dir=root))
+    try:
+        exp = tmp / "exp"
+        run, wall, launches_c, _, made = run_as20k_cli(exp, as20k_argv(
+            tmp, exp, kernels.BUILD_DIR.parent / "chip_smoke_pretrain_params"),
+            True)
+        want = ft_run_launches(run, FinetuneConfig(
+            model=run["state"].model.cfg), AS_BATCH)
+        if launches_c != want:
+            raise AssertionError(f"DP1 (c): launches {launches_c} != {want}")
+        out.update(ft_rows=ft_rows(exp), ft_params=digests(
+            run["model"].named_parameters()), ft_runner_s=wall,
+            launches_c=launches_c, ft_branches=dict(run["state"].branches),
+            ft_graphs=sorted(made["step"][0].graphs))
+        del run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     with open(out_path, "w") as f:
         json.dump(out, f, default=str)
     torch.distributed.destroy_process_group()
     return 0
 
 
-def run_dp1(label, seed, report, ref_steps, ref_cli):
+def run_dp1(label, seed, report, ref_steps, ref_cli, ref_ft):
     """Phase DP1: ``chip_smoke.py --dp1-worker`` launched through
     ``python -m torch.distributed.run --standalone --nproc_per_node=1`` (one
     rank, NCCL; the card's host has one card, and NCCL takes one rank a
@@ -2813,8 +3396,10 @@ def run_dp1(label, seed, report, ref_steps, ref_cli):
     bits (a mean over one rank and a gather of one are exact); the steady
     replay, the NCCL kernels' device time in a profiled replay, K1-K3's
     launches. (b) against ``ref_cli``, CLI64's run (a): ``result.csv`` and
-    every parameter the same bits; the files rank 0 wrote. Returns the
-    worker's launch counts, (a)'s and (b)'s summed."""
+    every parameter the same bits; the files rank 0 wrote. (c) against
+    ``ref_ft``, AS20K's graphed run: ``result.csv`` (but its timing
+    columns) and every parameter the same bits. Returns the worker's
+    launch counts, (a)'s, (b)'s and (c)'s summed."""
     import signal
     from pathlib import Path
     root = Path(__file__).resolve().parent
@@ -2826,7 +3411,8 @@ def run_dp1(label, seed, report, ref_steps, ref_cli):
     log(f"phase {label}: {' '.join(cmd[1:])}: (a) P64's graphed step with "
         f"its collectives over one NCCL rank, {DP1_STEPS} steps against the "
         f"single-process graphed run, {DP1_TIMED} replays timed; (b) the "
-        f"pretrain runner on CLI64 (a)'s command line")
+        f"pretrain runner on CLI64 (a)'s command line; (c) the finetune "
+        f"runner on AS20K's")
     env = dict(os.environ)
     env.pop("AVSIAM_PLATFORM", None)
     # torchrun would set 1 thread where the variable is unset
@@ -2844,7 +3430,7 @@ def run_dp1(label, seed, report, ref_steps, ref_cli):
     wall = time.time() - t0
     for line in text.splitlines():
         if line.startswith(("  ", "phase", "Epoch", "Eval", "mesh", "pretrain",
-                            "resumed")):
+                            "resumed", "FT", "finetune")):
             log(f"  | {line}")
     if proc.returncode != 0:
         raise AssertionError(f"{label}: the worker exited "
@@ -2860,8 +3446,13 @@ def run_dp1(label, seed, report, ref_steps, ref_cli):
     if got["rows"] != ref_cli["rows"]:
         raise AssertionError(f"{label} (b): result.csv {got['rows']} != "
                              f"{ref_cli['rows']}")
+    n_ft = same_bits(f"{label} (c) params", got["ft_params"],
+                     ref_ft["params"])
+    if got["ft_rows"] != ref_ft["rows"]:
+        raise AssertionError(f"{label} (c): result.csv {got['ft_rows']} != "
+                             f"{ref_ft['rows']}")
     launches = {k: got["launches_a"][k] + got["launches_b"][k]
-                for k in got["launches_a"]}
+                + got["launches_c"][k] for k in got["launches_a"]}
     nccl = got["nccl_ms"]
     log(f"  {label} (a): {n_state} tensors and "
         f"{DP1_STEPS * len(got['metrics'][0])} metrics equal bit for bit to "
@@ -2878,8 +3469,15 @@ def run_dp1(label, seed, report, ref_steps, ref_cli):
         f"wrote {got['files']}; launches "
         + ", ".join(f"{k} {n}" for k, n in got["launches_b"].items() if n)
         + " as expected")
+    log(f"  {label} (c): the finetune runner, graphed (branch graphs "
+        f"{got['ft_graphs']}, branches {got['ft_branches']}), in "
+        f"{got['ft_runner_s']:.1f} s; result.csv and {n_ft} parameters equal "
+        f"bit for bit to AS20K's graphed run; launches "
+        + ", ".join(f"{k} {n}" for k, n in got["launches_c"].items() if n)
+        + " as expected")
     log(f"  {label}: {wall:.1f} s with the launcher")
     report.setdefault("steps", {})[label] = dict(
+        ft_runner_s=got["ft_runner_s"], ft_params_equal=n_ft,
         batch=64, wall_s=wall, graphed_steady_ms=got["steady_ms"],
         nccl_ms=nccl, nccl_calls=got["nccl_calls"], busy_ms=got["busy_ms"],
         state_tensors=n_state,

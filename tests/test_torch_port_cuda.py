@@ -1189,15 +1189,17 @@ def test_graphed_step_captures_while_another_thread_copies(gen):
     assert step.graph is not None
 
 
-def _ft_config(dtype=torch.bfloat16, **impls):
+def _ft_config(dtype=torch.bfloat16, depth=2, parity_optimizer=True,
+               **impls):
     """The finetune model at ViT-B width, depth 2, 309 classes (the
     VGGSound recipe's), batch 2, 'mm_grad'."""
     from avsiam_tpu_torch.configs import (CAVMAEFTConfig, FinetuneConfig,
                                           ViTConfig)
     return FinetuneConfig(
-        model=CAVMAEFTConfig(vit=ViTConfig(depth=2), label_dim=309,
+        model=CAVMAEFTConfig(vit=ViTConfig(depth=depth), label_dim=309,
                              num_eval_frames=2, dtype=dtype, **impls),
-        batch_size=2, loss="CE", ftmode="mm_grad")
+        batch_size=2, loss="CE", ftmode="mm_grad",
+        parity_optimizer=parity_optimizer)
 
 
 @pytest.mark.parametrize("impls,u,per_call", [
@@ -1373,3 +1375,196 @@ def test_device_memory_stats_on_the_card(gen):
     assert (stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
             <= stats["bytes_limit"])
     assert stats["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+
+
+# each branch three times: warm-up, capture (and its replay), replay
+_FT_SEQUENCE = (0.9,) * 3 + (0.1,) * 3 + (0.4,) * 3
+
+
+def _ft_batch(gen, batch=2, frames=1):
+    return (torch.randn((batch, 1024, 128), generator=gen, device="cuda"),
+            torch.randn((batch, frames, 3, 224, 224), generator=gen,
+                        device="cuda"),
+            torch.softmax(torch.randn((batch, 309), generator=gen,
+                                      device="cuda"), dim=-1))
+
+
+def _adam_tensors(state):
+    """{(name, key): tensor} of every Adam moment and step count."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {(names[id(p)], k): st[k] for p, st in state.opt.state.items()
+            for k in ("exp_avg", "exp_avg_sq", "step")}
+
+
+@pytest.mark.parametrize("parity", [True, False], ids=["gated", "plain"])
+def test_graphed_finetune_step_matches_the_eager_step(gen, parity):
+    """Depth-1 'mm_grad' steps as CUDA graphs, one a branch (each branch
+    warmed up, captured, replayed), against the eager step from the same
+    seed, draws and rates: every loss, parameter, Adam moment and
+    per-parameter step count the same bits (under the parity optimizer a
+    parameter's count advances only in the branches that reach it), each
+    call's launch counts the eager call's, and a batch of another shape
+    refused."""
+    from avsiam_tpu_torch.train import finetune as ft
+    cfg = _ft_config(depth=1, parity_optimizer=parity)
+    runs = []
+    for graphed in (False, True):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        state = ft.init_state(cfg, g)
+        batch = _ft_batch(g)
+        step = (ft.make_graphed_finetune_step(cfg) if graphed
+                else ft.make_finetune_step(cfg))
+        losses, launches = [], []
+        for i, u in enumerate(_FT_SEQUENCE):
+            kernels.reset_launches()
+            state, m = step(state, batch, 1e-4 * 0.9 ** i, u)
+            torch.cuda.synchronize()
+            losses.append(m["loss"])
+            launches.append(dict(kernels.LAUNCHES))
+        runs.append((state, losses, launches, step))
+    (se, le, ne, _), (sg, lg, ng, step) = runs
+    assert ng == ne and sum(ne[0].values()) > 0
+    for e, g_ in zip(le, lg):
+        assert math.isfinite(float(g_)) and torch.equal(g_, e)
+    for (name, pe), pg in zip(se.model.named_parameters(),
+                              sg.model.parameters()):
+        assert torch.equal(pg, pe), name
+    ae, ag = _adam_tensors(se), _adam_tensors(sg)
+    assert ae.keys() == ag.keys()
+    for k, t in ae.items():
+        assert torch.equal(ag[k], t), k
+    counts = {n: int(t) for (n, k), t in ag.items() if k == "step"}
+    # gated: 3 for a head or the fusion layers, 6 for one modality's
+    # route, 9 for the shared trunk
+    assert set(counts.values()) == ({3, 6, 9} if parity else {9})
+    assert sorted(step.graphs) == sorted(ft.BRANCHES)
+    assert sg.branches == se.branches == dict.fromkeys(ft.BRANCHES, 3)
+    a, v, y = batch
+    with pytest.raises(ValueError, match="captured for"):
+        step(sg, (a[:1], v[:1], y[:1]), 1e-4, 0.9)
+
+
+def test_finetune_graphs_share_one_pool(gen):
+    """The three branches' graphs at depth 2, batch 8 sit in one memory
+    pool, which holds no more than 1.3 times what it held with the first
+    graph alone (three pools would hold about twice)."""
+    from avsiam_tpu_torch.train import finetune as ft
+    from avsiam_tpu_torch.train import graphs
+    cfg = _ft_config()
+    state = ft.init_state(cfg, gen)
+    batch = _ft_batch(gen, batch=8)
+    step = ft.make_graphed_finetune_step(cfg)
+    held = []
+    for i, u in enumerate((0.9, 0.9, 0.1, 0.1, 0.4, 0.4)):
+        state, m = step(state, batch, 1e-4, u)
+        if i in (1, 5):
+            torch.cuda.synchronize()
+            held.append((step.pool, graphs.pool_bytes(step.pool)))
+    assert math.isfinite(float(m["loss"]))
+    assert held[0][0] is not None and held[0][0] == held[1][0]
+    one, three = held[0][1], held[1][1]
+    assert 0 < one and three <= 1.3 * one, (one, three)
+
+
+_FT_CAPTURE_ERROR = """
+import sys, torch
+sys.path.insert(0, {tests!r})
+from test_torch_port_cuda import _ft_batch, _ft_config
+from avsiam_tpu_torch.train import finetune as ft
+gen = torch.Generator(device="cuda").manual_seed(0)
+cfg = _ft_config(depth=1)
+state = ft.init_state(cfg, gen)
+batch = _ft_batch(gen)
+step = ft.make_graphed_finetune_step(cfg)
+state, _ = step(state, batch, 1e-4, 0.9)  # the branch's warm-up, eager
+body = ft.finetune_step_body
+
+
+def syncing_body(*args):
+    loss = body(*args)
+    float(loss)  # a host sync, as a check might make
+    return loss
+
+
+ft.finetune_step_body = syncing_body
+before = state.step
+params = [p.detach().clone() for p in state.model.parameters()]
+for expected, u in (("capturing the finetune step", 0.9),
+                    ("failed to capture", 0.9), ("failed to capture", 0.1)):
+    try:
+        step(state, batch, 1e-4, u)
+    except RuntimeError as err:
+        assert expected in str(err), err
+    else:
+        raise AssertionError("no error: " + expected)
+assert state.step == before and state.branches["av"] == 1
+assert all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                             params))
+print("raised three times")
+"""
+
+
+def test_graphed_finetune_step_raises_on_a_capture_error(gen):
+    """A host sync inside the captured body fails the branch's capture: the
+    call raises, and so does every later one, in that branch or another,
+    with no eager step in its place (the step count, the branch counts and
+    the parameters stay as they were). In a process of its own."""
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c", _FT_CAPTURE_ERROR.format(tests=tests)],
+        cwd=os.path.dirname(tests), capture_output=True, text=True,
+        timeout=600)
+    assert run.returncode == 0 and "raised three times" in run.stdout, (
+        run.stdout[-2000:] + run.stderr[-4000:])
+
+
+def test_graphed_forwards_match_their_eager_forms(gen):
+    """At depth 1: the finetune eval forward (2 clips x 2 frames), the
+    pretrain eval forward and the retrieval forward, each graphed (a
+    warm-up, then one graph per batch shape, a partial batch last) against
+    its eager form on the same inputs and draws: the same bits and the
+    same launch counts, call by call."""
+    from avsiam_tpu_torch.cli.retrieval import retrieval_features
+    from avsiam_tpu_torch.models.cavmae_ft import CAVMAEFinetune
+    from avsiam_tpu_torch.train import finetune as ft
+    from avsiam_tpu_torch.train import graphs
+    from avsiam_tpu_torch.train import pretrain as ppre
+    fcfg = _ft_config(depth=1)
+    fmodel = CAVMAEFinetune(fcfg.model, "cuda", gen)
+    pcfg = _depth1_config()
+    pmodel = ppre.init_state(pcfg, gen).model
+    cases = {
+        "ft_eval": (ft.make_ft_eval_step(fcfg),
+                    ft.make_graphed_ft_eval_step(fcfg), fmodel),
+        "pretrain_eval": (ppre.make_eval_step(pcfg),
+                          ppre.make_graphed_eval_step(pcfg), pmodel),
+        "retrieval": (retrieval_features,
+                      graphs.GraphedForward(retrieval_features, "retrieval"),
+                      fmodel),
+    }
+    for name, (eager, graphed, model) in cases.items():
+        for i, n in enumerate((2, 2, 2, 1)):
+            if name == "ft_eval":
+                args = (_ft_batch(gen, n, frames=2),)
+            elif name == "pretrain_eval":
+                a, v = _depth1_batch(gen)
+                args = ((a[:n], v[:n]),)
+            else:
+                args = _ft_batch(gen, n)[:2]
+            outs = []
+            for fn in (eager, graphed):
+                kernels.reset_launches()
+                if name == "pretrain_eval":  # batch i's draws, each time
+                    args = (args[0], ppre.step_generator(None, i, "cuda"))
+                out = fn(model, *args)
+                torch.cuda.synchronize()
+                outs.append((graphs._tensors(out), dict(kernels.LAUNCHES)))
+            (te, le), (tg, lg) = outs
+            assert lg == le and sum(le.values()) > 0, name
+            assert len(te) == len(tg) and all(
+                torch.equal(x, y) for x, y in zip(te, tg)), (name, i)
+        fwd = getattr(graphed, "graphed", graphed)
+        assert len(fwd.graphs) == 2, name

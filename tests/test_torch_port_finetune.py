@@ -29,6 +29,12 @@ strict), and the inputs come from a seeded numpy stream.
   does not reach moved on their weight decay alone; the mode's train and
   eval outputs equal JAX's within 1e-5.
 - ``freeze_base``: the trunk stays bit for bit, the heads move as JAX's.
+- The graphed step's bookkeeping (``make_graphed_finetune_step``: each
+  branch's warm-up, capture and replays, stand-in graphs for the
+  captures, ``test_torch_port_graph_ft.py``) over nine 'mm_grad' steps on
+  JAX's draws, each branch taken at least three times, interleaved,
+  against JAX's gated step (XLA attention, dense MLP) with the bounds
+  above, step by step.
 - ``ft_touched`` and ``ft_group`` against JAX over every parameter name,
   and ``ft_touched`` against the parameters autograd reaches from each
   branch's loss.
@@ -455,3 +461,85 @@ def test_eval_step_runs_the_test_mode(jax_params):
     assert tuple(got.shape) == want.shape == (B, 1, CLASSES)
     assert not got.requires_grad
     assert rel(got, want) <= 1e-5
+
+
+# ------------------------------------------- the graphed step's bookkeeping
+GRAPHED_STEPS = 9
+
+
+def _keys_taking_each_branch(steps=GRAPHED_STEPS, times=3):
+    """A JAX key whose first ``steps`` routing draws take each branch at
+    least ``times`` times (so each is warmed up, captured and replayed),
+    and those draws."""
+    for seed in range(1000):
+        key = jax.random.PRNGKey(seed)
+        u = [float(jax.random.uniform(jax.random.fold_in(key, n)))
+             for n in range(steps)]
+        if all(sum(ft.route(x) == b for x in u) >= times
+               for b in ft.BRANCHES):
+            return key, u
+    raise AssertionError("no key takes every branch often enough")
+
+
+@pytest.fixture(scope="module")
+def graphed_run(jax_params):
+    """``GRAPHED_STEPS`` 'mm_grad' steps of JAX's gated step (XLA attention,
+    dense MLP) and of the port's graphed step with stand-in graphs
+    (``test_torch_port_graph_ft``), on JAX's draws."""
+    from test_torch_port_graph_ft import stand_in_graphs_on
+    jcfg, pcfg = ft_configs(kernels=False, parity_optimizer=True)
+    key, us = _keys_taking_each_branch()
+    jrun = _run_jax(jcfg, jax_params, GRAPHED_STEPS, key)
+    pstate = ft.init_state(pcfg, torch.Generator().manual_seed(0), "cpu")
+    pstate.model.load_state_dict(params_from_jax(jax_params), strict=True)
+    port = []
+    n_threads = torch.get_num_threads()
+    # many small tensor ops: one intra-op thread, so that on a loaded host
+    # idle threads' waits do not multiply each op's cost
+    torch.set_num_threads(1)
+    try:
+        with stand_in_graphs_on() as made:
+            step = ft.make_graphed_finetune_step(pcfg)
+            for s in range(GRAPHED_STEPS):
+                batch = tuple(map(torch.from_numpy, ft_batch(seed=10 + s)))
+                if s == 0:
+                    step.state, step.batch = pstate, tuple(
+                        x.clone() for x in batch)
+                pstate, pm = step(pstate, batch, LR, us[s])
+                port.append((float(pm["loss"]),
+                             {n: p.detach().clone()
+                              for n, p in pstate.model.named_parameters()},
+                             _port_adam(pstate.model, pstate.opt)))
+    finally:
+        torch.set_num_threads(n_threads)
+    return dict(jax=jrun, port=port, us=us, captures=list(made),
+                graphs=sorted(step.graphs), branches=dict(pstate.branches))
+
+
+def test_graphed_step_takes_one_graph_a_branch(graphed_run):
+    assert graphed_run["graphs"] == sorted(ft.BRANCHES)
+    assert graphed_run["captures"] == ["the finetune step"] * 3
+    assert graphed_run["branches"] == {
+        b: sum(ft.route(u) == b for u in graphed_run["us"])
+        for b in ft.BRANCHES}
+
+
+@pytest.mark.parametrize("s", range(GRAPHED_STEPS))
+def test_graphed_step_matches_gated_adam(jax_params, graphed_run, s):
+    """Step s of the graphed step's bookkeeping (each branch's warm-up,
+    capture and replays; ``make_graphed_finetune_step``) against JAX's
+    gated step on its own draws: the loss, every parameter, both moments
+    and every per-parameter step count, as the eager step is held."""
+    jloss, jstate = graphed_run["jax"][s]
+    ploss, params, adam = graphed_run["port"][s]
+    assert abs(ploss - jloss) <= 1e-5 * abs(jloss)
+    if s == 0:
+        jbefore, before = jax_params, params_from_jax(jax_params)
+    else:
+        jbefore = graphed_run["jax"][s - 1][1].params
+        before = graphed_run["port"][s - 1][1]
+    assert _check_params(jstate.params, params, jbefore, before) > 0
+    _check_moments(jstate.opt.mu, jstate.opt.nu, adam)
+    counts = params_from_jax(jax.device_get(jstate.opt.count))
+    assert {n: c for n, (_, _, c) in adam.items()} == {
+        n: int(c) for n, c in counts.items()}
