@@ -3,15 +3,17 @@ datasets, the args.json dump, the device.
 
 Counterpart of ``avsiam_tpu/cli/common.py``: ``add_common_args`` takes every
 flag name and default of the JAX package's, so the recipes' command lines
-parse unchanged. The JAX package's persistent XLA compile cache has no
-counterpart here. The device: ``AVSIAM_PLATFORM=cpu`` runs a runner on the
-CPU (the plain PyTorch versions of the kernels), the counterpart of
-``apply_platform_override``; without it the runner runs on the card
-(``device.resolve_device``, which raises where there is none). The mesh and
-process flags: ``mesh_from_args`` makes the process group (torchrun's
-environment or the JAX-named flags, ``parallel/dist.py``) and resolves the
-mesh against it (``parallel/mesh.py``): ``--mesh_model`` ranks a model
-replica (tensor parallelism), ``--mesh_data`` -1 or world / model replicas.
+parse unchanged; ``add_trace_arg`` adds the port's own ``--trace_dir`` to
+the pretrain and finetune runners. The JAX package's persistent XLA
+compile cache has no counterpart here. The device: ``AVSIAM_PLATFORM=cpu``
+runs a runner on the CPU (the plain PyTorch versions of the kernels), the
+counterpart of ``apply_platform_override``; without it the runner runs on
+the card (``device.resolve_device``, which raises where there is none).
+The mesh and process flags: ``mesh_from_args`` makes the process group
+(torchrun's environment or the JAX-named flags, ``parallel/dist.py``) and
+resolves the mesh against it (``parallel/mesh.py``): ``--mesh_model``
+ranks a model replica (tensor parallelism), ``--mesh_data`` -1 or world /
+model replicas.
 """
 
 from __future__ import annotations
@@ -124,6 +126,17 @@ def add_common_args(p: argparse.ArgumentParser, ft: bool = False):
         help="this process's id (RANK equivalent)")
     arg("--coordinator_address", type=str, default=None,
         help="host:port of process 0 (MASTER_ADDR:PORT equivalent)")
+    return p
+
+
+def add_trace_arg(p: argparse.ArgumentParser):
+    """``--trace_dir`` (or ``--trace-dir``), the port's one flag beyond the
+    JAX runners': where the loop writes a Chrome trace of three steps of
+    the first epoch (``train/loops.py``). None traces nothing."""
+    p.add_argument("--trace_dir", "--trace-dir", dest="trace_dir", type=str,
+                   default=None,
+                   help="write a Chrome trace of the first epoch's steps "
+                        "2-4 (the avsiam.* spans, the device) here")
     return p
 
 

@@ -30,6 +30,7 @@ import os
 import torch
 
 from avsiam_tpu_torch.cli.common import (add_common_args,
+                                         add_trace_arg,
                                          audio_config_from_args,
                                          balance_weights_from_args,
                                          dataset_from_args, dump_args,
@@ -46,6 +47,7 @@ from avsiam_tpu_torch.train.loops import run_finetune
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("avsiam-tpu-torch finetune")
     add_common_args(p, ft=True)
+    add_trace_arg(p)
     p.add_argument("--ftmode", type=str, default="mm_grad")
     p.add_argument("--ftmode_test", type=str, default=None)
     p.add_argument("--head_lr", type=float, default=50.0)
@@ -151,7 +153,8 @@ def main(argv=None):
                        resume=args.resume,
                        max_steps_per_epoch=args.max_steps_per_epoch,
                        # read now: the rank-0 print mesh_from_args set up
-                       log=print, device=device)
+                       log=print, device=device,
+                       trace_dir=args.trace_dir)
     print("finetune done:", {k: out.get(k) for k in ("best_epoch", "best")})
     if args.data_eval and not out.get("diverged"):
         # the held-out set with the best checkpoint (the reference's

@@ -29,6 +29,7 @@ import ast
 import torch
 
 from avsiam_tpu_torch.cli.common import (add_common_args,
+                                         add_trace_arg,
                                          audio_config_from_args,
                                          balance_weights_from_args,
                                          dataset_from_args, dump_args,
@@ -45,6 +46,7 @@ from avsiam_tpu_torch.train.loops import run_pretrain
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("avsiam-tpu-torch pretrain")
     add_common_args(p, ft=False)
+    add_trace_arg(p)
     p.add_argument("--contrast_loss_weight", type=float, default=0.01)
     p.add_argument("--mae_loss_weight", type=float, default=3.0)
     p.add_argument("--masking_ratio", type=float, default=0.75)
@@ -151,7 +153,8 @@ def main(argv=None):
                        balance_weights=weights, resume=args.resume,
                        max_steps_per_epoch=args.max_steps_per_epoch,
                        # read now: the rank-0 print mesh_from_args set up
-                       log=print, device=device)
+                       log=print, device=device,
+                       trace_dir=args.trace_dir)
     print("pretrain done:", {k: out[k] for k in ("best_epoch",)
                              if k in out})
     return out

@@ -24,6 +24,10 @@ the global batch: where mixup is on, the processes' raw batches are
 gathered in rank order, and each takes its partners from the gathered one.
 JAX gets this for free, its transform running on the global sharded
 array.
+
+Tracing (``utils/profiling.py``): each device transform is an
+``avsiam.data.transform`` span; the worker thread's host batch and pinned
+copy show in the consumer's ``avsiam.loop.data_wait`` span.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from avsiam_tpu_torch.ops.augment import TransformDraws, draw_transform
 from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.utils import profiling
 
 
 class Prefetcher:
@@ -177,26 +182,29 @@ def device_loader(dataset, index_batches, transform: Callable,
         host_batches(dataset, index_batches, seed, frames_per_sample,
                      position_batches),
         put=lambda host: DeviceBatch(host, device, stream))
+
+    def transformed(i, batch):
+        if not train:
+            return transform(*batch)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(batch_generator_seed(draw_seed, i))
+        b = batch[0].shape[0]
+        draws = draw_transform(dataset.audio_conf, b * world, gen)
+        if not pdist.active():
+            return transform(draws, *batch)
+        draws = TransformDraws(*(t[rank * b:(rank + 1) * b] for t in draws))
+        partners = None
+        if dataset.audio_conf.mixup > 0:
+            partners = tuple(g[draws.perm]
+                             for g in pdist.gather_batch(batch[:3]))
+        return transform(draws, *batch, partners=partners)
+
     try:
         for i, item in enumerate(it):
             batch = item.ready()
-            if not train:
-                yield transform(*batch)
-                continue
-            gen = torch.Generator(device=device)
-            gen.manual_seed(batch_generator_seed(draw_seed, i))
-            b = batch[0].shape[0]
-            draws = draw_transform(dataset.audio_conf, b * world, gen)
-            if not pdist.active():
-                yield transform(draws, *batch)
-                continue
-            draws = TransformDraws(*(t[rank * b:(rank + 1) * b]
-                                     for t in draws))
-            partners = None
-            if dataset.audio_conf.mixup > 0:
-                partners = tuple(g[draws.perm]
-                                 for g in pdist.gather_batch(batch[:3]))
-            yield transform(draws, *batch, partners=partners)
+            with profiling.annotate("avsiam.data.transform"):
+                out = transformed(i, batch)
+            yield out
     finally:
         # reached at the end and when the consumer breaks early: stops the
         # worker instead of leaving it blocked on a full queue

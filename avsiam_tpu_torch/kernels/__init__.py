@@ -8,9 +8,10 @@ by a hash of the sources and flags, so an edit rebuilds it) and loads it with
 ctypes. Nothing is built when a module is imported: the CPU tests import
 every module of the port and have no ``nvcc``.
 
-``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels. A CUDA graph's replay runs no wrapper:
+``LAUNCHES`` holds one plain integer per kernel wrapper of the step's work
+(the phase stamps of ``utils/profiling.py`` are not counted); a wrapper
+adds one where it launches its kernel and nowhere else, so a run can show
+that the main path went through the kernels. A CUDA graph's replay runs no wrapper:
 the graphed pretrain step keeps the counts its capture added and adds them
 again at each later replay (``add_launches``), so a count still reads
 launches per step.
@@ -34,7 +35,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "avsiam_tpu_torch"
 SOURCES = ("attention.cu", "attention_hm.cu", "layernorm.cu", "ln_mlp.cu",
-           "mlp.cu")
+           "mlp.cu", "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,6 +84,8 @@ _SIGNATURES = {
     # batch stride, row stride, dtype, scale, stream
     "avsiam_attn_hm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _I, _I, _L, _L, _I, _F, _P),
+    # out (uint64 slots), slot, stream: utils/profiling.py's phase marks
+    "avsiam_phase_stamp": (_P, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

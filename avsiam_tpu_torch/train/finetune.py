@@ -30,6 +30,15 @@ and captured into CUDA graphs and replayed, one graph a branch
 ``jax.jit(step)``); the eval forward likewise (``make_ft_eval_step``,
 ``make_graphed_ft_eval_step``).
 
+Tracing (``utils/profiling.py``): every step call is an ``avsiam.step``
+host span; the graphed step's also holds ``avsiam.step.inputs`` (the
+checks, the route, the batch copies, ``set_lr``), ``avsiam.step.attach``
+(``_attach``), ``avsiam.step.launch`` (the launch counts and the replay)
+and ``avsiam.step.outputs`` (the loss's clone). Each branch's graph holds
+the device marks ``start``, ``zero`` (the gradients zeroed), ``fwd`` (the
+loss included), ``bwd``, under a process group ``reduce``, and ``adam``,
+which ``phase_ms()`` reads.
+
 Under a process group (``parallel/dist.py``) the batch is this process's
 block of the global batch; u is drawn on the host and is the same on every
 process, so every process backpropagates the same loss and reaches the
@@ -59,6 +68,7 @@ from avsiam_tpu_torch.train import graphs
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import lr_tensor, multistep_lr_factor
 from avsiam_tpu_torch.train.pretrain import step_generator
+from avsiam_tpu_torch.utils import profiling
 
 GROUPS = ("base", "mlp", "mm")
 BRANCHES = ("av", "a", "v")
@@ -170,7 +180,9 @@ def step_branch(cfg: FinetuneConfig, step: int, u: Optional[float] = None
 
 def finetune_step_body(cfg: FinetuneConfig, state: FinetuneState,
                        a: torch.Tensor, v: torch.Tensor, y: torch.Tensor,
-                       branch: Optional[str] = None) -> torch.Tensor:
+                       branch: Optional[str] = None,
+                       marks: Optional[profiling.PhaseMarks] = None
+                       ) -> torch.Tensor:
     """The work of one step on the batch (a, v, y), the gradients as the
     caller left them: the forward, the loss of ``branch`` under 'mm_grad'
     (``cfg.ftmode``'s loss in every other mode) and its backward, a zero
@@ -178,15 +190,20 @@ def finetune_step_body(cfg: FinetuneConfig, state: FinetuneState,
     ``gated``, under a process group the means of the gradients and the
     loss over the data group, and Adam at the rates the groups' tensors
     hold. No host sync, so the graphed step can capture it. Returns the
-    loss, a device tensor."""
+    loss, a device tensor. ``marks``: the branch graph's ``PhaseMarks``,
+    marked after the loss, the backward, the means and Adam; None records
+    nothing."""
     model = state.model
     loss_fn = loss_fn_for(cfg)
+    mark = profiling.no_mark if marks is None else marks.mark
     if cfg.ftmode == "mm_grad":
         outs = dict(zip(BRANCHES, model(a, v, "mm_grad", False)))
         loss = loss_fn(outs[branch], y)
     else:
         loss = loss_fn(model(a, v, cfg.ftmode, False), y)
+    mark("fwd")
     loss.backward()
+    mark("bwd")
     if not gated(cfg):
         for p in model.parameters():
             if p.grad is None:
@@ -199,7 +216,9 @@ def finetune_step_body(cfg: FinetuneConfig, state: FinetuneState,
         pdist.all_reduce_mean_([p.grad for p in model.parameters()
                                 if p.grad is not None], group)
         pdist.all_reduce_mean_([loss], group)
+        mark("reduce")
     state.opt.step()
+    mark("adam")
     return loss
 
 
@@ -213,14 +232,15 @@ def make_finetune_step(cfg: FinetuneConfig):
     tensor (the global batch's under a process group)."""
 
     def step(state: FinetuneState, batch, lr, u: Optional[float] = None):
-        state.set_lr(lr, cfg)
-        state.model.zero_grad(set_to_none=True)
-        branch = step_branch(cfg, state.step, u)
-        loss = finetune_step_body(cfg, state, *batch, branch)
-        if branch is not None:
-            state.branches[branch] += 1
-        state.step += 1
-        return state, {"loss": loss}
+        with profiling.annotate("avsiam.step"):
+            state.set_lr(lr, cfg)
+            state.model.zero_grad(set_to_none=True)
+            branch = step_branch(cfg, state.step, u)
+            loss = finetune_step_body(cfg, state, *batch, branch)
+            if branch is not None:
+                state.branches[branch] += 1
+            state.step += 1
+            return state, {"loss": loss}
 
     return step
 
@@ -243,42 +263,61 @@ class _GraphedFinetuneStep(graphs.Captures):
         self.touched: Dict[Optional[str], List[bool]] = {}
         self.graphs: Dict[Optional[str], torch.cuda.CUDAGraph] = {}
         self.launches: Dict[Optional[str], Dict[str, int]] = {}
+        self.marks: Dict[Optional[str], profiling.PhaseMarks] = {}
 
     def __call__(self, state: FinetuneState, batch, lr,
                  u: Optional[float] = None):
+        with profiling.annotate("avsiam.step"):
+            return self._step(state, batch, lr, u)
+
+    def _step(self, state, batch, lr, u):
         self.refuse_after_failure()
         first = self.state is None
-        if first:
-            self._bind(state, batch)
-        elif state is not self.state:
-            raise ValueError("a graphed step runs only the state of its "
-                             "first call")
-        for x, s, name in zip(batch, self.batch,
-                              ("fbank", "frames", "labels")):
-            if (x.shape, x.dtype, x.device) != (s.shape, s.dtype, s.device):
-                raise ValueError(
-                    f"{name} {tuple(x.shape)} {x.dtype} on {x.device}: the "
-                    f"step is captured for {tuple(s.shape)} {s.dtype} on "
-                    f"{s.device}")
-        branch = step_branch(self.cfg, state.step, u)
-        if not first:
-            for s, x in zip(self.batch, batch):
-                s.copy_(x)
-        state.set_lr(lr, self.cfg)
+        with profiling.annotate("avsiam.step.inputs"):
+            if first:
+                self._bind(state, batch)
+            elif state is not self.state:
+                raise ValueError("a graphed step runs only the state of its "
+                                 "first call")
+            for x, s, name in zip(batch, self.batch,
+                                  ("fbank", "frames", "labels")):
+                if (x.shape, x.dtype, x.device) != (s.shape, s.dtype,
+                                                    s.device):
+                    raise ValueError(
+                        f"{name} {tuple(x.shape)} {x.dtype} on {x.device}: "
+                        f"the step is captured for {tuple(s.shape)} "
+                        f"{s.dtype} on {s.device}")
+            branch = step_branch(self.cfg, state.step, u)
+            if not first:
+                for s, x in zip(self.batch, batch):
+                    s.copy_(x)
+            state.set_lr(lr, self.cfg)
         if branch not in self.touched:
             loss = self._warm_up(branch)
         else:
-            if branch not in self.graphs:
+            captured = branch not in self.graphs
+            if captured:
                 self._capture(branch)  # its counts stand for this replay
             else:
-                self._attach(branch)
-                kernels.add_launches(self.launches[branch])
-            self.graphs[branch].replay()
-            loss = self.loss.clone()
+                with profiling.annotate("avsiam.step.attach"):
+                    self._attach(branch)
+            with profiling.annotate("avsiam.step.launch"):
+                if not captured:
+                    kernels.add_launches(self.launches[branch])
+                self.graphs[branch].replay()
+            with profiling.annotate("avsiam.step.outputs"):
+                loss = self.loss.clone()
         if branch is not None:
             state.branches[branch] += 1
         state.step += 1
         return state, {"loss": loss}
+
+    def phase_ms(self) -> Dict[str, Dict[str, float]]:
+        """{branch: {phase: device ms}} of each branch graph's last replay
+        (``profiling.PhaseMarks``); the one graph outside 'mm_grad' is
+        keyed 'step'."""
+        return {"step" if b is None else b: self.marks[b].ms()
+                for b in self.graphs}
 
     def _bind(self, state: FinetuneState, batch) -> None:
         """Take the state and static copies of the batch of the first
@@ -301,8 +340,9 @@ class _GraphedFinetuneStep(graphs.Captures):
         self.state = state
         self.batch = tuple(x.clone() for x in batch)
 
-    def _body(self, branch):
-        return finetune_step_body(self.cfg, self.state, *self.batch, branch)
+    def _body(self, branch, marks=None):
+        return finetune_step_body(self.cfg, self.state, *self.batch, branch,
+                                  marks)
 
     def _warm_up(self, branch) -> torch.Tensor:
         """The branch's first step: the body, eager, on a side stream, its
@@ -336,10 +376,13 @@ class _GraphedFinetuneStep(graphs.Captures):
             self.loss = torch.zeros((), dtype=torch.float32, device=device)
         live = [g for g, t in zip(self.grads, self.touched[branch]) if t]
         self._attach(branch)
+        marks = self.marks[branch] = profiling.PhaseMarks(device)
 
         def body():
+            marks.mark("start")
             torch._foreach_zero_(live)
-            self.loss.copy_(self._body(branch))
+            marks.mark("zero")
+            self.loss.copy_(self._body(branch, marks))
 
         self.graphs[branch], _, self.launches[branch] = self.capture(
             body, device)

@@ -16,7 +16,8 @@ pieces every graphed step and forward share:
 - ``Captures``: the capture itself, thread-local (a data loader's worker
   may copy to the card meanwhile), into one memory pool that a step's
   graphs and its forwards can share, with the kernel launches the capture
-  counted (a replay adds them to ``kernels.LAUNCHES``); after a failed
+  counted (a replay adds them to ``kernels.LAUNCHES``), each capture
+  counted with its host seconds in ``profiling.COUNTERS``; after a failed
   capture every later call raises, and nothing runs eagerly in its place;
 - ``GraphedForward``: a forward under ``torch.no_grad()`` bound to one
   model, one graph per input signature, as ``jax.jit`` keeps one program
@@ -31,12 +32,14 @@ other graph of the pool runs.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from avsiam_tpu_torch import kernels
 from avsiam_tpu_torch.parallel import dist as pdist
+from avsiam_tpu_torch.utils import profiling
 
 
 def available(device) -> bool:
@@ -120,15 +123,16 @@ def warm_up(fn: Callable, device):
     """``fn()`` run eagerly on a side stream, which the current stream then
     waits for; its output tensors are marked as used on the current
     stream."""
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        out = fn()
-    current.wait_stream(side)
-    for t in _tensors(out):
-        t.record_stream(current)
-    return out
+    with profiling.annotate("avsiam.graph.warm_up"):
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = fn()
+        current.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(current)
+        return out
 
 
 class Captures:
@@ -154,7 +158,18 @@ class Captures:
         eager blocks cached beside it released first: (the graph, ``fn``'s
         output, the kernel launches the capture counted). The graph has
         not run yet. A failed capture raises, then and at every later
-        call (``refuse_after_failure``)."""
+        call (``refuse_after_failure``). A capture that succeeds adds one
+        to ``profiling.COUNTERS['graph.captures']`` and its host seconds,
+        from the sync and ``empty_cache`` before it to the graph's
+        instantiation, to ``['graph.capture_s']``."""
+        with profiling.annotate("avsiam.graph.capture"):
+            t0 = time.perf_counter()
+            out = self._new_graph(fn, device)
+            profiling.COUNTERS["graph.captures"] += 1
+            profiling.COUNTERS["graph.capture_s"] += time.perf_counter() - t0
+            return out
+
+    def _new_graph(self, fn: Callable, device):
         if pdist.active():
             # the communicator must exist before a capture starts: its
             # creation cannot be captured
@@ -211,6 +226,10 @@ class GraphedForward(Captures):
             return self.fn(model, *inputs)
 
     def __call__(self, model: torch.nn.Module, *inputs):
+        with profiling.annotate("avsiam.forward"):
+            return self._call(model, inputs)
+
+    def _call(self, model: torch.nn.Module, inputs):
         self.refuse_after_failure()
         device = next(model.parameters()).device
         first = self.model is None

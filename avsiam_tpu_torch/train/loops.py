@@ -61,10 +61,22 @@ one process reads; validation and the linear probe run on the model
 group's exact collectives, once per data rank. The steps and forwards run
 eagerly there, and the runners log it (no graphed form holds the model
 group's collectives yet).
+
+Tracing (``utils/profiling.py``): each wait for the loader's next batch is
+an ``avsiam.loop.data_wait`` host span, each step an ``avsiam.loop.step``
+(the step's own ``avsiam.step`` inside), each validation an
+``avsiam.loop.eval`` and each checkpoint save an ``avsiam.loop.checkpoint``.
+With ``trace_dir`` the run's first epoch profiles its steps 2, 3 and 4
+(after the warm-up and the capture of step 0 and 1; a finetune branch
+first routed later is warmed up and captured later, and its spans say
+so) and writes their Chrome trace under ``trace_dir``. At the end of that
+epoch the loop logs ``profiling.COUNTERS``, the graph captures so far and
+their host seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -99,6 +111,7 @@ from avsiam_tpu_torch.utils.checkpoint import (average_checkpoints,
                                                save_params, save_train_state,
                                                train_state_epochs,
                                                transfer_pretrain_to_ft)
+from avsiam_tpu_torch.utils import profiling
 from avsiam_tpu_torch.utils.logging import MetricsLogger
 
 _METER_KEYS = ("loss", "loss_mae_a", "loss_mae_v", "loss_c")
@@ -197,6 +210,47 @@ def _epoch_loader(ds: AVDataset, cfg_batch: int, epoch: int, seed: int,
                          train=False)
 
 
+def _waited(loader):
+    """The loader's batches, each wait for the next one an
+    ``avsiam.loop.data_wait`` span."""
+    it = iter(loader)
+    while True:
+        with profiling.annotate("avsiam.loop.data_wait"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
+
+
+class _StepTrace:
+    """``trace_dir``'s profile of the first epoch's steps ``FIRST`` to
+    ``FIRST + STEPS - 1``, each with the wait for its batch: opened after
+    step ``FIRST - 1``, closed after the last of them or at the epoch's
+    end, whichever comes first. Nothing without ``trace_dir``."""
+
+    FIRST, STEPS = 2, 3
+
+    def __init__(self, trace_dir: Optional[str]):
+        self.dir = trace_dir
+        self.open = contextlib.ExitStack()
+
+    def stepped(self, i: int) -> None:
+        if self.dir is None:
+            return
+        if i == self.FIRST - 1:
+            self.open.enter_context(profiling.trace(self.dir))
+        elif i == self.FIRST + self.STEPS - 1:
+            self.open.close()
+
+    def epoch_end(self, log: Callable) -> None:
+        """Close the profile, and log the graph captures made so far."""
+        self.open.close()
+        self.dir = None
+        log("graph.captures {} graph.capture_s {:.3f}".format(
+            profiling.COUNTERS["graph.captures"],
+            profiling.COUNTERS["graph.capture_s"]))
+
+
 def _replicate(model: torch.nn.Module) -> None:
     """Under a process group, the first replica's parameters and buffers
     (data rank 0's, each model rank its shards) on every replica."""
@@ -218,11 +272,12 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                  balance_weights=None,
                  max_steps_per_epoch: Optional[int] = None,
                  resume: bool = False, log: Callable = print,
-                 device="cuda") -> Dict:
+                 device="cuda", trace_dir: Optional[str] = None) -> Dict:
     """Pretrain for ``cfg.n_epochs`` epochs on ``device`` (the card unless
     the caller passes 'cpu'). ``init_params``: a state_dict to start from
-    (a ``--resume`` restore still overrides it). Returns {"state",
-    "best_epoch", "rows", "model", "timing"}, or {"diverged": True,
+    (a ``--resume`` restore still overrides it). ``trace_dir``: where the
+    first epoch's profile of three steps goes (``_StepTrace``). Returns
+    {"state", "best_epoch", "rows", "model", "timing"}, or {"diverged": True,
     "epoch"} after a NaN; "timing" holds the restore's seconds and, per
     epoch, its steps, the meters' per-sample times, the seconds spent
     validating and its batches, and each checkpoint save's seconds. With
@@ -292,6 +347,7 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                   (*_METER_KEYS, "per_sample_time", "per_sample_data_time",
                    "per_sample_dnn_time")}
         global_step = state.step
+        trace = _StepTrace(trace_dir)
 
         for epoch in range(start_epoch, cfg.n_epochs + 1):
             for meter in meters.values():  # per-epoch reset (ref. :256-264)
@@ -321,14 +377,16 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
             end_time = time.time()
             n_steps = 0
             try:
-                for i, (a, v, _) in enumerate(loader):
+                for i, (a, v, _) in enumerate(_waited(loader)):
                     if max_steps_per_epoch and i >= max_steps_per_epoch:
                         break
                     data_t = time.time() - end_time
-                    state, metrics = step_fn(
-                        state, (a, v), pt.step_generator(cfg.seed, state.step,
-                                                         dev), lr)
-                    window.push(metrics, a.shape[0], data_t)
+                    with profiling.annotate("avsiam.loop.step"):
+                        state, metrics = step_fn(
+                            state, (a, v),
+                            pt.step_generator(cfg.seed, state.step, dev), lr)
+                        window.push(metrics, a.shape[0], data_t)
+                    trace.stepped(i)
                     n_steps += 1
                     if (global_step % cfg.n_print_steps == 0) or i == 0:
                         m = flush_window(window)
@@ -345,6 +403,8 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                     end_time = time.time()
             finally:
                 loader.close()
+                if epoch == start_epoch:
+                    trace.epoch_end(log)
             # tail flush: epoch meters (and result.csv below) cover EVERY step
             flush_window(window)
             if math.isnan(meters["loss"].avg):
@@ -365,9 +425,10 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
                     epoch % max(cfg.val_interval, 1) == 0
                     or epoch == cfg.n_epochs):
                 t0 = time.time()
-                ev = validate_pretrain(eval_fn, state.model, val_ds, cfg,
-                                       max_steps=max_steps_per_epoch,
-                                       device=dev)
+                with profiling.annotate("avsiam.loop.eval"):
+                    ev = validate_pretrain(eval_fn, state.model, val_ds, cfg,
+                                           max_steps=max_steps_per_epoch,
+                                           device=dev)
                 t_epoch.update(eval_s=time.time() - t0,
                                eval_batches=ev.pop("batches"))
                 row.update(ev)
@@ -417,10 +478,12 @@ def run_pretrain(cfg: PretrainConfig, train_ds: AVDataset,
 
 
 def _timed(saves: Dict[str, float], save, exp_dir: str, name: str, obj):
-    """``save(exp_dir, name, obj)``, its seconds kept under ``name``."""
-    t0 = time.time()
-    save(exp_dir, name, obj)
-    saves[name] = time.time() - t0
+    """``save(exp_dir, name, obj)``, its seconds kept under ``name``, an
+    ``avsiam.loop.checkpoint`` span."""
+    with profiling.annotate("avsiam.loop.checkpoint"):
+        t0 = time.time()
+        save(exp_dir, name, obj)
+        saves[name] = time.time() - t0
 
 
 def validate_pretrain(eval_fn, model, val_ds: AVDataset, cfg: PretrainConfig,
@@ -462,10 +525,12 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
                  balance_weights=None,
                  max_steps_per_epoch: Optional[int] = None, wa: bool = False,
                  wa_start: int = 1, wa_end: int = 5, resume: bool = False,
-                 log: Callable = print, device="cuda") -> Dict:
+                 log: Callable = print, device="cuda",
+                 trace_dir: Optional[str] = None) -> Dict:
     """Finetune for ``cfg.n_epochs`` epochs on ``device`` (the card unless
     the caller passes 'cpu'). ``init_params``: a state_dict to start from
-    (a ``--resume`` restore still overrides it). Returns {"state",
+    (a ``--resume`` restore still overrides it). ``trace_dir``: as
+    ``run_pretrain``'s. Returns {"state",
     "best_epoch", "best", "rows", "model", "timing"} and, with ``wa``,
     "wa_params", the average of the epochs' ``audio_model.{e}`` in
     [wa_start, min(wa_end, last epoch)]; or {"diverged": True, "epoch"}
@@ -536,6 +601,7 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
         meters = {k: AverageMeter() for k in
                   ("loss", "per_sample_time", "per_sample_data_time",
                    "per_sample_dnn_time")}
+        trace = _StepTrace(trace_dir)
 
         for epoch in range(start_epoch, cfg.n_epochs + 1):
             for meter in meters.values():  # per-epoch reset (reference)
@@ -565,14 +631,16 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
             end_time = time.time()
             n_steps = 0
             try:
-                for i, (a, v, y) in enumerate(loader):
+                for i, (a, v, y) in enumerate(_waited(loader)):
                     if max_steps_per_epoch and i >= max_steps_per_epoch:
                         break
                     data_t = time.time() - end_time
                     if v.dim() == 4:
                         v = v[:, None]
-                    state, metrics = step_fn(state, (a, v, y), lr)
-                    window.push(metrics, a.shape[0], data_t)
+                    with profiling.annotate("avsiam.loop.step"):
+                        state, metrics = step_fn(state, (a, v, y), lr)
+                        window.push(metrics, a.shape[0], data_t)
+                    trace.stepped(i)
                     n_steps += 1
                     if global_step % cfg.n_print_steps == 0:
                         m = flush_window(window)
@@ -586,6 +654,8 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
                     end_time = time.time()
             finally:
                 loader.close()
+                if epoch == start_epoch:
+                    trace.epoch_end(log)
             flush_window(window)  # tail: the epoch's meters cover every step
             if math.isnan(meters["loss"].avg):
                 log("training diverged...")
@@ -605,9 +675,10 @@ def run_finetune(cfg: FinetuneConfig, train_ds: AVDataset,
                        "eval_s": 0.0, "eval_batches": 0, "saves": saves}
             if val_ds is not None:
                 t0 = time.time()
-                stats, val_loss, n_eval = validate_ft(
-                    eval_fn, state.model, val_ds, cfg,
-                    max_steps=max_steps_per_epoch, device=dev)
+                with profiling.annotate("avsiam.loop.eval"):
+                    stats, val_loss, n_eval = validate_ft(
+                        eval_fn, state.model, val_ds, cfg,
+                        max_steps=max_steps_per_epoch, device=dev)
                 t_epoch.update(eval_s=time.time() - t0, eval_batches=n_eval)
                 mAP, mAUC = mean_ap(stats), mean_auc(stats)
                 acc = stats[0]["acc"]

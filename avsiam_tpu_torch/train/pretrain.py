@@ -25,6 +25,16 @@ two ways: eagerly (``make_eval_step``) and as CUDA graphs
 (``make_graphed_eval_step``, the counterpart of ``jax.jit(eval_step)``),
 its draws taken ahead from the caller's generator (``draw_eval_masks``).
 
+Tracing (``utils/profiling.py``): every step call is an ``avsiam.step``
+host span; the graphed step's also holds ``avsiam.step.inputs`` (the
+checks, the draws, the copies into the graph's inputs, the rate),
+``avsiam.step.launch`` (the launch counts and the replay) and
+``avsiam.step.outputs`` (the metrics' clones). Its graph holds the device
+marks ``start``, ``fwd.contrast``, ``bwd.contrast``, ``adam.contrast``,
+``fwd.mae``, ``bwd.mae`` and ``adam.mae`` (under a process group
+``reduce.contrast`` and ``reduce.mae`` before each Adam and
+``reduce.metrics`` after the last), which ``phase_ms()`` reads.
+
 Data parallelism (under a process group, ``parallel/dist.py``): each
 process holds the whole model and its block of the global batch. Every
 process draws the global batch's masks from the same generator and its
@@ -63,6 +73,7 @@ from avsiam_tpu_torch.train import graphs
 from avsiam_tpu_torch.train import param_groups as pg
 from avsiam_tpu_torch.train.optim import (lr_tensor, masked_torch_adam,
                                           multistep_lr_factor)
+from avsiam_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -124,9 +135,10 @@ def process_block(draws: Tuple[MaskDraws, MaskDraws], batch: int
 MAE_METRICS = ("loss", "loss_mae", "loss_mae_a", "loss_mae_v")
 
 
-def _apply(opt: torch.optim.Adam, reduce: bool = False) -> None:
+def _apply(opt: torch.optim.Adam, reduce: bool = False,
+           mark=profiling.no_mark, tag: str = "") -> None:
     """``opt``'s step, its touched parameters' gradients averaged over the
-    data group first where ``reduce``."""
+    data group first where ``reduce`` (then marked ``reduce.<tag>``)."""
     grads = []
     for group in opt.param_groups:
         for p in group["params"]:
@@ -135,32 +147,43 @@ def _apply(opt: torch.optim.Adam, reduce: bool = False) -> None:
             grads.append(p.grad)
     if reduce:
         pdist.all_reduce_mean_(grads, pdist.data_group())
+        mark("reduce." + tag)
     opt.step()
 
 
 def pretrain_step_body(cfg: PretrainConfig, state: PretrainState,
                        a: torch.Tensor, v: torch.Tensor, draws1: MaskDraws,
-                       draws2: MaskDraws) -> Dict[str, torch.Tensor]:
+                       draws2: MaskDraws,
+                       marks: Optional[profiling.PhaseMarks] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Both passes on the batch (a, v) with their draws, each Adam at the
     rate ``state.lr`` holds: the work of one step, with no host sync, which
     the graphed step captures. Returns the metrics as device tensors. Under
     a process group (a and v this process's block of the batch, the draws
     the global batch's with that block) the gradients are averaged over the
-    processes before each Adam, and the metrics are the global batch's."""
+    processes before each Adam, and the metrics are the global batch's.
+    ``marks``: the graphed step's ``PhaseMarks``, marked after each pass's
+    forward, backward, gradient mean and Adam; None records nothing."""
     model = state.model
     dp = pdist.active()
+    mark = profiling.no_mark if marks is None else marks.mark
+    mark("start")
 
-    def run_pass(opt, mae_w, contrast_w, d):
+    def run_pass(opt, mae_w, contrast_w, d, tag):
         model.zero_grad(set_to_none=True)
         out = model(a, v, cfg.masking_ratio_a, cfg.masking_ratio,
                     mae_loss_weight=mae_w, contrast_loss_weight=contrast_w,
                     mask_mode=cfg.mask_mode, draws=d)
+        mark("fwd." + tag)
         out[0].backward()
-        _apply(opt, dp)
+        mark("bwd." + tag)
+        _apply(opt, dp, mark, tag)
+        mark("adam." + tag)
         return out
 
-    out1 = run_pass(state.opt1, 0.0, 1.0, draws1)  # contrastive only
-    out2 = run_pass(state.opt2, 1.0, 0.0, draws2)  # MAE only, updated params
+    # contrastive only, then MAE only on the updated parameters
+    out1 = run_pass(state.opt1, 0.0, 1.0, draws1, "contrast")
+    out2 = run_pass(state.opt2, 1.0, 0.0, draws2, "mae")
     metrics = {
         "loss": out2[0].detach(),  # the reference's meters track pass 2
         "loss_c": out1[4].detach(),
@@ -178,6 +201,7 @@ def pretrain_step_body(cfg: PretrainConfig, state: PretrainState,
         # gradient mean above. loss_c and c_acc are the global batch's
         mae = torch.stack([metrics[k] for k in MAE_METRICS])
         pdist.all_reduce_mean_([mae], pdist.data_group())
+        mark("reduce.metrics")
         metrics.update(zip(MAE_METRICS, mae.unbind()))
     return metrics
 
@@ -193,15 +217,17 @@ def make_pretrain_step(cfg: PretrainConfig):
 
     def step(state: PretrainState, batch, generator: Optional[torch.Generator],
              lr, draws: Optional[Tuple[MaskDraws, MaskDraws]] = None):
-        a, v = batch
-        if draws is None:
-            draws = draw_step_masks(cfg.model, a.shape[0] * pdist.data_size(),
-                                    generator, a.device)
-        draws = process_block(draws, a.shape[0])
-        state.lr.fill_(lr)
-        metrics = pretrain_step_body(cfg, state, a, v, *draws)
-        state.step += 1
-        return state, metrics
+        with profiling.annotate("avsiam.step"):
+            a, v = batch
+            if draws is None:
+                draws = draw_step_masks(cfg.model,
+                                        a.shape[0] * pdist.data_size(),
+                                        generator, a.device)
+            draws = process_block(draws, a.shape[0])
+            state.lr.fill_(lr)
+            metrics = pretrain_step_body(cfg, state, a, v, *draws)
+            state.step += 1
+            return state, metrics
 
     return step
 
@@ -219,45 +245,63 @@ class _GraphedPretrainStep(graphs.Captures):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.metrics: Dict[str, torch.Tensor] = {}
         self.launches: Dict[str, int] = {}  # the kernels one replay launches
+        # the graph's device phases, on the card of the first call
+        self.marks = profiling.PhaseMarks()
 
     def __call__(self, state: PretrainState, batch,
                  generator: Optional[torch.Generator], lr,
                  draws: Optional[Tuple[MaskDraws, MaskDraws]] = None):
+        with profiling.annotate("avsiam.step"):
+            return self._step(state, batch, generator, lr, draws)
+
+    def _step(self, state, batch, generator, lr, draws):
         self.refuse_after_failure()
         first = self.state is None
-        if first:
-            self._bind(state, batch)
-        elif state is not self.state:
-            raise ValueError("a graphed step runs only the state of its "
-                             "first call")
-        for x, s, name in zip(batch, (self.a, self.v), ("fbank", "frames")):
-            if (x.shape, x.dtype, x.device) != (s.shape, s.dtype, s.device):
-                raise ValueError(
-                    f"{name} {tuple(x.shape)} {x.dtype} on {x.device}: the "
-                    f"step is captured for {tuple(s.shape)} {s.dtype} on "
-                    f"{s.device}")
-        d1, d2 = process_block(draws if draws is not None else draw_step_masks(
-            self.cfg.model, self.a.shape[0] * pdist.data_size(), generator,
-            self.a.device), self.a.shape[0])
-        if first:
-            self.draws = (d1.map(torch.clone), d2.map(torch.clone))
-        else:
-            self.draws[0].copy_(d1)
-            self.draws[1].copy_(d2)
-            self.a.copy_(batch[0])
-            self.v.copy_(batch[1])
-        state.lr.fill_(lr)
+        with profiling.annotate("avsiam.step.inputs"):
+            if first:
+                self._bind(state, batch)
+            elif state is not self.state:
+                raise ValueError("a graphed step runs only the state of its "
+                                 "first call")
+            for x, s, name in zip(batch, (self.a, self.v),
+                                  ("fbank", "frames")):
+                if (x.shape, x.dtype, x.device) != (s.shape, s.dtype,
+                                                    s.device):
+                    raise ValueError(
+                        f"{name} {tuple(x.shape)} {x.dtype} on {x.device}: "
+                        f"the step is captured for {tuple(s.shape)} "
+                        f"{s.dtype} on {s.device}")
+            d1, d2 = process_block(
+                draws if draws is not None else draw_step_masks(
+                    self.cfg.model, self.a.shape[0] * pdist.data_size(),
+                    generator, self.a.device), self.a.shape[0])
+            if first:
+                self.draws = (d1.map(torch.clone), d2.map(torch.clone))
+            else:
+                self.draws[0].copy_(d1)
+                self.draws[1].copy_(d2)
+                self.a.copy_(batch[0])
+                self.v.copy_(batch[1])
+            state.lr.fill_(lr)
         if first:
             metrics = graphs.warm_up(self._body, self.a.device)
         else:
-            if self.graph is None:
+            captured = self.graph is None
+            if captured:
                 self._capture()  # its launch counts stand for this replay
-            else:
-                kernels.add_launches(self.launches)
-            self.graph.replay()
+            with profiling.annotate("avsiam.step.launch"):
+                if not captured:
+                    kernels.add_launches(self.launches)
+                self.graph.replay()
             metrics = self.metrics
         state.step += 1
-        return state, {k: t.clone() for k, t in metrics.items()}
+        with profiling.annotate("avsiam.step.outputs"):
+            return state, {k: t.clone() for k, t in metrics.items()}
+
+    def phase_ms(self) -> Dict[str, Dict[str, float]]:
+        """{'step': {phase: device ms}} of the graph's last replay
+        (``profiling.PhaseMarks``), once captured; else {}."""
+        return {"step": self.marks.ms()} if self.graph is not None else {}
 
     def _bind(self, state: PretrainState, batch) -> None:
         """Take the state and static copies of the batch of the first
@@ -285,10 +329,11 @@ class _GraphedPretrainStep(graphs.Captures):
                 f"hold; 'padded' has one shape (the eager step takes every "
                 f"form)")
         self.state, self.a, self.v = state, a.clone(), v.clone()
+        self.marks = profiling.PhaseMarks(device)
 
     def _body(self):
         return pretrain_step_body(self.cfg, self.state, self.a, self.v,
-                                  *self.draws)
+                                  *self.draws, self.marks)
 
     def _capture(self):
         """Capture the body once into the graph and keep the kernel

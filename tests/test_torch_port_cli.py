@@ -295,8 +295,11 @@ def _flags(parser):
 
 def test_parser_matches_jax():
     """Every flag of the JAX runner, under the same names, dest and
+    default, and beside them the port's own ``--trace_dir``, off by
     default."""
-    assert _flags(cli.build_parser()) == _flags(jax_build_parser())
+    ours = _flags(cli.build_parser())
+    assert ours.pop("trace_dir") == (None, ["--trace-dir", "--trace_dir"])
+    assert ours == _flags(jax_build_parser())
 
 
 def _recipe_argv():
@@ -316,6 +319,7 @@ def test_recipe_command_line_parses_as_in_jax():
     words = _recipe_argv()
     ours, theirs = (vars(p.parse_args(words)) for p in
                     (cli.build_parser(), jax_build_parser()))
+    assert ours.pop("trace_dir") is None  # the port's own flag, off
     assert ours == theirs
     assert (ours["batch_size"], ours["lr"], ours["mae_loss_weight"],
             ours["masking_ratio_a"], ours["noise"], ours["data_val"]) == (

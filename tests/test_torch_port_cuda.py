@@ -12,6 +12,7 @@ bf16 path; the plain version runs in float32 on the same input values.
 """
 
 import math
+import time
 
 import pytest
 import torch
@@ -1568,3 +1569,139 @@ def test_graphed_forwards_match_their_eager_forms(gen):
                 torch.equal(x, y) for x, y in zip(te, tg)), (name, i)
         fwd = getattr(graphed, "graphed", graphed)
         assert len(fwd.graphs) == 2, name
+
+
+# ------------------------------------------------ tracing (profiling.py)
+_PRETRAIN_PHASES = ["fwd.contrast", "bwd.contrast", "adam.contrast",
+                    "fwd.mae", "bwd.mae", "adam.mae"]
+_FT_PHASES = ["zero", "fwd", "bwd", "adam"]
+
+
+def _tiny_graphed(kind, gen, batch=4):
+    """A graphed step at the tiny preset in float32, its state and a call
+    ``step(u)`` (u routes a finetune step; a pretrain step ignores it)."""
+    from avsiam_tpu_torch import configs as pc
+    from avsiam_tpu_torch.models import variants
+    from avsiam_tpu_torch.train import finetune as ft
+    from avsiam_tpu_torch.train import pretrain as ppre
+    vit = variants.vit_config("tiny")
+    a = torch.randn((batch, vit.audio_length, vit.mel_bins), generator=gen,
+                    device="cuda")
+    v = torch.randn((batch, 3, vit.img_size, vit.img_size), generator=gen,
+                    device="cuda")
+    if kind == "pretrain":
+        cfg = pc.PretrainConfig(model=variants.pretrain_config(
+            "tiny", dtype=torch.float32), batch_size=batch)
+        state = ppre.init_state(cfg, gen)
+        graphed = ppre.make_graphed_pretrain_step(cfg)
+        return graphed, lambda u: graphed(state, (a, v), gen, 1e-4)
+    cfg = pc.FinetuneConfig(model=variants.finetune_config(
+        "tiny", label_dim=5, dtype=torch.float32), batch_size=batch,
+        loss="CE", ftmode="mm_grad")
+    state = ft.init_state(cfg, gen)
+    y = torch.softmax(torch.randn((batch, 5), generator=gen, device="cuda"),
+                      dim=-1)
+    graphed = ft.make_graphed_finetune_step(cfg)
+    return graphed, lambda u: graphed(state, (a, v[:, None], y), 1e-4, u)
+
+
+@pytest.mark.parametrize("kind", ["pretrain", "finetune"])
+def test_graphed_steps_time_their_phases(gen, kind):
+    """At the tiny preset, ``phase_ms()`` of the graphed pretrain step and
+    of each finetune branch's graph: the marked phases in order, each at
+    least 0, summing to within 5% of the replay's ms as CUDA events around
+    it time it, read again unchanged; and the graphs made count in
+    ``profiling.COUNTERS``. A sleep on the card before each timed replay
+    keeps the host's launch out of the events' interval. A whole step
+    call on an idle card, timed the same way, holds the phases and more:
+    its extra time (the copies in, the device's wait for the host's
+    launch, the clone out) lies between 0 and the call's host ms. Each
+    graph's phases still read its own last replay after the other graphs
+    of the pool have replayed since."""
+    from avsiam_tpu_torch.utils import profiling
+    captures = profiling.COUNTERS["graph.captures"]
+    seconds = profiling.COUNTERS["graph.capture_s"]
+    graphed, step = _tiny_graphed(kind, gen)
+    routes = {"pretrain": {"step": 0.9},
+              "finetune": {"av": 0.9, "a": 0.1, "v": 0.4}}[kind]
+    want = _PRETRAIN_PHASES if kind == "pretrain" else _FT_PHASES
+    totals = {}
+    for graph, u in routes.items():
+        step(u)  # the warm-up, eager
+        step(u)  # the capture and its replay
+        cuda_graph = (graphed.graph if kind == "pretrain"
+                      else graphed.graphs[graph])
+        for _ in range(3):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            torch.cuda._sleep(20_000_000)
+            t0.record()
+            cuda_graph.replay()
+            t1.record()
+            phases = graphed.phase_ms()[graph]
+            t1.synchronize()
+            total = t0.elapsed_time(t1)
+            assert list(phases) == want and min(phases.values()) >= 0
+            assert graphed.phase_ms()[graph] == phases
+            gap = abs(sum(phases.values()) - total) / total
+            assert gap <= 0.05, (graph, gap, phases, total)
+            totals[graph] = total
+        for _ in range(3):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            torch.cuda.synchronize()
+            t0.record()
+            h = time.perf_counter()
+            step(u)
+            host_ms = (time.perf_counter() - h) * 1e3
+            t1.record()
+            t1.synchronize()
+            extra = t0.elapsed_time(t1) - sum(
+                graphed.phase_ms()[graph].values())
+            assert 0 <= extra <= host_ms + 0.1, (graph, extra, host_ms)
+    for u in list(routes.values()) * 2:
+        step(u)
+    torch.cuda.synchronize()
+    for graph, total in totals.items():
+        phases = graphed.phase_ms()[graph]
+        assert list(phases) == want and min(phases.values()) >= 0
+        gap = abs(sum(phases.values()) - total) / total
+        assert gap <= 0.05, (graph, gap, phases, total)
+    assert sorted(graphed.phase_ms()) == sorted(routes)
+    assert profiling.COUNTERS["graph.captures"] == captures + len(routes)
+    assert profiling.COUNTERS["graph.capture_s"] > seconds
+
+
+@pytest.mark.parametrize("kind", ["pretrain", "finetune"])
+def test_profiled_replay_shows_the_step_spans(gen, kind):
+    """A replay under torch.profiler: one ``avsiam.step`` host span holding
+    ``avsiam.step.inputs``, ``avsiam.step.launch`` and
+    ``avsiam.step.outputs`` (and the finetune step's
+    ``avsiam.step.attach``), in that order; the capture an
+    ``avsiam.graph.capture`` and the warm-up an ``avsiam.graph.warm_up``."""
+    from torch.profiler import ProfilerActivity, profile
+    _, step = _tiny_graphed(kind, gen)
+    with profile(activities=[ProfilerActivity.CPU]) as setup:
+        step(0.9)
+        step(0.9)
+    torch.cuda.synchronize()
+    names = [e.name for e in setup.events()]
+    assert names.count("avsiam.graph.warm_up") == 1
+    assert names.count("avsiam.graph.capture") == 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(0.9)
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.name().startswith("avsiam.step")
+                and e.device_type() == torch.autograd.DeviceType.CPU):
+            spans.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    children = (["inputs", "launch", "outputs"] if kind == "pretrain"
+                else ["inputs", "attach", "launch", "outputs"])
+    assert sorted(spans) == sorted(["avsiam.step"] + [
+        f"avsiam.step.{c}" for c in children])
+    assert all(len(v) == 1 for v in spans.values())
+    (lo, hi), = spans["avsiam.step"]
+    inner = [spans[f"avsiam.step.{c}"][0] for c in children]
+    assert all(lo <= s <= e <= hi for s, e in inner)
+    assert all(a[1] <= b[0] for a, b in zip(inner, inner[1:]))

@@ -510,7 +510,11 @@ def _flags(parser):
 
 
 def test_parser_matches_jax():
-    assert _flags(cli.build_parser()) == _flags(jcli.build_parser())
+    """Every flag of the JAX runner, and beside them the port's own
+    ``--trace_dir``, off by default."""
+    ours = _flags(cli.build_parser())
+    assert ours.pop("trace_dir") == (None, ["--trace-dir", "--trace_dir"])
+    assert ours == _flags(jcli.build_parser())
 
 
 def _recipe_argv(name, **paths):
@@ -560,6 +564,7 @@ def test_recipe_command_line_gives_the_jax_config(tmp_path, index_json,
                          EXP_DIR=str(tmp_path / "exp"))
     ours, theirs = (vars(p.parse_args(words)) for p in
                     (cli.build_parser(), jcli.build_parser()))
+    assert ours.pop("trace_dir") is None  # the port's own flag, off
     assert ours == theirs
     cfgs = {}
 

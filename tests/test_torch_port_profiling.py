@@ -1,8 +1,6 @@
 """The port's profiling helpers (``utils/profiling.py``) and memory probe
 (``cli/memory_probe.py``) against the JAX package's.
 
-- ``StepTimer``: on one scripted clock, the port's meters equal JAX's
-  (total >= compute >= 0, as ``tests/test_dist_utils.py`` holds them).
 - ``device_memory_stats``: None on the CPU.
 - ``trace`` writes a Chrome trace holding an ``annotate`` span.
 - The memory probe's ``main`` at the tiny preset, B 2, one float32 step
@@ -21,32 +19,11 @@ import jax.numpy as jnp
 import torch
 
 from avsiam_tpu.cli import memory_probe as jprobe
-from avsiam_tpu.utils import profiling as jprof
 from avsiam_tpu_torch.cli import memory_probe as probe
 from avsiam_tpu_torch.utils import profiling as prof
 
 TINY = ["--model", "tiny", "--batch-size", "2", "--steps", "1", "--dtype",
         "float32"]
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """Three steps on a scripted clock: the port's summary equals JAX's,
-    and total >= compute >= 0."""
-    ticks = [0.0, 0.5, 2.0, 2.25, 3.0, 3.5, 5.5]
-    summaries = []
-    for mod in (jprof, prof):
-        clock = iter(ticks)
-        monkeypatch.setattr(mod.time, "time", lambda: next(clock))
-        t = mod.StepTimer()
-        for _ in range(3):
-            t.data_ready(4)
-            t.step_done(4)
-        summaries.append(t.summary())
-        monkeypatch.undo()
-    assert summaries[0] == summaries[1]
-    s = summaries[1]
-    assert s["per_sample_time"] >= s["per_sample_dnn_time"] >= 0
-    assert s["per_sample_time"] == (5.5 / 3) / 4
 
 
 def test_device_memory_stats_is_none_on_the_cpu():
