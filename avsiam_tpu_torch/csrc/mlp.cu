@@ -5,6 +5,16 @@
 //   K8 _bwd_call_split (_bwd_dx_kernel)   -> mlp_gh_kernel + mlp_dx_kernel
 //   K9 weight_grads (_dw_kernel)          -> mlp_dw_tc_kernel (bf16), mlp_dw_kernel (f32)
 // K3 (ln_mlp.cu) runs its LayerNorm rows kernel, then K4's two passes.
+// Beside them, the GELU-backward pass of the 'fres' and 'lnfres' backwards,
+// mlp_gelu_bwd_kernel + colsum_fold_kernel, replaces no TPU kernel: the JAX
+// package's _fres_mlp_bwd and _lnfres_mlp_bwd are plain XLA, whose fusions
+// take the elementwise tail between the products in one pass. Here it reads
+// dh = do w2 (f32, a cuBLAS product) and the saved hpre, and writes gh =
+// dh gelu'(hpre) and act = gelu(hpre) in the storage type, and each 128-row
+// tile's f32 column sums of the stored gh, which colsum_fold_kernel adds in
+// row-tile order into db1 (so db1 sums gh after its cast, as 'fres' does).
+// What bounds it on the H100: its bytes, 10 a hidden element in bf16 (dh 4,
+// hpre 2, gh 2, act 2), plus the column sums (H floats a 128-row tile).
 //
 // Numerics, as the Pallas kernels have them: bf16 operands with f32
 // accumulation (an f32 call stores f32 but multiplies bf16 operands), the
@@ -455,6 +465,96 @@ __global__ void colsum_fold_kernel(const float* __restrict__ parts, float* __res
   out[h] = s;
 }
 
+// --------------------------------- the GELU-backward pass ('fres', 'lnfres')
+constexpr int GB_ROWS = 128;  // rows a block: one row of column sums (the gh pass's tile)
+constexpr int GB_COLS = 128;  // hidden columns a block, 4 a lane
+constexpr int GB_WARPS = 8;   // each walks GB_ROWS / GB_WARPS of the block's rows
+constexpr int GB_BATCH = 4;   // rows a lane loads before it computes on them
+
+// four neighbouring values of a row tensor as f32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_quad(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// four f32 values stored as neighbours in a row tensor of T, in one store
+__device__ __forceinline__ void store_quad(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_quad(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// gh [rows, H] = dh gelu'(hpre) and act = gelu(hpre) in T, from the f32 dh
+// and the saved hpre in T; colsum[blockIdx.y] gets the block's 128 rows'
+// f32 column sums of the stored gh (each warp's rows in order, then the
+// warps in order). A lane owns 4 neighbouring columns and walks its warp's
+// rows GB_BATCH at a time, every load of a batch issued before the first
+// GELU.
+template <typename T, int G>
+__global__ void __launch_bounds__(GB_WARPS * 32)
+mlp_gelu_bwd_kernel(const float* __restrict__ dh, const T* __restrict__ hpre, T* __restrict__ gh,
+                    T* __restrict__ act, float* __restrict__ colsum, int rows, int H) {
+  constexpr int WROWS = GB_ROWS / GB_WARPS;
+  __shared__ float red[GB_WARPS][GB_COLS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * GB_COLS + 4 * lane;
+  const int r0 = blockIdx.y * GB_ROWS + warp * WROWS;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col < H) {
+#pragma unroll 1
+    for (int b = 0; b < WROWS; b += GB_BATCH) {
+      float4 d[GB_BATCH], x[GB_BATCH];
+#pragma unroll
+      for (int i = 0; i < GB_BATCH; ++i) {
+        const int row = r0 + b + i;
+        if (row < rows) {
+          const size_t o = (size_t)row * H + col;
+          d[i] = load_quad(dh + o);
+          x[i] = load_quad(hpre + o);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < GB_BATCH; ++i) {
+        const int row = r0 + b + i;
+        if (row >= rows) break;
+        const float dv[4] = {d[i].x, d[i].y, d[i].z, d[i].w};
+        const float xv[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+        float a[4], g[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float q;
+          gelu_act_grad<G>(xv[j], a[j], q);
+          // the stored gh, as db1 sums it
+          g[j] = to_f32(from_f32<T>(dv[j] * q));
+          s[j] += g[j];
+        }
+        const size_t o = (size_t)row * H + col;
+        store_quad(gh + o, g);
+        store_quad(act + o, a);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[warp][4 * lane + j] = s[j];
+  __syncthreads();
+  const int c = threadIdx.x, h = blockIdx.x * GB_COLS + c;
+  if (c < GB_COLS && h < H) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < GB_WARPS; ++w) t += red[w][c];
+    colsum[(size_t)blockIdx.y * H + h] = t;
+  }
+}
+
 // ------------------------------------------------- the dx pass (K7, K8)
 constexpr int DX_BN = 128;  // dx columns per block
 constexpr int DX_STAGES = 4;
@@ -783,6 +883,21 @@ int launch_gh(const void* x16, const void* w1, const void* b1, const void* w2, c
 }
 
 template <typename T, int G>
+int launch_gelu_bwd(const void* dh, const void* hpre, void* gh, void* act, void* colsum,
+                    void* db1, int rows, int H, cudaStream_t stream) {
+  const int tiles = (rows + GB_ROWS - 1) / GB_ROWS;
+  mlp_gelu_bwd_kernel<T, G><<<dim3((H + GB_COLS - 1) / GB_COLS, tiles), GB_WARPS * 32, 0,
+                              stream>>>(static_cast<const float*>(dh), static_cast<const T*>(hpre),
+                                        static_cast<T*>(gh), static_cast<T*>(act),
+                                        static_cast<float*>(colsum), rows, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  colsum_fold_kernel<<<(H + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(colsum),
+                                                          static_cast<float*>(db1), tiles, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int G>
 int launch_fc1(const void* x16, const void* w1, const void* b1, void* hpre, void* act, int rows,
                int D, int H, cudaStream_t stream) {
   using SM = SlabSmem<FC1_BH, true, FC1_STAGES>;
@@ -926,6 +1041,23 @@ extern "C" int avsiam_mlp_bwd_gh(const void* x16, const void* w1, const void* b1
                             D, H, s)
   AVSIAM_GELU_DISPATCH(AVSIAM_GH)
 #undef AVSIAM_GH
+}
+
+// The GELU-backward pass of the 'fres' and 'lnfres' backwards: dh [rows, H]
+// f32 (do w2, a cuBLAS product), hpre [rows, H] in dtype; gh = dh
+// gelu'(hpre) and act = gelu(hpre) [rows, H] in dtype; colsum, f32 scratch
+// [ceil(rows / 128), H]; db1 [H] f32, the column sums of the stored gh folded
+// in row-tile order. H a multiple of 4, every row tensor 16-byte aligned.
+// gelu: the form's GeluForm code.
+extern "C" int avsiam_mlp_gelu_bwd(const void* dh, const void* hpre, void* gh, void* act,
+                                   void* colsum, void* db1, int rows, int H, int dtype, int gelu,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || H <= 0 || H % 4 != 0) return (int)cudaErrorInvalidValue;
+#define AVSIAM_GELU_BWD(TYPE, G) \
+  return launch_gelu_bwd<TYPE, G>(dh, hpre, gh, act, colsum, db1, rows, H, s)
+  AVSIAM_GELU_DISPATCH(AVSIAM_GELU_BWD)
+#undef AVSIAM_GELU_BWD
 }
 
 // The dx pass of K7 and K8: dx [rows, D] in dtype = gh16 [rows, H] (bf16)

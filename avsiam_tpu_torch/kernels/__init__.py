@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "ln_mlp_fwd": 0,
             "mlp_fwd": 0, "mlp_bwd": 0, "mlp_bwd_dx": 0, "mlp_dw": 0,
-            "ln_bwd": 0, "attention_hm_fwd": 0, "attention_hm_bwd": 0}
+            "ln_bwd": 0, "attention_hm_fwd": 0, "attention_hm_bwd": 0,
+            "mlp_gelu_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +69,8 @@ _SIGNATURES = {
     # None), rows, D, H, dtype, gelu form, stream
     "avsiam_mlp_bwd_gh": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P),
+    # dh, hpre, gh, act, colsum, db1, rows, H, dtype, gelu form, stream
+    "avsiam_mlp_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # gh16, w1, dx, partial (or None), rows, D, H, splits, dtype, stream
     "avsiam_mlp_bwd_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, g, dw, db, rows, m, n, tile rows, tile columns, dtype, stream

@@ -34,7 +34,8 @@ from avsiam_tpu_torch.configs import ViTConfig
 from avsiam_tpu_torch.models.tome import bipartite_soft_matching, merge_wavg
 from avsiam_tpu_torch.ops.attention import ATTN_IMPLS, attention_qkv
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
-from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_fp32
+from avsiam_tpu_torch.ops.layernorm import (LN_BWD_MAX_C, layer_norm,
+                                            layer_norm_fp32)
 from avsiam_tpu_torch.ops.mlp import (FUSED_IMPLS, fused_ln_mlp, fused_mlp,
                                       kernel_takes)
 from avsiam_tpu_torch.ops.patchify import audio_to_image, patchify
@@ -49,13 +50,17 @@ def mlp_route(impl: str, dim: int, hidden: int) -> str:
     """The form ``impl`` takes for an MLP of width ``dim`` and hidden width
     ``hidden``: 'auto' is 'lnfres' wherever D and H are multiples of 128
     (``ops.mlp.kernel_takes``, the JAX accelerator branch's condition,
-    ``avsiam_tpu/models/layers.py:339-343``: ViT-B, -L and -H alike) and the
-    unfused 'dense' elsewhere; every other impl is itself. An explicit
-    kernel impl at a width the kernels do not take raises at the kernel call
-    on the card."""
+    ``avsiam_tpu/models/layers.py:339-343``: ViT-B, -L and -H alike) and D
+    is at most ``LN_BWD_MAX_C``, the widest row K10 (the 'lnfres'
+    backward's LayerNorm kernel) takes; 'fres' at a wider D the MLP kernels
+    take; the unfused 'dense' elsewhere. Every other impl is itself. An
+    explicit kernel impl at a width its kernels do not take raises at the
+    kernel call on the card."""
     if impl != "auto":
         return impl
-    return "lnfres" if kernel_takes(dim, hidden) else "dense"
+    if not kernel_takes(dim, hidden):
+        return "dense"
+    return "lnfres" if dim <= LN_BWD_MAX_C else "fres"
 
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled

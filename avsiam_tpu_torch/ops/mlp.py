@@ -23,10 +23,16 @@ the CUDA kernels of ``csrc/ln_mlp.cu`` and ``csrc/mlp.cu``:
 
 The impls of ``fused_mlp``: 'fused' is K4 forward and K7 backward; 'fbwd' the
 plain dense forward (bit for bit the 'dense' ``Mlp``, true 'erf') and K7
-backward; 'fres' K4 forward saving the pre-GELU hidden, and a backward of
-PyTorch ops from it (plain XLA in the JAX package, so it has no kernel), as
-the 'lnfres' backward is. ``AVSIAM_MLP_BWD=split``, read at each backward,
-routes K7 to K8 plus K9 twice.
+backward; 'fres' K4 forward saving the pre-GELU hidden, and a backward from
+it (``_saved_hidden_bwd``), as the 'lnfres' backward is: cuBLAS products
+around the GELU-backward pass (``mlp_gelu_bwd_kernel``: gh, act and db1
+from dh = do w2 and the saved hidden, in one pass). That pass replaces no
+TPU kernel: the JAX package's backward is plain XLA, whose fusions take
+the elementwise tail. The 'lnfres' backward recomputes LN(x) with K3's
+rows kernel and runs K10 (``ops/layernorm.py``) for the LayerNorm's VJP.
+On a CPU tensor both backwards run the plain composite.
+``AVSIAM_MLP_BWD=split``, read at each backward, routes K7 to K8 plus K9
+twice.
 
 Numerics: GEMM operands in the activation dtype with float32 accumulation,
 float32 GELU in the asked form ('erf' evaluated as 'ans', as the Pallas
@@ -65,7 +71,8 @@ from avsiam_tpu_torch import kernels
 from avsiam_tpu_torch.ops.gelu import gelu as gelu_op
 from avsiam_tpu_torch.ops.gelu import (KERNEL_CODES, gelu_act_grad_f32,
                                        gelu_f32, kernel_impl)
-from avsiam_tpu_torch.ops.layernorm import layer_norm, layer_norm_vjp
+from avsiam_tpu_torch.ops.layernorm import (layer_norm, layer_norm_vjp,
+                                            ln_bwd_kernel)
 
 FUSED_IMPLS = ("fused", "fbwd", "fres")
 DIM_ALIGN = 128    # the kernels take D a multiple of it
@@ -267,6 +274,18 @@ def _fwd_passes(x16, w1, b1, w2, b2, dtype, save_hpre: bool, resid=None,
     return _fc2_pass(act, w2, b2, out_dtype, splits, resid), hpre
 
 
+def _ln_rows(x2, ln_scale, ln_bias, eps: float):
+    """K3's LayerNorm rows kernel on the card: LN(x2) [T, D] in bf16, the
+    rows the fc1 pass reads (LN parameters f32)."""
+    T, D = x2.shape
+    n16 = torch.empty((T, D), dtype=torch.bfloat16, device=x2.device)
+    err = kernels.library().avsiam_ln_mlp_rows(
+        x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), n16.data_ptr(),
+        T, D, kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
+    kernels.check(err, "LN-MLP LayerNorm rows")
+    return n16
+
+
 def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
                       gelu: str = "erf", partial: bool = False):
     """K3 on [T, D] rows of float32 or bfloat16: returns (out, pre-GELU
@@ -281,11 +300,7 @@ def ln_mlp_fwd_kernel(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps: float,
                     *_weight_specs(w1, b1, w2, D, H, None if partial else b2),
                     ("ln_scale", ln_scale, (D,), f32),
                     ("ln_bias", ln_bias, (D,), f32))
-    n16 = torch.empty((T, D), dtype=torch.bfloat16, device=x2.device)
-    err = kernels.library().avsiam_ln_mlp_rows(
-        x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), n16.data_ptr(),
-        T, D, kernels.DTYPE_CODES[x2.dtype], eps, kernels.stream_handle(x2))
-    kernels.check(err, "LN-MLP LayerNorm rows")
+    n16 = _ln_rows(x2, ln_scale, ln_bias, eps)
     out, hpre = _fwd_passes(n16, w1, b1, w2, None if partial else b2,
                             x2.dtype, True, resid=None if partial else x2,
                             gelu=gelu)
@@ -304,24 +319,75 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(f32) @ b.to(f32)
 
 
-def _saved_hidden_bwd(inp, w1, w2, hpre, do, gelu: str, group=None):
-    """Backward of ``fc2(gelu(fc1(inp)))`` from its saved pre-GELU hidden
-    (``_fres_mlp_bwd``): (d inp in inp's dtype, dw1, db1, dw2, db2). dh =
-    do @ w2 stays in float32 until it meets gelu', as in the JAX package.
-    With a model ``group`` d inp is the float32 sum of the ranks' partial
-    products, cast after the sum."""
-    dt = inp.dtype
+# ------------------------------------------ the 'fres'/'lnfres' backward
+def mlp_gelu_bwd_reference(dh, hpre, gelu: str = "erf"):
+    """Plain version of the GELU-backward pass, the composite that the
+    'fres' and 'lnfres' backwards run on the CPU: from dh [T, H] (float32)
+    and the saved pre-GELU hidden hpre [T, H], (gh = dh gelu'(hpre), act =
+    gelu(hpre)) in hpre's dtype, GELU in ``kernel_impl(gelu)``'s form, and
+    db1 [H], the float32 column sums of the stored gh."""
+    dt = hpre.dtype
     f32 = torch.float32
     act, grad = gelu_act_grad_f32(hpre.to(f32), kernel_impl(gelu))
-    gh = (mm_f32(do, w2) * grad).to(dt)
+    gh = (dh * grad).to(dt)
+    return gh, act.to(dt), gh.to(f32).sum(dim=0)
+
+
+def mlp_gelu_bwd_kernel(dh, hpre, gelu: str = "erf"):
+    """The GELU-backward pass on the card (``csrc/mlp.cu``
+    ``mlp_gelu_bwd_kernel``, then ``colsum_fold_kernel``): dh [T, H]
+    float32, hpre [T, H] float32 or bfloat16 (H a multiple of 4); returns
+    (gh, act) in hpre's dtype and db1 [H] float32, the column sums of the
+    stored gh per ``GH_TILE``-row tile added in row-tile order."""
+    f32 = torch.float32
+    if (dh.device.type != "cuda" or dh.dim() != 2 or dh.dtype != f32
+            or hpre.shape != dh.shape or hpre.dtype not in kernels.DTYPE_CODES
+            or hpre.device != dh.device or not dh.is_contiguous()
+            or not hpre.is_contiguous() or dh.shape[0] == 0
+            or dh.shape[1] == 0 or dh.shape[1] % 4):
+        raise ValueError(
+            f"MLP GELU backward kernel takes a contiguous CUDA [T, H] float32 "
+            f"dh and a hpre alike in float32 or bfloat16, T > 0, H a multiple "
+            f"of 4; got {tuple(dh.shape)} {dh.dtype} on {dh.device}, "
+            f"{tuple(hpre.shape)} {hpre.dtype} on {hpre.device}")
+    _check_aligned("MLP GELU backward", dh, hpre)
+    T, H = dh.shape
+    gh = torch.empty_like(hpre)
+    act = torch.empty_like(hpre)
+    colsum = torch.empty((-(-T // GH_TILE), H), dtype=f32, device=dh.device)
+    db1 = torch.empty((H,), dtype=f32, device=dh.device)
+    err = kernels.library().avsiam_mlp_gelu_bwd(
+        dh.data_ptr(), hpre.data_ptr(), gh.data_ptr(), act.data_ptr(),
+        colsum.data_ptr(), db1.data_ptr(), T, H, kernels.DTYPE_CODES[hpre.dtype],
+        KERNEL_CODES[kernel_impl(gelu)], kernels.stream_handle(dh))
+    kernels.check(err, "MLP GELU backward pass")
+    kernels.LAUNCHES["mlp_gelu_bwd"] += 1
+    return gh, act, db1
+
+
+def mlp_gelu_bwd(dh, hpre, gelu: str = "erf"):
+    """The GELU-backward pass: its plain version on a CPU tensor, the kernel
+    on a CUDA one."""
+    if dh.device.type == "cpu":
+        return mlp_gelu_bwd_reference(dh, hpre, gelu)
+    return mlp_gelu_bwd_kernel(dh, hpre, gelu)
+
+
+def _saved_hidden_bwd(inp, w1, w2, hpre, do, gelu: str, group=None):
+    """Backward of ``fc2(gelu(fc1(inp)))`` from its saved pre-GELU hidden
+    (``_fres_mlp_bwd``; hpre in inp's dtype): (d inp in inp's dtype, dw1,
+    db1, dw2, db2). dh = do @ w2 stays in float32 until it meets gelu', as
+    in the JAX package; the GELU-backward pass makes gh, act and db1 from
+    it, and the products are cuBLAS's. With a model ``group`` d inp is the
+    float32 sum of the ranks' partial products, cast after the sum."""
+    gh, act, db1 = mlp_gelu_bwd(mm_f32(do, w2), hpre, gelu)
     if group is None:
-        dinp = (gh @ w1).to(dt)
+        dinp = gh @ w1
     else:
         dinp = mm_f32(gh, w1)
         dist.all_reduce(dinp, group=group)
-        dinp = dinp.to(dt)
-    return (dinp, gh.T @ inp, gh.to(f32).sum(dim=0),
-            do.T @ act.to(dt), do.to(f32).sum(dim=0))
+        dinp = dinp.to(inp.dtype)
+    return dinp, gh.T @ inp, db1, do.T @ act, do.to(torch.float32).sum(dim=0)
 
 
 def _row_parallel_out(partial, b2, group, dtype):
@@ -332,9 +398,11 @@ def _row_parallel_out(partial, b2, group, dtype):
 
 
 class _LnMlp(torch.autograd.Function):
-    """Forward: K3 (CUDA) or its plain version (CPU). Backward: PyTorch ops
-    mirroring ``_lnfres_mlp_bwd``. With a model ``group``: K3's partial
-    form, the sum over the group, then b2 and the residual once."""
+    """Forward: K3 (CUDA) or its plain version (CPU). Backward, as
+    ``_lnfres_mlp_bwd``: LN(x) recomputed (K3's rows kernel on the card),
+    ``_saved_hidden_bwd``, then the LayerNorm's VJP (K10 on the card, which
+    raises on a width it does not take). With a model ``group``: K3's
+    partial form, the sum over the group, then b2 and the residual once."""
 
     @staticmethod
     def forward(ctx, x2, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu,
@@ -359,10 +427,19 @@ class _LnMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         x2, g, bln, w1, w2, hpre = ctx.saved_tensors
-        n = layer_norm(x2, g, bln, ctx.eps)  # recompute the LN output
+        eps = ctx.eps
+        card = x2.device.type == "cuda"
+        f32 = torch.float32
+        gk, bk = g.to(f32).contiguous(), bln.to(f32).contiguous()
+        # recompute the LN output: on the card the bf16 rows fc1 read
+        n = (_ln_rows(x2, gk, bk, eps).to(x2.dtype) if card
+             else layer_norm(x2, g, bln, eps))
         dn, dw1, db1, dw2, db2 = _saved_hidden_bwd(n, w1, w2, hpre, do,
                                                    ctx.gelu, ctx.group)
-        dx_ln, dgamma, dbeta = layer_norm_vjp(x2, g, dn, ctx.eps)
+        if card:
+            dx_ln, dgamma, dbeta = ln_bwd_kernel(x2, dn, gk, eps)
+        else:
+            dx_ln, dgamma, dbeta = layer_norm_vjp(x2, g, dn, eps)
         dx = do + dx_ln  # the residual branch's cotangent joins here
         return (dx, dgamma.to(g.dtype), dbeta.to(bln.dtype), dw1.to(w1.dtype),
                 db1.to(ctx.b1_dtype), dw2.to(w2.dtype), db2.to(ctx.b1_dtype),
@@ -705,8 +782,8 @@ class _FbwdMlp(_FusedMlp):
 
 
 class _FresMlp(torch.autograd.Function):
-    """'fres': K4 forward saving the pre-GELU hidden; the backward is
-    PyTorch ops from it (``_fres_mlp_bwd``)."""
+    """'fres': K4 forward saving the pre-GELU hidden; the backward from it
+    is ``_saved_hidden_bwd`` (``_fres_mlp_bwd``)."""
 
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, gelu, group):

@@ -220,6 +220,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 ATTN_TOL = 2e-2           # max |kernel - plain| / max |plain|, bf16 storage
 MLP_TOL = 2e-2
 LN_TOL = 2e-2
+GB_ULPS = 2   # GELU-backward pass: gh, act within 2 ulps of the storage type
 
 
 def log(msg: str) -> None:
@@ -475,13 +476,17 @@ def main_path_shapes(cfg, batch: int, mae: bool = True,
 def mlp_call_launches(impl: str, split: bool) -> dict:
     """Kernel launches of one MLP sub-block call, forward and backward, in
     a block's ``mlp_impl`` as ``mlp_route`` resolves it ('lnfres' folds the
-    LN into K3 on the card; 'fres' and 'dense' have backwards of PyTorch
-    ops). K7 and the split backward (K8) each run K9 twice."""
+    LN into K3 on the card and runs K10 in its backward; 'fres' and
+    'lnfres' backwards run the GELU-backward pass between cuBLAS products;
+    'dense' has a backward of PyTorch ops). K7 and the split backward (K8)
+    each run K9 twice."""
     out = {}
     if impl == "lnfres":
-        out["ln_mlp_fwd"] = 1
+        out.update(ln_mlp_fwd=1, mlp_gelu_bwd=1, ln_bwd=1)
     elif impl in ("fused", "fres"):
         out["mlp_fwd"] = 1
+    if impl == "fres":
+        out["mlp_gelu_bwd"] = 1
     if impl in ("fused", "fbwd"):
         out.update({"mlp_bwd_dx" if split else "mlp_bwd": 1, "mlp_dw": 2})
     return out
@@ -511,8 +516,8 @@ def expected_launches(cfg, shapes: Shapes, split: bool, ln_pallas: bool,
     """Each kernel's launches over ``n_steps`` steps, from the shapes
     (``main_path_shapes``): attention by ``attention_route``, the MLP by
     impl, the forward kernels of the calls remat runs again once more, K10
-    at every LayerNormFP32 call of a width it takes under
-    ``AVSIAM_LN=pallas``."""
+    in every 'lnfres' backward and, under ``AVSIAM_LN=pallas``, at every
+    LayerNormFP32 call of a width it takes."""
     from avsiam_tpu_torch import kernels
     from avsiam_tpu_torch.ops.attention import attention_route
     out = {k: 0 for k in kernels.LAUNCHES}
@@ -530,8 +535,8 @@ def expected_launches(cfg, shapes: Shapes, split: bool, ln_pallas: bool,
             if k in MLP_FWD_KERNELS:
                 out[k] += n * n_steps
     if ln_pallas:
-        out["ln_bwd"] = n_steps * sum(c for (_, C), c in shapes.ln.items()
-                                      if C % 128 == 0)
+        out["ln_bwd"] += n_steps * sum(c for (_, C), c in shapes.ln.items()
+                                       if C % 128 == 0)
     return out
 
 
@@ -988,6 +993,67 @@ def check_ln_bwd(shapes, gen, eps: float = 1e-5):
             f"(rel {err[1]:.1e} <= {LN_TOL})  {ms:.4f} ms (rows "
             f"{split['rows']:.4f}, cols {split['cols']:.4f}) plain "
             f"{plain:.4f} native {lib:.4f} ({ms / lib:.2f}x) bound {bd[0]:.4f} "
+            f"({100 * bd[0] / ms:.1f}%)")
+    return rows
+
+
+def check_gelu_bwd(shapes, gen, gelu: str):
+    """The GELU-backward pass (``mlp_gelu_bwd_kernel``) at each (rows, H) of
+    ``shapes`` ({(rows, H): calls per step}) against its plain version on
+    the same values (float32 dh, bf16 pre-GELU hidden), in the form
+    ``gelu``: gh and act within ``GB_ULPS`` bf16 units in the last place of
+    the plain ones (or 1e-5 of their largest magnitude, where gelu' crosses
+    zero), db1 the float32 column sums of the kernel's own stored gh, and
+    the plain db1 but for the stored gh's differences. Times of kernel,
+    plain version in float32 and the bf16 composite it replaces (the plain
+    version on the bf16 values, the torch ops of the 'fres' and 'lnfres'
+    backwards before the kernel); the bound is bytes: dh read in float32,
+    the hidden read and gh and act written in bf16, each row tile's column
+    sums written and read back, db1 written."""
+    from avsiam_tpu_torch.ops import mlp as pm
+    unit = 2.0 ** -7
+    rows = []
+    for (t, h), calls in sorted(shapes.items(), key=lambda k: (k[0][1],
+                                                                -k[0][0])):
+        dh = torch.randn((t, h), generator=gen, device="cuda")
+        hpre = (2 * torch.randn((t, h), generator=gen, device="cuda")
+                ).bfloat16()
+        gh, act, db1 = pm.mlp_gelu_bwd_kernel(dh, hpre, gelu)
+        wgh, wact, wdb1 = pm.mlp_gelu_bwd_reference(dh, hpre, gelu)
+        torch.cuda.synchronize()
+        over = {}
+        for name, g_, w_ in (("gh", gh, wgh), ("act", act, wact)):
+            g64, w64 = g_.double(), w_.double()
+            tol = GB_ULPS * unit * w64.abs() + 1e-5 * w64.abs().max()
+            over[name] = float(((g64 - w64).abs() - tol).max())
+        g64 = gh.double()
+        mass = g64.abs().sum(0)
+        over["db1"] = float(((db1.double() - g64.sum(0)).abs()
+                             - 1e-5 * mass).max())
+        slack = (g64 - wgh.double()).abs().sum(0)
+        over["db1_plain"] = float(((db1.double() - wdb1.double()).abs()
+                                   - slack - 1e-5 * mass).max())
+        bad = [k for k, v in over.items() if v > 1e-30]
+        if bad:
+            raise AssertionError(f"gelu_bwd T={t} H={h}: {bad} beyond their "
+                                 f"tolerance by {[over[k] for k in bad]}")
+        err = max(rel_err(g_, w_)[0] for g_, w_ in ((gh, wgh), (act, wact),
+                                                    (db1, wdb1)))
+        ms = time_ms(lambda: pm.mlp_gelu_bwd_kernel(dh, hpre, gelu))
+        plain = plain_ms(lambda: pm.mlp_gelu_bwd_reference(dh, hpre.float(),
+                                                           gelu))
+        composite = time_ms(lambda: pm.mlp_gelu_bwd_reference(dh, hpre,
+                                                              gelu))
+        tiles = -(-t // pm.GH_TILE)
+        nbytes = t * h * (4 + 3 * 2) + 2 * 4 * tiles * h + 4 * h
+        bd = bound_ms(0, nbytes)
+        rows.append(dict(T=t, H=h, calls=calls, err=err, ms=ms,
+                         plain_ms=plain, composite_ms=composite,
+                         bound_ms=bd[0]))
+        log(f"  gelu_bwd T={t:5d} H={h} x{calls:2d}/step  max abs err "
+            f"{err:.2e} (gh, act within {GB_ULPS} bf16 ulps)  {ms:.4f} ms "
+            f"plain {plain:.4f} composite {composite:.4f} "
+            f"({ms / composite:.2f}x) bound {bd[0]:.4f} "
             f"({100 * bd[0] / ms:.1f}%)")
     return rows
 
@@ -1513,14 +1579,17 @@ def row_entry(name, source, replaces, phase, rows, key, launches):
 
 
 def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
-                   launches):
+                   gb_rows, launches):
     """The ``kernels`` line. ``passed`` is true for every entry: each check
     above raises on a failure, so a failed kernel never reaches the line.
     ``launches`` maps each step phase to its counts; an entry's times are
     per step of the phase it names. ``library_ms`` is one PyTorch call's
     time where one computes the same function; K3, K4, K7 and K8 have none,
     and carry ``composite_ms``, the 'dense' form's GEMMs and elementwise ops
-    on the same operands (not one call)."""
+    on the same operands (not one call); the GELU-backward pass carries the
+    torch ops it replaced. It replaces no TPU kernel (the JAX package's
+    'fres' and 'lnfres' backwards are plain XLA), so ``replaces`` is
+    None."""
     def total(rows, key):
         return sum(r[key] * r["calls"] for r in rows if r["calls"])
 
@@ -1561,6 +1630,14 @@ def kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
                      ("bwd_dx",), library=False),
         family_entry("mlp_dw", "dw", "C", fam_rows, launches, ("dw1", "dw2"),
                      library=True),
+        dict(name="mlp_gelu_bwd", route="cuda",
+             source="avsiam_tpu_torch/csrc/mlp.cu", replaces=None, phase="A",
+             launches=launches["A"]["mlp_gelu_bwd"],
+             max_abs_err=max(r["err"] for r in gb_rows),
+             ms=total(gb_rows, "ms"), plain_ms=total(gb_rows, "plain_ms"),
+             bound_ms=total(gb_rows, "bound_ms"), bound_by="bytes",
+             library_ms=None, composite_ms=total(gb_rows, "composite_ms"),
+             passed=True),
         row_entry("ln_bwd", "avsiam_tpu_torch/csrc/layernorm.cu",
                   "avsiam_tpu/ops/layernorm.py:130", "D", ln_rows, "ln",
                   launches),
@@ -1741,12 +1818,30 @@ def main(argv=None) -> int:
         {p: mlp_shape_launches(phases[p]["kernel_shapes"][1],
                                phases[p]["split"])
          for p in "BCE"}, [k for k in wide if k[1] == 1024], gen)
-    # K10 at phase D's LN shapes and at ViT-H's width (phase E's encoder
-    # LN shapes, which run the torch-ops backward there)
+    # K10 at phase D's LN shapes, at its 'lnfres' backwards' (rows, D),
+    # and at ViT-H's width (phase E's encoder LN shapes, which run the
+    # torch-ops backward there)
     ln_shapes = dict(phases["D"]["shapes"][2])
+    for (t, d, _, impl), c in phases["D"]["shapes"][1].items():
+        if impl == "lnfres":
+            ln_shapes[(t, d)] = ln_shapes.get((t, d), 0) + c
     ln_shapes.update({k: 0 for k in phases["E"]["kernel_shapes"][2]
                       if k[1] == 1280})
     ln_rows = check_ln_bwd(ln_shapes, gen)
+    # the GELU-backward pass at phase A's 'lnfres' backwards' (rows, H),
+    # and, with no calls there, at phase C's 'fres' decoder's, A64's (the
+    # benchmark's batch) and the finetune fusion layers' (64 x 708 rows)
+    gb_shapes = {(t, h): c.get("mlp_gelu_bwd", 0) for (t, _, h), c in
+                 mlp_shape_launches(phases["A"]["kernel_shapes"][1],
+                                    False).items()}
+    for p in ("C", "A64"):
+        for (t, _, h), c in mlp_shape_launches(
+                phases[p]["kernel_shapes"][1], False).items():
+            if c.get("mlp_gelu_bwd"):
+                gb_shapes.setdefault((t, h), 0)
+    gb_shapes.setdefault((64 * 708, 3072), 0)
+    gb_rows = check_gelu_bwd(gb_shapes, gen,
+                             phases["A"]["cfg"].model.vit.gelu)
     e = phases["E"]
     # and K5/K6 above head width 128 (the wide path), timed beside SDPA
     hm_rows = check_attention_hm(
@@ -1778,7 +1873,7 @@ def main(argv=None) -> int:
                                                args.seed))
     log(f"kernels and data checks done at {time.time() - t0:.0f} s")
     report.update(attention=attn_rows, ln_mlp=mlp_rows, mlp_family=fam_rows,
-                  ln_bwd=ln_rows, attention_hm=hm_rows,
+                  ln_bwd=ln_rows, gelu_bwd=gb_rows, attention_hm=hm_rows,
                   attention_p64=attn_p64, float32=check_float32(gen),
                   at_shapes={label: check_at_shapes(label, p["cfg"],
                                                     p["shapes"], gen)
@@ -1913,7 +2008,7 @@ def main(argv=None) -> int:
            "runner_rows_rel": report["steps"]["TP2"]["runner"]["rows_rel"]}}))
     log(card)
     entries = kernel_entries(attn_rows, mlp_rows, fam_rows, ln_rows, hm_rows,
-                             launches)
+                             gb_rows, launches)
     for e in entries:  # the data-fed, runner and DP phases' counts
         e["pd64_launches"] = launches["PD64"][e["name"]]
         for phase in ("CLI64", "FT64", "AS20K", "FTG", "RET", "DP1", "TP2",
@@ -4234,14 +4329,16 @@ def run_audio_only(label, seed, report):
     launches = dict(kernels.LAUNCHES)
     depth = vit.depth
     per_step = {k: depth if k in ("attention_fwd", "ln_mlp_fwd",
-                                  "attention_bwd") else 0
+                                  "attention_bwd", "mlp_gelu_bwd",
+                                  "ln_bwd") else 0
                 for k in kernels.LAUNCHES}
     check_launches(label, launches, per_step, AO_STEPS)
     peak, _ = memory_gib()
     steady = median_after_first(steps)
     log(f"  {label} steady step: {steady:.1f} ms (median of steps 1.."
         f"{AO_STEPS - 1}), peak {peak:.2f} GiB allocated; a step: "
-        f"{depth} K1, {depth} K3, {depth} K2")
+        f"{depth} K1, {depth} K3, {depth} K2, {depth} GELU-backward "
+        f"passes, {depth} K10")
     del model, a, y
     torch.cuda.empty_cache()
 

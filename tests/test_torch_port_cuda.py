@@ -101,9 +101,10 @@ def test_ln_mlp_kernel_matches_plain_version(gen, dtype, T, Dm):
 
 
 def test_fused_ln_mlp_backward_on_the_card(gen):
-    """The autograd Function's backward (PyTorch ops) through K3's saved
-    hidden, bf16 on the card against float32 autograd of the plain version
-    (gradient cosine >= 0.999 for every input)."""
+    """The autograd Function's backward (cuBLAS products, the GELU-backward
+    pass, K3's rows kernel and K10) through K3's saved hidden, bf16 on the
+    card against float32 autograd of the plain version (gradient cosine >=
+    0.999 for every input)."""
     Dm, Hm = 768, 3072
     ps = [torch.randn((3, 50, Dm), generator=gen, device="cuda"),
           1.0 + 0.1 * torch.randn(Dm, generator=gen, device="cuda"),
@@ -127,6 +128,107 @@ def test_fused_ln_mlp_backward_on_the_card(gen):
 
 
 _NO_LAUNCHES = {k: 0 for k in kernels.LAUNCHES}
+
+# the GELU-backward pass at a trunk's hidden (768 / 3072), a decoder's (512
+# / 2048) and a row count that fills no 128-row tile
+GELU_BWD_SHAPES = [(1024, 3072), (5664, 2048), (37, 3072)]
+
+
+def _within_ulps(got, want, unit, ulps=2):
+    """|got - want| within ``ulps`` units in the last place of want (``unit``
+    of its magnitude each), or within 1e-5 of want's largest magnitude (a
+    form's gelu' crosses zero, where its value is a difference)."""
+    got, want = got.double(), want.double()
+    tol = ulps * unit * want.abs() + 1e-5 * want.abs().max()
+    return float(((got - want).abs() - tol).max()) <= 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("form", list(pmlp.KERNEL_CODES))
+@pytest.mark.parametrize("T,Hm", GELU_BWD_SHAPES)
+def test_gelu_bwd_kernel_matches_plain_version(gen, T, Hm, form, dtype):
+    """The GELU-backward pass against its plain version on the same values,
+    in every kernel form: gh and act within two units in the last place of
+    the storage type (bf16 2^-7, f32 2^-23 of the magnitude); db1 the
+    column sums of the kernel's own stored gh to float32 precision, and the
+    plain db1 but for the stored gh's differences; launched once; the same
+    bits on a second call."""
+    dh = torch.randn((T, Hm), generator=gen, device="cuda")
+    hpre = (2 * torch.randn((T, Hm), generator=gen, device="cuda")).to(dtype)
+    kernels.reset_launches()
+    gh, act, db1 = pmlp.mlp_gelu_bwd_kernel(dh, hpre, form)
+    assert kernels.LAUNCHES == dict(_NO_LAUNCHES, mlp_gelu_bwd=1)
+    wgh, wact, wdb1 = pmlp.mlp_gelu_bwd_reference(dh, hpre, form)
+    assert gh.dtype == act.dtype == dtype and db1.dtype == torch.float32
+    unit = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    assert _within_ulps(gh, wgh, unit), form
+    assert _within_ulps(act, wact, unit), form
+    mass = gh.double().abs().sum(0)
+    # each sum: 128 rows of a tile, then the tiles, in float32
+    assert bool(((db1.double() - gh.double().sum(0)).abs()
+                 <= 1e-5 * mass + 1e-30).all())
+    slack = (gh.double() - wgh.double()).abs().sum(0)
+    assert bool(((db1.double() - wdb1.double()).abs()
+                 <= slack + 1e-5 * mass + 1e-30).all())
+    again = pmlp.mlp_gelu_bwd_kernel(dh, hpre, form)
+    assert all(torch.equal(a, b) for a, b in zip(again, (gh, act, db1)))
+
+
+# ops that move no element of a [T, H] tensor, or multiply it on cuBLAS
+_NO_ELEMENTWISE = {
+    "aten::mm", "aten::matmul", "aten::t", "aten::transpose",
+    "aten::numpy_T", "aten::permute", "aten::as_strided", "aten::view",
+    "aten::reshape", "aten::_reshape_alias", "aten::_unsafe_view",
+    "aten::expand", "aten::empty", "aten::empty_like", "aten::empty_strided",
+    "aten::resolve_conj", "aten::resolve_neg", "aten::detach", "aten::alias"}
+
+
+@pytest.mark.parametrize("form", ["fres", "lnfres"])
+@pytest.mark.parametrize("T,Dm", [(256, 768), (37, 512)])
+def test_saved_hidden_backwards_on_the_card(gen, form, T, Dm):
+    """The 'fres' and 'lnfres' backwards in bf16 on the card against the
+    plain path, the same autograd Function on the CPU from the same values:
+    every gradient within TOL; per backward one GELU-backward pass, for
+    'lnfres' one K10 too, and nothing else of the port's kernels; no torch
+    op outside cuBLAS's products touches a [T, H] tensor."""
+    from torch.profiler import ProfilerActivity, profile
+    Hm = 4 * Dm
+
+    def r(*shape, k=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * k
+
+    ts = [r(T, Dm).bfloat16()]
+    if form == "lnfres":
+        ts += [1.0 + r(Dm, k=0.1), r(Dm, k=0.1)]
+    ts += [r(Hm, Dm, k=Dm ** -0.5).bfloat16(), r(Hm, k=0.02).bfloat16(),
+           r(Dm, Hm, k=Hm ** -0.5).bfloat16(), r(Dm, k=0.02).bfloat16()]
+    ct = r(T, Dm).bfloat16()
+    fn = (pmlp.fused_ln_mlp if form == "lnfres"
+          else lambda *a: pmlp.fused_mlp(*a, impl="fres"))
+    grads = {}
+    for device in ("cuda", "cpu"):
+        leaves = [t.detach().to(device, copy=True).requires_grad_(True)
+                  for t in ts]
+        out = fn(*leaves)
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            out.backward(ct.to(device))
+            torch.cuda.synchronize()
+        grads[device] = [t.grad for t in leaves]
+        if device == "cuda":
+            want = dict(_NO_LAUNCHES, mlp_gelu_bwd=1)
+            if form == "lnfres":
+                want["ln_bwd"] = 1
+            assert kernels.LAUNCHES == want
+            wide = {e.name for e in prof.events()
+                    if any(list(sh) in ([T, Hm], [Hm, T])
+                           for sh in e.input_shapes)}
+            assert wide and wide <= _NO_ELEMENTWISE, wide - _NO_ELEMENTWISE
+    for i, (got, want) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        assert got.dtype == want.dtype, i
+        assert _rel(got.cpu(), want) <= TOL, i
 
 
 def _depth1_config(vit=None, model=None, **impls):
@@ -171,10 +273,11 @@ def _depth1_step(gen, vit=None, model=None, **impls):
 
 def test_two_pass_step_on_the_card(gen):
     """The default impls: every kernel of the 'lnfres' path launched as
-    often as the step's attention and MLP calls."""
+    often as the step's attention and MLP calls, each MLP backward's
+    GELU-backward pass and K10 included."""
     launches = _depth1_step(gen)
     assert launches == dict(_NO_LAUNCHES, attention_fwd=9, attention_bwd=9,
-                            ln_mlp_fwd=9)
+                            ln_mlp_fwd=9, mlp_gelu_bwd=9, ln_bwd=9)
 
 
 def test_fused_step_on_the_card(gen):
@@ -206,16 +309,18 @@ def test_wide_variants_step_under_auto(gen, model, attention):
     XLA form, K1/K2 only in the decoder."""
     launches = _depth1_step(gen, model=model)
     assert launches == dict(_NO_LAUNCHES, attention_fwd=attention,
-                            attention_bwd=attention, ln_mlp_fwd=9)
+                            attention_bwd=attention, ln_mlp_fwd=9,
+                            mlp_gelu_bwd=9, ln_bwd=9)
 
 
-# each MLP impl's launches over the 9 MLP calls of a depth-1 step
+# each MLP impl's launches over the 9 MLP calls of a depth-1 step ('fres'
+# and 'lnfres' backwards: the GELU-backward pass, and for 'lnfres' K10)
 _WIDE_MLP_LAUNCHES = {
-    "lnfres": dict(ln_mlp_fwd=9),
+    "lnfres": dict(ln_mlp_fwd=9, mlp_gelu_bwd=9, ln_bwd=9),
     "fused": dict(mlp_fwd=9, mlp_bwd=9, mlp_dw=18),
-    "fres": dict(mlp_fwd=9),
+    "fres": dict(mlp_fwd=9, mlp_gelu_bwd=9),
     "fbwd-split": dict(mlp_bwd_dx=9, mlp_dw=18),
-    "auto": dict(ln_mlp_fwd=9),
+    "auto": dict(ln_mlp_fwd=9, mlp_gelu_bwd=9, ln_bwd=9),
 }
 
 
@@ -241,14 +346,19 @@ def test_wide_variants_step_under_every_mlp_kernel(gen, monkeypatch, model,
 # ('exact', 'bucketed'; 'tconcat' one MLP call a modality, 'packed' one
 # K4 call over both), 'padded' 2 at full length; pass 2 makes 5 (two
 # encoder blocks, mm_layer_1/2, the decoder). Under remat the 6 trunk-block
-# calls launch K1 and K3 once more, in the backward.
+# calls launch K1 and K3 once more, in the backward. Each MLP call's
+# backward launches the GELU-backward pass, and a K3 call's K10 too.
 _FORM_LAUNCHES = {
-    "tconcat": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=7),
-    "bucketed": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=9),
+    "tconcat": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=7,
+                    mlp_gelu_bwd=7, ln_bwd=7),
+    "bucketed": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=9,
+                     mlp_gelu_bwd=9, ln_bwd=9),
     "packed": dict(attention_fwd=9, attention_bwd=9, ln_mlp_fwd=5,
-                   mlp_fwd=1),
-    "padded": dict(attention_fwd=7, attention_bwd=7, ln_mlp_fwd=7),
-    "remat": dict(attention_fwd=15, attention_bwd=9, ln_mlp_fwd=15),
+                   mlp_fwd=1, mlp_gelu_bwd=6, ln_bwd=5),
+    "padded": dict(attention_fwd=7, attention_bwd=7, ln_mlp_fwd=7,
+                   mlp_gelu_bwd=7, ln_bwd=7),
+    "remat": dict(attention_fwd=15, attention_bwd=9, ln_mlp_fwd=15,
+                  mlp_gelu_bwd=9, ln_bwd=9),
 }
 
 
@@ -298,11 +408,12 @@ def test_masked_attention_at_the_padded_shapes(gen, N):
 
 def test_ln_pallas_step_on_the_card(gen, monkeypatch):
     """Under ``AVSIAM_LN=pallas`` K10 runs at every LayerNormFP32 call, and
-    the 'lnfres' kernels as without it."""
+    the 'lnfres' kernels as without it (K10 in each of their 9 backwards
+    too)."""
     monkeypatch.setenv("AVSIAM_LN", "pallas")
     launches = _depth1_step(gen)
     assert launches == dict(_NO_LAUNCHES, attention_fwd=9, attention_bwd=9,
-                            ln_mlp_fwd=9, ln_bwd=16)
+                            ln_mlp_fwd=9, mlp_gelu_bwd=9, ln_bwd=16 + 9)
 
 
 # the step's routes as one CUDA graph: (impls, environment)
@@ -886,7 +997,8 @@ def test_kernels_keep_their_db1_forms(gen, T, Dm):
 
 
 def test_av_tail_launches_the_mlp_kernel(gen):
-    """Under 'lnfres' the 'av' tail's MLP is K4 (the 'fres' route), not K3."""
+    """Under 'lnfres' the 'av' tail's MLP is K4 (the 'fres' route), not K3,
+    and its backward the GELU-backward pass."""
     from avsiam_tpu_torch.models.layers import ModalityBlock
     blk = ModalityBlock(768, 12, 4.0, True, 1e-5, torch.bfloat16, "auto",
                         "erf", "lnfres", "cuda")
@@ -895,7 +1007,8 @@ def test_av_tail_launches_the_mlp_kernel(gen):
     a, v = blk((x[:, :8], x[:, 8:]), "av")
     a.float().sum().backward()
     assert kernels.LAUNCHES == dict(_NO_LAUNCHES, attention_fwd=1,
-                                    attention_bwd=1, mlp_fwd=1)
+                                    attention_bwd=1, mlp_fwd=1,
+                                    mlp_gelu_bwd=1)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -1210,7 +1323,7 @@ def _ft_config(dtype=torch.bfloat16, depth=2, parity_optimizer=True,
      dict(mlp_fwd=1, mlp_bwd=1, mlp_dw=2)),
     (dict(mlp_impl="fused", attn_impl="pallas"), 0.4,
      dict(mlp_fwd=1, mlp_bwd=1, mlp_dw=2)),
-    (dict(), 0.9, dict(ln_mlp_fwd=1))],
+    (dict(), 0.9, dict(ln_mlp_fwd=1, mlp_gelu_bwd=1, ln_bwd=1))],
     ids=["fused-pallas-av", "fused-pallas-a", "fused-pallas-v", "lnfres-av"])
 def test_finetune_step_on_the_card(gen, impls, u, per_call):
     """One 'mm_grad' step at depth 2 in bf16 through the kernels against
@@ -1283,7 +1396,8 @@ def test_audio_only_model_on_the_card(gen, tr_pos):
     kind), B=2, 527 classes: the bf16 kernels on the card against the
     float32 plain model on the CPU from the same parameters, the BCE loss
     within 2e-2 relative and the gradients' cosine at least 0.99; one K1,
-    one K3 and one K2 a block; with ``tr_pos`` false no gradient reaches
+    one K3, one K2, one GELU-backward pass and one K10 a block; with
+    ``tr_pos`` false no gradient reaches
     the position table, with it true one does."""
     from avsiam_tpu_torch.configs import ViTConfig
     from avsiam_tpu_torch.models import CAVMAEFTAudio
@@ -1300,7 +1414,8 @@ def test_audio_only_model_on_the_card(gen, tr_pos):
     loss = bce_with_logits(card.forward_pred(a), y)
     loss.backward()
     assert dict(kernels.LAUNCHES) == dict(_NO_LAUNCHES, attention_fwd=2,
-                                          ln_mlp_fwd=2, attention_bwd=2)
+                                          ln_mlp_fwd=2, attention_bwd=2,
+                                          mlp_gelu_bwd=2, ln_bwd=2)
     ref = bce_with_logits(cpu.forward_pred(a.cpu()), y.cpu())
     ref.backward()
     assert abs(float(loss) - float(ref)) <= 2e-2 * abs(float(ref))

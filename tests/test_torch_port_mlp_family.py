@@ -403,21 +403,25 @@ def test_weight_grad_tile_takes_the_fewest_waves(m, n, sms, want):
     assert n % tile[0] == 0 and m % tile[1] == 0
 
 
-@pytest.mark.parametrize("dim,folds", [(768, True), (1024, True),
-                                       (1280, True), (192, False)],
-                         ids=["vit_b", "vit_l", "vit_h", "unaligned"])
+@pytest.mark.parametrize("dim,route", [(768, "lnfres"), (1024, "lnfres"),
+                                       (1280, "lnfres"), (192, "dense"),
+                                       (1536, "fres")],
+                         ids=["vit_b", "vit_l", "vit_h", "unaligned",
+                              "above_k10"])
 def test_auto_mlp_route_takes_the_kernels_where_they_take_the_width(
-        monkeypatch, dim, folds):
+        monkeypatch, dim, route):
     """``mlp_route``: 'auto' folds the LN into K3 ('lnfres') wherever D and
     H are multiples of 128, the JAX accelerator branch's condition
-    (``avsiam_tpu/models/layers.py:339-343``): at ViT-B's, ViT-L's and
-    ViT-H's widths, which the MLP kernels take; at a width that is no
-    multiple of 128 it runs the unfused 'dense' form. An explicit impl is
-    itself. A block in 'auto' at each width runs its MLP sub-block by that
-    route (on the CPU: the plain version of K3, or the dense ops)."""
+    (``avsiam_tpu/models/layers.py:339-343``), and K10 takes D in the
+    backward: at ViT-B's, ViT-L's and ViT-H's widths; above K10's widest
+    row it runs 'fres', at a width that is no multiple of 128 the unfused
+    'dense' form. An explicit impl is itself. A block in 'auto' at each
+    width runs its MLP sub-block by that route (on the CPU: the plain
+    version of K3, or the dense ops)."""
+    from avsiam_tpu_torch.ops.layernorm import LN_BWD_MAX_C
+    assert 1280 <= LN_BWD_MAX_C < 1536
     hidden = 4 * dim
-    assert players.mlp_route("auto", dim, hidden) == (
-        "lnfres" if folds else "dense")
+    assert players.mlp_route("auto", dim, hidden) == route
     for impl in ("lnfres", "fused", "fres", "dense"):
         assert players.mlp_route(impl, dim, hidden) == impl
     seen = []
@@ -437,7 +441,7 @@ def test_auto_mlp_route_takes_the_kernels_where_they_take_the_width(
             p.copy_(0.02 * torch.randn(p.shape, generator=gen))
     out = blk(torch.randn((1, 5, dim), generator=gen))
     assert bool(torch.isfinite(out).all())
-    assert seen == (["fused_ln_mlp"] if folds else [])
+    assert seen == (["fused_ln_mlp"] if route == "lnfres" else [])
 
 
 def test_lnfres_block_keeps_a_promoted_residual():
